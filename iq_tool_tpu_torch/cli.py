@@ -1,0 +1,408 @@
+"""Command-line interface of the torch port (the port of
+``iq_tool_tpu.cli`` for the chain this package runs).
+
+    python -m iq_tool_tpu_torch -i raw-file -o raw in.raw out.raw \\
+        --raw-file-input-rate 2048000 --raw-file-input-sample-format cs16 \\
+        --output-rate 1488375 --dc-block --freq-shift 100000 \\
+        --lowpass 400000 --device cuda
+
+The flags are the reference parser's for this slice, plus ``--device``
+(the counterpart of the reference's JAX_PLATFORMS).  ``--device cuda``
+without a card is an error; nothing falls back to the CPU.  Flags of the
+reference whose features are not ported yet are accepted by the parser
+and refused with a "not yet ported" error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import re
+import signal
+import sys
+
+from iq_tool_tpu import __version__
+from iq_tool_tpu import constants as C
+from iq_tool_tpu.formats import complex_formats
+from iq_tool_tpu.modules import INPUT_MODULES, OUTPUT_MODULES, get_input, get_output
+from iq_tool_tpu.presets import load_presets
+from iq_tool_tpu_torch.config import (AppConfig, apply_preset,
+                                      collect_filter_requests, resolve_rates,
+                                      validate)
+
+# flag dest -> the ROADMAP item that ports it
+_NOT_PORTED = {
+    "mesh_channel": "Queue 1 item 11", "mesh_time": "Queue 1 item 11",
+    "time_fold": "Queue 1 item 10", "checkpoint": "Queue 1 item 9",
+    "resume": "Queue 1 item 9", "profile_dir": "Queue 1 item 9",
+    "iq_correction": "Queue 1 item 8", "output_agc": "Queue 1 item 8",
+    "agc_profile": "Queue 1 item 8", "agc_target": "Queue 1 item 8",
+    "shift_after_resample": "Queue 1 item 8, K4",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="iq_tool_tpu_torch",
+        description="I/Q stream processor on PyTorch + CUDA "
+                    "(resample / shift / DC block / filter)")
+    p.add_argument("input_file", nargs="?", help="Input file (file sources)")
+    p.add_argument("output_file", nargs="?", help="Output file (file sinks)")
+    p.add_argument("--version", action="version",
+                   version=f"iq_tool_tpu_torch {__version__}")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="Device the chain runs on (default cuda; no fallback)")
+
+    g = p.add_argument_group("Required Input & Output")
+    g.add_argument("-i", "--input", required=True, metavar="TYPE",
+                   help="Input type {%s}" % "|".join(sorted(INPUT_MODULES)))
+    g.add_argument("-o", "--output", required=True, metavar="TYPE",
+                   help="Output type {%s}" % "|".join(sorted(OUTPUT_MODULES)))
+
+    g = p.add_argument_group("Output Options")
+    g.add_argument("--output-sample-format", metavar="FMT",
+                   help="Sample format for output data {%s}" %
+                        "|".join(complex_formats()))
+    g.add_argument("--force-overwrite", action="store_true",
+                   help="Overwrite existing output files without prompting")
+
+    g = p.add_argument_group("Processing Options")
+    g.add_argument("--output-rate", type=float, metavar="HZ",
+                   help="Output sample rate in Hz")
+    g.add_argument("--gain-multiplier", type=float, default=1.0, metavar="G",
+                   help="Linear gain multiplier applied to input samples")
+    g.add_argument("--freq-shift", type=float, metavar="HZ",
+                   help="Frequency shift in Hz (e.g. -100e3)")
+    g.add_argument("--shift-after-resample", action="store_true",
+                   help="(not yet ported)")
+    g.add_argument("--no-resample", action="store_true",
+                   help="Process at the native input rate")
+    g.add_argument("--raw-passthrough", action="store_true",
+                   help="Bypass all processing; copy raw bytes")
+    g.add_argument("--iq-correction", action="store_true",
+                   help="(not yet ported)")
+    g.add_argument("--dc-block", action="store_true",
+                   help="Enable DC offset removal")
+    g.add_argument("--preset", metavar="NAME", help="Apply a named preset")
+    g.add_argument("--list-presets", action="store_true",
+                   help="List available presets and exit")
+
+    g = p.add_argument_group("Output AGC (not yet ported)")
+    g.add_argument("--output-agc", action="store_true", help=argparse.SUPPRESS)
+    g.add_argument("--agc-profile", metavar="P", help=argparse.SUPPRESS)
+    g.add_argument("--agc-target", type=float, metavar="T", help=argparse.SUPPRESS)
+
+    g = p.add_argument_group(
+        "Filtering Options (chain up to 5 with suffixes -2..-5)")
+    for i in range(1, C.FILTER_MAX_CHAIN + 1):
+        sfx = "" if i == 1 else f"-{i}"
+        show = i == 1
+        g.add_argument(f"--lowpass{sfx}", type=float, metavar="HZ",
+                       help="Keep -<hz>..+<hz> around DC" if show
+                       else argparse.SUPPRESS)
+        g.add_argument(f"--highpass{sfx}", type=float, metavar="HZ",
+                       help="Reject -<hz>..+<hz> around DC" if show
+                       else argparse.SUPPRESS)
+        g.add_argument(f"--pass-range{sfx}", metavar="LO:HI",
+                       help="Isolate a band, e.g. 102e3:215e3" if show
+                       else argparse.SUPPRESS)
+        g.add_argument(f"--stopband{sfx}", metavar="LO:HI",
+                       help="Notch a band, e.g. -10e3:10e3" if show
+                       else argparse.SUPPRESS)
+
+    g = p.add_argument_group("Filter Quality Options")
+    g.add_argument("--transition-width", type=float, metavar="HZ",
+                   help="Filter sharpness (transition width in Hz)")
+    g.add_argument("--filter-taps", type=int, metavar="N",
+                   help="Exact filter length (overrides --transition-width)")
+    g.add_argument("--attenuation", type=float, metavar="DB",
+                   help="Stop-band attenuation in dB (default 60)")
+    g.add_argument("--filter-type", metavar="T",
+                   help="Filter implementation {fir|fft} (fft not yet ported)")
+    g.add_argument("--filter-fft-size", type=int, metavar="N",
+                   help=argparse.SUPPRESS)
+
+    g = p.add_argument_group("SDR General Options")
+    g.add_argument("--sdr-rf-freq", type=float, metavar="HZ",
+                   help="(Required for SDR inputs) Tuner center frequency in Hz")
+    g.add_argument("--sdr-sample-rate", type=float, metavar="HZ",
+                   help="SDR sample rate in Hz (device-specific default)")
+    g.add_argument("--sdr-bias-t", action="store_true",
+                   help="Enable Bias-T power")
+    g.add_argument("--sdr-buffered", action="store_true",
+                   help="Buffered capture mode (IQPK packets)")
+
+    g = p.add_argument_group("Performance Options")
+    g.add_argument("--block-size", type=int, default=C.DEFAULT_BLOCK_SIZE,
+                   metavar="N", help="Device block size in frames")
+    g.add_argument("--pipeline-depth", type=int, default=C.PIPELINE_DEPTH,
+                   metavar="N", help="Device steps kept in flight before a "
+                   "readback")
+    g.add_argument("--channels", type=int, default=1, metavar="N",
+                   help="Process N independent streams as one batch. File "
+                        "paths then take a {ch} placeholder (in_{ch}.raw) "
+                        "or N comma-separated paths")
+    g.add_argument("--mesh-channel", type=int, help=argparse.SUPPRESS)
+    g.add_argument("--mesh-time", type=int, help=argparse.SUPPRESS)
+    g.add_argument("--time-fold", type=int, help=argparse.SUPPRESS)
+    g.add_argument("--profile-dir", help=argparse.SUPPRESS)
+
+    g = p.add_argument_group("Reliability Options")
+    g.add_argument("--log-level", default="info", metavar="L",
+                   help="Log level {trace|debug|info|warn|error} (default info)")
+    g.add_argument("--checkpoint", help=argparse.SUPPRESS)
+    g.add_argument("--checkpoint-interval", type=float, default=30.0,
+                   help=argparse.SUPPRESS)
+    g.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
+
+    for mod in list(INPUT_MODULES.values()) + list(OUTPUT_MODULES.values()):
+        mod.add_cli_options(p)
+    return p
+
+
+def config_from_args(args) -> AppConfig:
+    cfg = AppConfig(
+        input_type=args.input, output_type=args.output,
+        input_path=args.input_file, output_path=args.output_file,
+        output_format=args.output_sample_format,
+        target_rate=args.output_rate,
+        no_resample=args.no_resample,
+        raw_passthrough=args.raw_passthrough,
+        gain=args.gain_multiplier,
+        freq_shift_hz=args.freq_shift,
+        dc_block=args.dc_block,
+        filters=collect_filter_requests(args),
+        transition_width_hz=args.transition_width,
+        filter_taps=args.filter_taps,
+        attenuation_db=args.attenuation,
+        filter_type=args.filter_type,
+        filter_fft_size=args.filter_fft_size,
+        preset_name=args.preset,
+        force_overwrite=args.force_overwrite,
+    )
+    if cfg.preset_name:
+        presets, path = load_presets()
+        pr = presets.get(cfg.preset_name.lower())
+        if pr is None:
+            raise ValueError(
+                f"unknown preset '{cfg.preset_name}'"
+                + (f" (presets file: {path})" if path else " (no presets file found)"))
+        apply_preset(cfg, pr)
+    return cfg
+
+
+def expand_channel_paths(path: str | None, n: int, what: str) -> list:
+    """N per-channel paths from a '{ch}' template or a comma-separated list."""
+    if n == 1:
+        return [path]
+    if path is None:
+        raise ValueError(f"--channels {n} needs {n} {what} paths")
+    if "{ch}" in path:
+        return [path.replace("{ch}", str(c)) for c in range(n)]
+    parts = [s for s in path.split(",") if s]
+    if len(parts) != n:
+        raise ValueError(
+            f"--channels {n}: give a '{{ch}}' template or {n} "
+            f"comma-separated {what} paths (got {len(parts)})")
+    return parts
+
+
+def build_chain(cfg: AppConfig, block_size: int, channels: int, device):
+    from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
+    if cfg.raw_passthrough:
+        return None
+    shift = cfg.freq_shift_hz if cfg.freq_shift_hz is not None else cfg.nco_shift_hz
+    return Chain(ChainConfig(
+        channels=channels,
+        input_format=cfg.input_format,
+        output_format=cfg.output_format,
+        input_rate=cfg.input_rate,
+        target_rate=None if cfg.no_resample else cfg.target_rate,
+        gain=cfg.gain,
+        dc_block=cfg.dc_block,
+        freq_shift_pre_hz=shift or 0.0,
+        filters=tuple(cfg.filters),
+        filter_method=cfg.filter_type or "auto",
+        filter_fft_size=cfg.filter_fft_size,
+        filter_taps=cfg.filter_taps,
+        filter_transition_hz=cfg.transition_width_hz,
+        filter_attenuation_db=cfg.attenuation_db or C.RESAMPLER_ATTENUATION_DB,
+        target_block=block_size,
+    ), device=device)
+
+
+def _print_summary_table(title: str, items: dict, file=sys.stderr) -> None:
+    if not items:
+        return
+    print(f"--- {title} ---", file=file)
+    width = max(len(k) for k in items)
+    for k, v in items.items():
+        print(f"  {k:<{width}} : {v}", file=file)
+
+
+def _progress(summary, elapsed, total_frames) -> None:
+    mb = summary.bytes_out / 1e6
+    rate = mb / elapsed if elapsed > 0 else 0.0
+    msps = summary.frames_in / 1e6 / elapsed if elapsed > 0 else 0.0
+    pct = ""
+    if total_frames:
+        pct = f" ({100.0 * summary.frames_in / total_frames:5.1f}%)"
+    print(f"\r  {summary.frames_out} frames out{pct}  {mb:.1f} MB  "
+          f"{rate:.1f} MB/s  {msps:.1f} Msps", end="", file=sys.stderr,
+          flush=True)
+
+
+_NUM_RE = re.compile(r"^-\d+(\.\d*)?([eE][+-]?\d+)?"
+                     r"(:[+-]?\d+(\.\d*)?([eE][+-]?\d+)?)?$")
+
+
+def _fix_negative_numbers(argv: list[str]) -> list[str]:
+    """argparse rejects '--freq-shift -50e3' and '--stopband -5e3:5e3' (a
+    leading '-' looks like an option): merge such values into
+    '--opt=value' form."""
+    out = []
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if (tok.startswith("--") and "=" not in tok and i + 1 < len(argv)
+                and _NUM_RE.match(argv[i + 1])):
+            out.append(f"{tok}={argv[i + 1]}")
+            i += 2
+        else:
+            out.append(tok)
+            i += 1
+    return out
+
+
+def _check_preset_pseudo_flags(parser, argv) -> None:
+    """Catch '--cu8-nrsc5' style mistakes (a preset name used as a flag)
+    before argparse's generic error."""
+    flagged = [t for t in argv if t.startswith("--")]
+    if not flagged:
+        return
+    try:
+        presets, _ = load_presets()
+    except (OSError, ValueError):
+        return
+    for tok in flagged:
+        name = tok[2:].split("=")[0].lower()
+        if name in presets:
+            parser.error(
+                f"'{tok}' is a preset name, not an option; presets are "
+                f"applied with --preset {name}")
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    argv = _fix_negative_numbers(list(sys.argv[1:] if argv is None else argv))
+    _check_preset_pseudo_flags(parser, argv)
+    args = parser.parse_args(argv)
+    for dest, item in _NOT_PORTED.items():
+        if getattr(args, dest, None):
+            flag = "--" + dest.replace("_", "-")
+            parser.error(f"{flag} is not yet ported to iq_tool_tpu_torch "
+                         f"(ROADMAP {item})")
+
+    if args.list_presets:
+        presets, path = load_presets()
+        print(f"Presets from {path}:" if path else "No presets file found.")
+        for name, pr in sorted(presets.items()):
+            print(f"  {name:<22} {pr.values.get('description', '')}")
+        return 0
+
+    from iq_tool_tpu.utils.log import configure as configure_log
+    configure_log(args.log_level)
+
+    def _sigterm(_sig, _frm):
+        raise KeyboardInterrupt
+    try:
+        signal.signal(signal.SIGTERM, _sigterm)
+    except ValueError:
+        pass  # not the main thread (library use)
+
+    from iq_tool_tpu_torch.pipeline.runtime import StreamEngine
+    try:
+        cfg = config_from_args(args)
+        if cfg.iq_correction or cfg.output_agc:
+            raise NotImplementedError(
+                f"preset {cfg.preset_name!r} needs I/Q correction or AGC, not "
+                "yet ported to iq_tool_tpu_torch (ROADMAP Queue 1 item 8)")
+        n_ch = max(1, args.channels)
+        in_paths = expand_channel_paths(cfg.input_path, n_ch, "input")
+        out_paths = expand_channel_paths(cfg.output_path, n_ch, "output")
+        sources, sinks, infos = [], [], []
+        for c in range(n_ch):
+            src = get_input(cfg.input_type)
+            src_cfg = (cfg if n_ch == 1
+                       else dataclasses.replace(cfg, input_path=in_paths[c],
+                                                output_path=out_paths[c]))
+            infos.append(src.initialize(src_cfg, args))
+            sources.append(src)
+        source, info = sources[0], infos[0]
+        if n_ch > 1:
+            if source.is_realtime:
+                raise ValueError("--channels needs file/network sources")
+            for c, other in enumerate(infos[1:], 1):
+                if (other.sample_rate != info.sample_rate
+                        or other.sample_format != info.sample_format):
+                    raise ValueError(
+                        f"channel {c} ({in_paths[c]}) has rate/format "
+                        f"{other.sample_rate}/{other.sample_format}, "
+                        f"channel 0 has {info.sample_rate}/{info.sample_format}")
+        cfg.nco_shift_hz = info.nco_shift_hz
+        resolve_rates(cfg, info.sample_rate, info.sample_format)
+        validate(cfg)
+        chain = build_chain(cfg, args.block_size, n_ch, args.device)
+        for c in range(n_ch):
+            snk = get_output(cfg.output_type)
+            snk_cfg = (cfg if n_ch == 1
+                       else dataclasses.replace(cfg, input_path=in_paths[c],
+                                                output_path=out_paths[c]))
+            snk.initialize(snk_cfg, args)
+            sinks.append(snk)
+        sink = sinks[0]
+
+        summary_items = {"Device": args.device,
+                         "Input Type": cfg.input_type,
+                         "Input Rate": f"{cfg.input_rate:.6g} Hz",
+                         "Output Rate": f"{cfg.output_rate:.6g} Hz",
+                         "Output Format": cfg.output_format}
+        summary_items.update(source.summary())
+        summary_items.update(sink.summary())
+        if chain is not None:
+            pl = chain.resampler.plan
+            summary_items["Resample Ratio"] = f"{pl.p}/{pl.q} = {pl.p / pl.q:.9g}"
+        if sink.requires_output_path:
+            _print_summary_table("Configuration Summary", summary_items)
+
+        engine = StreamEngine(chain, sources if n_ch > 1 else source,
+                              sinks if n_ch > 1 else sink,
+                              raw_passthrough=cfg.raw_passthrough,
+                              progress=_progress if sink.requires_output_path else None,
+                              progress_total_frames=info.total_frames,
+                              pipeline_depth=args.pipeline_depth)
+        try:
+            s = engine.run()
+        finally:
+            for snk in sinks:
+                snk.finalize()
+            for src in sources:
+                src.close()
+        if sink.requires_output_path:
+            print(file=sys.stderr)
+            _print_summary_table("Final Summary", {
+                "Duration": f"{s.duration_sec:.2f} s",
+                "Frames In": s.frames_in,
+                "Frames Out": s.frames_out,
+                "Bytes Out": s.bytes_out,
+                "Average Speed": f"{s.avg_mb_per_sec:.2f} MB/s",
+                "Status": "interrupted" if s.interrupted else "complete",
+            })
+        return 130 if s.interrupted else 0
+    except (ValueError, OSError, NotImplementedError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

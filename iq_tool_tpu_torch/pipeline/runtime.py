@@ -1,0 +1,363 @@
+"""Host streaming engine: feeds the chain from input module(s) and drains
+it into output module(s) (the port of ``iq_tool_tpu.pipeline.runtime``).
+
+Three host threads around the device queue:
+
+  reader thread  ->  bounded chunk queue (HOST_QUEUE_DEPTH)
+      -> main thread: pinned host copy + step launch (asynchronous on CUDA)
+  -> bounded output queue (pipeline_depth)  ->  writer thread: waits for
+      the step's copy-back event, then writes the sinks
+
+so source I/O, device work and sink I/O overlap, while the output bytes
+stay identical at any queue depth (FIFO order end to end).  On CUDA each
+block goes host -> device as a ``non_blocking`` copy from pinned memory,
+and each output comes back into a pinned tensor on the current stream,
+with an event the writer waits on.  EOS pads the final partial block with
+zeros and trims the output to exactly floor(valid_in * P/Q) frames;
+stream discontinuities set the step's reset flag.
+
+Multi-channel: N sources + N sinks drive a ``channels=N`` chain; channels
+advance in lockstep, a multi-channel stream ends at the SHORTEST channel
+and a discontinuity on any channel resets the whole chain at the next
+block boundary.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue as queue_mod
+import threading
+import time
+
+import numpy as np
+import torch
+
+from iq_tool_tpu import constants as C
+from iq_tool_tpu.modules.base import OutputClosed
+from iq_tool_tpu_torch.pipeline.chain import Chain
+
+
+@dataclasses.dataclass
+class StreamSummary:
+    frames_in: int = 0
+    frames_out: int = 0
+    bytes_out: int = 0
+    duration_sec: float = 0.0
+    interrupted: bool = False
+
+    @property
+    def avg_mb_per_sec(self) -> float:
+        if self.duration_sec <= 0:
+            return 0.0
+        return self.bytes_out / 1e6 / self.duration_sec
+
+
+class _Writer:
+    """Drains (host tensor, ready event, emit_frames) items in FIFO order:
+    waits for the copy-back, splits per channel, writes each sink.  The
+    bounded queue is the device pipeline: up to ``depth`` steps stay in
+    flight before the oldest one is waited on."""
+
+    def __init__(self, sinks, items_per_frame: int,
+                 summary: StreamSummary, depth: int):
+        self._sinks = sinks
+        self._items = items_per_frame
+        self._q = queue_mod.Queue(maxsize=max(1, depth))
+        self._summary = summary
+        self.closed = False            # an OutputClosed arrived
+        self.error: BaseException | None = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="iq-writer")
+        self._thread.start()
+
+    def put(self, host: torch.Tensor, ready, emit: int) -> None:
+        self._q.put((host, ready, emit))
+
+    def flush(self) -> None:
+        self._q.join()
+
+    def stop(self) -> None:
+        try:
+            # a consumer stuck mid-write keeps the queue full; do not let
+            # shutdown hang on it (the thread is a daemon)
+            self._q.put(None, timeout=2.0)
+        except queue_mod.Full:
+            self.closed = True
+        self._thread.join(timeout=10.0)
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            host, ready, emit = item
+            try:
+                if not self.closed:
+                    if ready is not None:
+                        ready.synchronize()
+                    arr = host.numpy()
+                    n_items = emit * self._items
+                    for c, sink in enumerate(self._sinks):
+                        sink.write(arr[c, :n_items].tobytes())
+                    self._summary.frames_out += emit
+                    self._summary.bytes_out += (n_items * arr.itemsize
+                                                * len(self._sinks))
+            except OutputClosed:
+                self.closed = True
+            except BaseException as e:      # surfaced on the main thread
+                self.error = e
+                self.closed = True
+            finally:
+                self._q.task_done()
+
+
+class _Reader:
+    """Pumps assembled chunks from a generator into a bounded queue so
+    source I/O overlaps device work."""
+
+    _EOS = ("eos", None, 0, False)
+
+    def __init__(self, gen, depth: int = C.HOST_QUEUE_DEPTH):
+        self._q = queue_mod.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._gen = gen
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="iq-reader")
+        self._thread.start()
+
+    def get(self):
+        return self._q.get()
+
+    def stop(self) -> None:
+        self._stop.set()
+        # drain so a blocked put wakes up, then wait for exit
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue_mod.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def _run(self) -> None:
+        try:
+            for item in self._gen:
+                if not self._put(("chunk",) + item):
+                    return
+        except BaseException as e:
+            self._put(("err", e, 0, False))
+            return
+        self._put(self._EOS)
+
+
+class StreamEngine:
+    """Single- or multi-channel stream runner.
+
+    ``source``/``sink`` may each be a single module or a sequence of
+    ``channels`` modules (one stream per channel, lockstep).  Checkpoint
+    and resume are not ported yet (ROADMAP Queue 1 item 9)."""
+
+    def __init__(self, chain: Chain | None, source, sink,
+                 raw_passthrough: bool = False,
+                 progress=None, progress_total_frames: int | None = None,
+                 checkpoint_path: str | None = None,
+                 resume: bool = False,
+                 pipeline_depth: int = C.PIPELINE_DEPTH):
+        if checkpoint_path or resume:
+            raise NotImplementedError(
+                "checkpoint and resume are not ported to iq_tool_tpu_torch "
+                "yet (ROADMAP Queue 1 item 9)")
+        if chain is None and not raw_passthrough:
+            raise ValueError("need a chain unless raw_passthrough")
+        self.chain = chain
+        self.sources = (list(source) if isinstance(source, (list, tuple))
+                        else [source])
+        self.sinks = (list(sink) if isinstance(sink, (list, tuple))
+                      else [sink])
+        self.source = self.sources[0]
+        self.sink = self.sinks[0]
+        self.raw_passthrough = raw_passthrough
+        self.progress = progress
+        self.total_frames = progress_total_frames
+        self.pipeline_depth = max(1, pipeline_depth)
+        n_ch = len(self.sources)
+        if len(self.sinks) != n_ch:
+            raise ValueError(
+                f"{n_ch} sources need {n_ch} sinks, got {len(self.sinks)}")
+        if chain is not None and chain.cfg.channels != n_ch:
+            raise ValueError(
+                f"chain has channels={chain.cfg.channels} but "
+                f"{n_ch} source streams were given")
+        if raw_passthrough and n_ch != 1:
+            raise ValueError("raw passthrough is single-stream")
+
+    def run(self) -> StreamSummary:
+        if self.raw_passthrough:
+            return self._run_passthrough()
+        return self._run_chain()
+
+    def _run_passthrough(self) -> StreamSummary:
+        s = StreamSummary()
+        t0 = time.monotonic()
+        last_prog = t0
+        try:
+            for block in self.source.blocks(C.DEFAULT_BLOCK_SIZE):
+                self.sink.write(block.payload)
+                s.bytes_out += len(block.payload)
+                last_prog = self._progress_tick(s, t0, last_prog)
+        except OutputClosed:
+            pass                # consumer closed the pipe: graceful stop
+        except KeyboardInterrupt:
+            s.interrupted = True
+        s.duration_sec = time.monotonic() - t0
+        return s
+
+    # ----------------------------------------------------- chunk assembly
+
+    def _gen_single(self, block_bytes: int, bpf: int):
+        """Single-channel chunk generator; drains the pre-gap remainder of
+        a discontinuity as its own short block."""
+        buf = bytearray()
+        pending_reset = False
+        src = self.sources[0].blocks(block_bytes // bpf)
+        while True:
+            block = next(src, None)
+            if block is None:
+                if buf:
+                    valid = len(buf) // bpf
+                    if valid:
+                        yield ([bytes(buf[:valid * bpf])], valid,
+                               pending_reset)
+                return
+            if block.discontinuity:
+                if buf:
+                    valid = len(buf) // bpf
+                    if valid:
+                        yield [bytes(buf[:valid * bpf])], valid, pending_reset
+                    buf.clear()
+                pending_reset = True
+            buf.extend(block.payload)
+            while len(buf) >= block_bytes:
+                yield [bytes(buf[:block_bytes])], block_bytes // bpf, \
+                    pending_reset
+                pending_reset = False
+                del buf[:block_bytes]
+
+    def _gen_multi(self, block_bytes: int, bpf: int):
+        """Lockstep multi-channel chunk generator; ends at the shortest
+        channel."""
+        n = len(self.sources)
+        bufs = [bytearray() for _ in range(n)]
+        iters = [s.blocks(block_bytes // bpf) for s in self.sources]
+        done = [False] * n
+        pending_reset = False
+        while True:
+            for c in range(n):
+                while len(bufs[c]) < block_bytes and not done[c]:
+                    block = next(iters[c], None)
+                    if block is None:
+                        done[c] = True
+                        break
+                    if block.discontinuity:
+                        pending_reset = True
+                    bufs[c].extend(block.payload)
+            if all(len(b) >= block_bytes for b in bufs):
+                yield ([bytes(b[:block_bytes]) for b in bufs],
+                       block_bytes // bpf, pending_reset)
+                pending_reset = False
+                for b in bufs:
+                    del b[:block_bytes]
+                continue
+            valid = min(len(b) // bpf for b in bufs)
+            if valid:
+                yield ([bytes(b[:valid * bpf]) for b in bufs], valid,
+                       pending_reset)
+            return
+
+    # ------------------------------------------------------------- chain
+
+    def _run_chain(self) -> StreamSummary:
+        ch = self.chain
+        bpf = ch.fmt_in.bytes_per_frame
+        block_bytes = ch.n_in * bpf
+        n_channels = ch.cfg.channels
+        on_cuda = ch.device.type == "cuda"
+        carry = ch.init_carry(n_channels)
+        s = StreamSummary()
+        t0 = time.monotonic()
+        last_prog = t0
+        scheduled_out = 0
+        gen_fn = self._gen_single if n_channels == 1 else self._gen_multi
+        reader = _Reader(gen_fn(block_bytes, bpf))
+        writer = _Writer(self.sinks, ch.fmt_out.items_per_frame, s,
+                         self.pipeline_depth)
+
+        def process(chunks: list[bytes], valid_frames: int, reset: bool):
+            nonlocal carry, scheduled_out
+            rows = []
+            for chunk in chunks:
+                if len(chunk) < block_bytes:
+                    chunk = chunk + b"\x00" * (block_bytes - len(chunk))
+                rows.append(np.frombuffer(chunk, dtype=ch.in_wire_dtype))
+            host_in = torch.from_numpy(np.stack(rows, axis=0))
+            if on_cuda:
+                raw = host_in.pin_memory().to(ch.device, non_blocking=True)
+            else:
+                raw = host_in
+            carry, out = ch.step(carry, raw, reset)
+            s.frames_in += valid_frames
+            allowed = ch.expected_out_frames(s.frames_in)
+            emit = max(0, min(allowed - scheduled_out, ch.n_out))
+            scheduled_out += emit
+            ready = None
+            if on_cuda:
+                host_out = torch.empty(out.shape, dtype=out.dtype,
+                                       pin_memory=True)
+                host_out.copy_(out, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                host_out = out
+            writer.put(host_out, ready, emit)   # blocks when the pipe is full
+
+        try:
+            while True:
+                kind, payload, valid, reset = reader.get()
+                if kind == "eos":
+                    break
+                if kind == "err":
+                    raise payload
+                process(payload, valid, reset)
+                if writer.error is not None:
+                    raise writer.error
+                if writer.closed:
+                    break
+                last_prog = self._progress_tick(s, t0, last_prog)
+            writer.flush()
+        except KeyboardInterrupt:
+            s.interrupted = True
+            writer.flush()
+        finally:
+            reader.stop()
+            writer.stop()
+        if writer.error is not None and not isinstance(writer.error,
+                                                       OutputClosed):
+            raise writer.error
+        s.duration_sec = time.monotonic() - t0
+        return s
+
+    def _progress_tick(self, s: StreamSummary, t0: float, last: float) -> float:
+        now = time.monotonic()
+        if self.progress and now - last >= C.PROGRESS_INTERVAL_SEC:
+            self.progress(s, now - t0, self.total_frames)
+            return now
+        return last

@@ -26,3 +26,9 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(1234)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card and skips without one (on the "
+        "card: pytest --noconftest -m gpu tests/test_torch_gpu.py)")

@@ -1,0 +1,193 @@
+"""The port's kernel twins (ops/kernels.py) against the JAX package's
+Pallas kernels, run in interpret mode on the CPU as the JAX tests run
+them, at the flagship stage geometries.  The kernels themselves are held
+against the twins on the card in tests/test_torch_gpu.py.
+
+Bounds: the Pallas kernels multiply in 3-term split bf16 (~88 dB), the
+twins in float32, so planar outputs, tails and DC state are held to
+>= 80 dB and packed cs16 codes to |delta| <= 2.  The twins' own packed
+epilogue is checked bit for bit against their planar output.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from iq_tool_tpu.formats import get_format  # noqa: E402
+from iq_tool_tpu.ops import pallas_kernels  # noqa: E402
+from iq_tool_tpu_torch.ops import convert, kernels  # noqa: E402
+from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
+from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig  # noqa: E402
+from tests import ref_dsp  # noqa: E402
+
+CH = 8
+DC_ALPHA = 3.0679615757712826e-05        # 10 Hz pole at 2.048 Msps
+DTHETA = 209715200                       # +100 kHz at 2.048 Msps
+
+
+def _flagship_stages(block=131072):
+    cfg = ChainConfig(input_format="cs16", output_format="cs16",
+                      input_rate=2_048_000.0, target_rate=1_488_375.0,
+                      dc_block=True, freq_shift_pre_hz=100e3,
+                      filters=(FilterRequest("lowpass", 400e3),),
+                      target_block=block)
+    return Chain(cfg, device="cpu").resampler.stages
+
+
+def _cs16_wire(rng, n, ch=CH):
+    t = np.arange(n) / 2.048e6
+    x = (0.4 * np.exp(2j * np.pi * 51e3 * t)[None, :]
+         + 0.05 * (rng.standard_normal((ch, n)) + 1j * rng.standard_normal((ch, n)))
+         + 0.08)
+    pairs = np.stack([x.real, x.imag], -1).reshape(ch, 2 * n)
+    return np.clip(np.round(pairs * 32767), -32768, 32767).astype(np.int16)
+
+
+def _snr(want, got):
+    return ref_dsp.snr_db(np.asarray(want, np.float64).ravel(),
+                          np.asarray(got, np.float64).ravel())
+
+
+def _codes(packed):
+    """(I, Q) int codes of a packed cs16 tensor / array."""
+    p = np.asarray(packed).astype(np.int64) & 0xFFFFFFFF
+    lo, hi = p & 0xFFFF, p >> 16
+    return lo - ((lo >> 15) << 16), hi - ((hi >> 15) << 16)
+
+
+def _max_code_diff(a, b):
+    (ai, aq), (bi, bq) = _codes(a), _codes(b)
+    return max(np.abs(ai - bi).max(), np.abs(aq - bq).max())
+
+
+def _t(a, dtype=None):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if dtype is None else a.astype(dtype))
+
+
+@pytest.mark.parametrize("with_nco", [False, True])
+def test_k1_twin_matches_pallas(rng, with_nco):
+    st0 = _flagship_stages()[0]
+    s, hist, g = st0.stride, st0.hist, st0._a.shape[1]
+    assert (s, hist, g) == (512, 31, 441)
+    nb = 16
+    n = nb * s
+    raw = _cs16_wire(rng, n)
+    sr = (rng.standard_normal((CH, hist)) * 0.1).astype(np.float32)
+    si = (rng.standard_normal((CH, hist)) * 0.1).astype(np.float32)
+    dc = (rng.standard_normal((CH, 4)) * 0.05).astype(np.float32)
+    pacc = rng.integers(0, 2 ** 32, (CH,), dtype=np.uint32)
+    dth = DTHETA if with_nco else 0
+    norm = get_format("cs16").normalizer
+    wire = _t(raw).view(torch.int32)
+    jwire = jnp.asarray(wire.numpy())
+    launches = kernels.banded_apply_dc.launches
+    for pack in (None, "cs16"):
+        want = pallas_kernels.banded_apply_dc(
+            jnp.asarray(sr), jnp.asarray(si), jnp.asarray(dc), DC_ALPHA,
+            st0._a, None, s, hist, wire_i32=jwire, wire_norm=norm,
+            nco_dtheta=dth, nco_phase=jnp.asarray(pacc)[:, None] if dth else None,
+            pack_fmt=pack, interpret=True)
+        got = kernels.banded_apply_dc(
+            _t(sr), _t(si), _t(dc), DC_ALPHA, st0._a, None, s, hist,
+            wire_i32=wire, wire_norm=norm, nco_dtheta=dth,
+            nco_phase=_t(pacc, np.int64) if dth else None, pack_fmt=pack)
+        assert kernels.banded_apply_dc.launches == launches   # CPU: the twin
+        for w, gt in zip(want[1:], got[1:]):             # tails and DC state
+            assert _snr(w, gt.numpy()) >= 80.0
+        if pack:
+            assert _max_code_diff(want[0], got[0].numpy()) <= 2
+            planar = kernels.banded_apply_dc(
+                _t(sr), _t(si), _t(dc), DC_ALPHA, st0._a, None, s, hist,
+                wire_i32=wire, wire_norm=norm, nco_dtheta=dth,
+                nco_phase=_t(pacc, np.int64) if dth else None)[0]
+            np.testing.assert_array_equal(
+                convert.packed_to_wire(got[0], "cs16").numpy(),
+                convert.from_planar(*planar, "cs16").numpy())
+        else:
+            for w, gt in zip(want[0], got[0]):
+                assert _snr(w, gt.numpy()) >= 80.0
+
+
+def test_k2_twin_matches_pallas_shift_packed(rng):
+    st1 = _flagship_stages()[1]
+    s, hist, g = st1.stride, st1.hist, st1._a.shape[1]
+    assert (s, hist, g) == (256, 287, 216)
+    n = 24 * s
+    xr = (rng.standard_normal((CH, n)) * 0.2).astype(np.float32)
+    xi = (rng.standard_normal((CH, n)) * 0.2).astype(np.float32)
+    sr = (rng.standard_normal((CH, hist)) * 0.2).astype(np.float32)
+    si = (rng.standard_normal((CH, hist)) * 0.2).astype(np.float32)
+    args = lambda f: (f(sr), f(si), f(xr), f(xi), st1._a, None, s, hist)
+    want = pallas_kernels.banded_apply(*args(jnp.asarray), interpret=True,
+                                       pack_fmt="cs16")
+    launches = kernels.banded_apply.launches
+    got = kernels.banded_apply(*args(_t), pack_fmt="cs16")
+    assert kernels.banded_apply.launches == launches     # CPU runs the twin
+    assert _max_code_diff(want, got.numpy()) <= 2
+    planar = kernels.banded_apply(*args(_t))
+    want_planar = pallas_kernels.banded_apply(*args(jnp.asarray), interpret=True)
+    for w, gt in zip(want_planar, planar):
+        assert _snr(w, gt.numpy()) >= 80.0
+    np.testing.assert_array_equal(convert.packed_to_wire(got, "cs16").numpy(),
+                                  convert.from_planar(*planar, "cs16").numpy())
+
+
+def test_k2_twin_matches_pallas_assemble_wire_nco(rng):
+    st0 = _flagship_stages()[0]
+    s, hist = st0.stride, st0.hist
+    n = 16 * s
+    raw = _cs16_wire(rng, n)
+    sr = (rng.standard_normal((CH, hist)) * 0.2).astype(np.float32)
+    si = (rng.standard_normal((CH, hist)) * 0.2).astype(np.float32)
+    pacc = rng.integers(0, 2 ** 32, (CH,), dtype=np.uint32)
+    norm = get_format("cs16").normalizer
+    wire = _t(raw).view(torch.int32)
+    for pack in (None, "cs16"):
+        want = pallas_kernels.banded_apply(
+            jnp.asarray(sr), jnp.asarray(si), None, None, st0._a, None, s, hist,
+            interpret=True, pack_fmt=pack, wire_i32=jnp.asarray(wire.numpy()),
+            wire_norm=norm, nco_dtheta=DTHETA,
+            nco_phase=jnp.asarray(pacc)[:, None])
+        got = kernels.banded_apply(
+            _t(sr), _t(si), None, None, st0._a, None, s, hist, pack_fmt=pack,
+            wire_i32=wire, wire_norm=norm, nco_dtheta=DTHETA,
+            nco_phase=_t(pacc, np.int64))
+        if pack:
+            assert _max_code_diff(want, got.numpy()) <= 2
+        else:
+            for w, gt in zip(want, got):
+                assert _snr(w, gt.numpy()) >= 80.0
+
+
+def test_band_compression_is_the_same_map(rng):
+    """The kernels' band form (first row + K taps per column) holds every
+    non-zero of A, for the flagship stages at both block sizes."""
+    for block in (16384, 262144):
+        for st in _flagship_stages(block):
+            band = kernels.Band.build(st._a, st._a_i, "cpu")
+            rebuilt = np.zeros_like(st._a)
+            first = band.first.numpy()
+            taps = band.taps_r.numpy()
+            for i in range(st._a.shape[1]):
+                rebuilt[first[i]:first[i] + band.k, i] = taps[:, i]
+            np.testing.assert_array_equal(rebuilt, st._a)
+            assert band.k < st._a.shape[0] // 4      # mostly zeros skipped
+
+
+def test_wrappers_refuse_bad_inputs(rng):
+    st0 = _flagship_stages()[0]
+    z = torch.zeros((2, st0.hist))
+    x = torch.zeros((2, 4 * st0.stride))
+    with pytest.raises(ValueError):     # NCO needs wire input
+        kernels.banded_apply(z, z, x, x, st0._a, None, st0.stride, st0.hist,
+                             nco_dtheta=5, nco_phase=torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError):     # cs24 has no packed epilogue
+        kernels.banded_apply(z, z, x, x, st0._a, None, st0.stride, st0.hist,
+                             pack_fmt="cs24")
+    with pytest.raises(ValueError):     # K1 needs wire input
+        kernels.banded_apply_dc(z, z, torch.zeros((2, 4)), DC_ALPHA, st0._a,
+                                None, st0.stride, st0.hist, x, 0.0)
