@@ -6,7 +6,7 @@
         --output-rate 1488375 --dc-block --freq-shift 100000 \\
         --lowpass 400000 --device cuda
 
-The flags are the reference parser's for this slice, plus ``--device``
+The flags are the reference parser's for the ported features, plus ``--device``
 (the counterpart of the reference's JAX_PLATFORMS).  ``--device cuda``
 without a card is an error; nothing falls back to the CPU.  Flags of the
 reference whose features are not ported yet are accepted by the parser
@@ -35,9 +35,6 @@ _NOT_PORTED = {
     "mesh_channel": "Queue 1 item 11", "mesh_time": "Queue 1 item 11",
     "time_fold": "Queue 1 item 10", "checkpoint": "Queue 1 item 9",
     "resume": "Queue 1 item 9", "profile_dir": "Queue 1 item 9",
-    "iq_correction": "Queue 1 item 8", "output_agc": "Queue 1 item 8",
-    "agc_profile": "Queue 1 item 8", "agc_target": "Queue 1 item 8",
-    "shift_after_resample": "Queue 1 item 8, K4",
 }
 
 
@@ -45,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="iq_tool_tpu_torch",
         description="I/Q stream processor on PyTorch + CUDA "
-                    "(resample / shift / DC block / filter)")
+                    "(resample / shift / filter / AGC)")
     p.add_argument("input_file", nargs="?", help="Input file (file sources)")
     p.add_argument("output_file", nargs="?", help="Output file (file sinks)")
     p.add_argument("--version", action="version",
@@ -74,23 +71,26 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--freq-shift", type=float, metavar="HZ",
                    help="Frequency shift in Hz (e.g. -100e3)")
     g.add_argument("--shift-after-resample", action="store_true",
-                   help="(not yet ported)")
+                   help="Apply the frequency shift AFTER resampling")
     g.add_argument("--no-resample", action="store_true",
                    help="Process at the native input rate")
     g.add_argument("--raw-passthrough", action="store_true",
                    help="Bypass all processing; copy raw bytes")
     g.add_argument("--iq-correction", action="store_true",
-                   help="(not yet ported)")
+                   help="Enable automatic I/Q imbalance correction")
     g.add_argument("--dc-block", action="store_true",
                    help="Enable DC offset removal")
     g.add_argument("--preset", metavar="NAME", help="Apply a named preset")
     g.add_argument("--list-presets", action="store_true",
                    help="List available presets and exit")
 
-    g = p.add_argument_group("Output AGC (not yet ported)")
-    g.add_argument("--output-agc", action="store_true", help=argparse.SUPPRESS)
-    g.add_argument("--agc-profile", metavar="P", help=argparse.SUPPRESS)
-    g.add_argument("--agc-target", type=float, metavar="T", help=argparse.SUPPRESS)
+    g = p.add_argument_group("Output Automatic Gain Control (AGC)")
+    g.add_argument("--output-agc", action="store_true",
+                   help="Enable automatic gain control on the output")
+    g.add_argument("--agc-profile", metavar="P",
+                   help="AGC profile {dx|local|digital} (default: local)")
+    g.add_argument("--agc-target", type=float, metavar="T",
+                   help="AGC target magnitude (0.0 - 1.0)")
 
     g = p.add_argument_group(
         "Filtering Options (chain up to 5 with suffixes -2..-5)")
@@ -118,9 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--attenuation", type=float, metavar="DB",
                    help="Stop-band attenuation in dB (default 60)")
     g.add_argument("--filter-type", metavar="T",
-                   help="Filter implementation {fir|fft} (fft not yet ported)")
+                   help="Filter implementation {fir|fft} (default auto)")
     g.add_argument("--filter-fft-size", type=int, metavar="N",
-                   help=argparse.SUPPRESS)
+                   help="FFT size for the fft filter (power of two)")
 
     g = p.add_argument_group("SDR General Options")
     g.add_argument("--sdr-rf-freq", type=float, metavar="HZ",
@@ -170,7 +170,10 @@ def config_from_args(args) -> AppConfig:
         raw_passthrough=args.raw_passthrough,
         gain=args.gain_multiplier,
         freq_shift_hz=args.freq_shift,
-        dc_block=args.dc_block,
+        shift_after_resample=args.shift_after_resample,
+        dc_block=args.dc_block, iq_correction=args.iq_correction,
+        output_agc=args.output_agc, agc_profile=args.agc_profile,
+        agc_target=args.agc_target,
         filters=collect_filter_requests(args),
         transition_width_hz=args.transition_width,
         filter_taps=args.filter_taps,
@@ -212,6 +215,8 @@ def build_chain(cfg: AppConfig, block_size: int, channels: int, device):
     if cfg.raw_passthrough:
         return None
     shift = cfg.freq_shift_hz if cfg.freq_shift_hz is not None else cfg.nco_shift_hz
+    pre = 0.0 if cfg.shift_after_resample else (shift or 0.0)
+    post = (shift or 0.0) if cfg.shift_after_resample else 0.0
     return Chain(ChainConfig(
         channels=channels,
         input_format=cfg.input_format,
@@ -220,15 +225,39 @@ def build_chain(cfg: AppConfig, block_size: int, channels: int, device):
         target_rate=None if cfg.no_resample else cfg.target_rate,
         gain=cfg.gain,
         dc_block=cfg.dc_block,
-        freq_shift_pre_hz=shift or 0.0,
+        iq_correction=cfg.iq_correction,
+        freq_shift_pre_hz=pre,
+        freq_shift_post_hz=post,
         filters=tuple(cfg.filters),
         filter_method=cfg.filter_type or "auto",
         filter_fft_size=cfg.filter_fft_size,
         filter_taps=cfg.filter_taps,
         filter_transition_hz=cfg.transition_width_hz,
         filter_attenuation_db=cfg.attenuation_db or C.RESAMPLER_ATTENUATION_DB,
+        agc_profile=(cfg.agc_profile or "local") if cfg.output_agc else None,
+        agc_target=cfg.agc_target,
         target_block=block_size,
     ), device=device)
+
+
+def calibrate_carry(chain, sources, gain: float):
+    """The pre-stream I/Q calibration for rewindable sources: the chain's
+    initial carry with factors calibrated on each channel's first
+    IQ_FFT_SIZE frames, or None when a source cannot rewind."""
+    import numpy as np
+    import torch
+
+    from iq_tool_tpu_torch.ops import convert, iq_balance
+    cals = [src.calibration_frames(C.IQ_FFT_SIZE) for src in sources]
+    if any(c is None for c in cals):
+        return None
+    wire = torch.from_numpy(np.stack([np.frombuffer(c, chain.in_wire_dtype)
+                                      for c in cals], axis=0)).to(chain.device)
+    xr, xi = convert.to_planar(wire, chain.fmt_in, gain)
+    carry = chain.init_carry(len(sources))
+    carry["iq"] = dataclasses.replace(
+        carry["iq"], factors=iq_balance.calibrate(torch.complex(xr, xi)))
+    return carry
 
 
 def _print_summary_table(title: str, items: dict, file=sys.stderr) -> None:
@@ -323,10 +352,6 @@ def main(argv=None) -> int:
     from iq_tool_tpu_torch.pipeline.runtime import StreamEngine
     try:
         cfg = config_from_args(args)
-        if cfg.iq_correction or cfg.output_agc:
-            raise NotImplementedError(
-                f"preset {cfg.preset_name!r} needs I/Q correction or AGC, not "
-                "yet ported to iq_tool_tpu_torch (ROADMAP Queue 1 item 8)")
         n_ch = max(1, args.channels)
         in_paths = expand_channel_paths(cfg.input_path, n_ch, "input")
         out_paths = expand_channel_paths(cfg.output_path, n_ch, "output")
@@ -361,6 +386,9 @@ def main(argv=None) -> int:
             snk.initialize(snk_cfg, args)
             sinks.append(snk)
         sink = sinks[0]
+        initial_carry = None
+        if chain is not None and cfg.iq_correction:
+            initial_carry = calibrate_carry(chain, sources, cfg.gain)
 
         summary_items = {"Device": args.device,
                          "Input Type": cfg.input_type,
@@ -369,7 +397,7 @@ def main(argv=None) -> int:
                          "Output Format": cfg.output_format}
         summary_items.update(source.summary())
         summary_items.update(sink.summary())
-        if chain is not None:
+        if chain is not None and chain.resampler is not None:
             pl = chain.resampler.plan
             summary_items["Resample Ratio"] = f"{pl.p}/{pl.q} = {pl.p / pl.q:.9g}"
         if sink.requires_output_path:
@@ -380,6 +408,7 @@ def main(argv=None) -> int:
                               raw_passthrough=cfg.raw_passthrough,
                               progress=_progress if sink.requires_output_path else None,
                               progress_total_frames=info.total_frames,
+                              initial_carry=initial_carry,
                               pipeline_depth=args.pipeline_depth)
         try:
             s = engine.run()

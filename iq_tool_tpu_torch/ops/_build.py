@@ -1,11 +1,13 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared library
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` to an object, all
+sources at once in parallel, then links them into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 under ``build/iq_tool_tpu_torch/<source hash>/`` at the checkout's root.
-There is no ``--use_fast_math``: ``sincosf`` and division stay IEEE, so
-the kernels stay within rounding of their plain twins.  Nothing is built
-when this module is imported; ``library()`` builds on its first call.
+There is no ``--use_fast_math``: ``sincosf``, ``logf``, ``expf`` and
+division stay IEEE, so the kernels stay within rounding of their plain
+twins.  Nothing is built when this module is imported; ``library()``
+builds on its first call.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "iq_tool_tpu_torch"
-_SOURCES = ("banded.cu", "banded_dc.cu")
+_SOURCES = ("banded.cu", "banded_dc.cu", "post.cu", "osfft.cu", "iq_est.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -37,6 +39,14 @@ _SIGNATURES = {
                         _F, _P],
     "iq_dc_prologue": [_P, _I, _F, _F, _P, ctypes.c_double, _P, _U, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P],
+    "iq_dc_block_apply": [_P, _I, _F, _F, _P, _P, _P, ctypes.c_double, _P, _P,
+                          _U, _I, _I, _P, _P, _P, _P],
+    "iq_post_apply": [_P, _P, _P, _I, _I, _P, _U, _I, _I, _P, _I, _I, _F, _F,
+                      _F, _F, _P],
+    "iq_agc_rms_scan": [_P, _P, _P, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
+    "iq_osfft_apply": [_P, _P, _I, ctypes.c_longlong, _P, _P, _I, _P, _P, _I,
+                       _I, _P, _P, ctypes.c_longlong, _P],
+    "iq_est_descent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
 }
 
 
@@ -73,12 +83,31 @@ def build() -> Path:
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libiq_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "ptxas.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in _SOURCES]
+    procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(o), str(_CSRC / s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(_SOURCES, objs)]
+    logs, failed = [], []
+    for s, p in zip(_SOURCES, procs):
+        out, _ = p.communicate()
+        logs.append(f"== {s}\n{out}")
+        if p.returncode != 0:
+            failed.append(f"{s} ({p.returncode}):\n{out[-4000:]}")
+    tmp = out_dir / f"libiq_kernels.{tag}.so"
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    (out_dir / "ptxas.log").write_text("".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

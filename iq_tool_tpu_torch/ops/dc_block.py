@@ -9,8 +9,8 @@ The pole (1 - 3.07e-5 at 2.048 Msps) keeps every rounding error for
 ~32.6k samples, so the scan runs in float64 and rounds the output to
 float32 once: in float32 (the reference's choice) two summation orders
 already differ at ~100 dB on a full-scale noise wire, which would leave
-no margin to hold the CUDA kernel (csrc/banded_dc.cu, also float64
-inside) to its plain twin.
+no margin to hold the CUDA kernels (csrc/banded_dc.cu, also float64
+inside) to their plain twins.
 
 The state is one (C, 4) float32 tensor, columns [xr_prev, xi_prev,
 yr_prev, yi_prev] (the reference's PlanarDcState, stacked as its kernels
@@ -36,11 +36,16 @@ def init_planar(channels: int, device=None) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _tri_matrix(a: float, t: int) -> np.ndarray:
-    """M[i, j] = a^(i-j) for j <= i else 0; y_local = b @ M^T."""
+def _tile_consts(a: float, t: int, device: str):
+    """(M, decay) float64 on `device`, made once (a host-to-device copy
+    inside a step would block the host until the card drains):
+    M[i, j] = a^(i-j) for j <= i else 0, so y_local = b @ M^T, and
+    decay[j] = a^(j+1)."""
     i = np.arange(t)
     e = i[:, None] - i[None, :]
-    return np.where(e >= 0, np.float64(a) ** np.maximum(e, 0), 0.0)
+    m = np.where(e >= 0, np.float64(a) ** np.maximum(e, 0), 0.0)
+    decay = np.float64(a) ** np.arange(1, t + 1)
+    return torch.from_numpy(m).to(device), torch.from_numpy(decay).to(device)
 
 
 def _tile_size(n: int, cap: int = 256, floor: int = 32) -> int:
@@ -79,20 +84,39 @@ def apply_plane(x: torch.Tensor, x_prev: torch.Tensor, y_prev: torch.Tensor,
         y = _scan(a, b).float()
         return y, x[:, -1], y[:, -1]
     nb = n // t
-    m = torch.from_numpy(_tri_matrix(a, t)).to(x.device)
+    m, decay = _tile_consts(a, t, str(x.device))
     y_local = torch.matmul(b.reshape(c, nb, t), m.T)
     ends = y_local[:, :, -1]
     carry = _scan(a ** t, ends)
     prev = torch.cat([torch.zeros((c, 1), dtype=b.dtype, device=x.device),
                       carry[:, :-1]], dim=-1)
-    decay = torch.from_numpy(np.float64(a) ** np.arange(1, t + 1)).to(x.device)
     y = (y_local + prev[:, :, None] * decay).reshape(c, n).float()
     return y, x[:, -1], y[:, -1]
 
 
-def apply_planar(xr: torch.Tensor, xi: torch.Tensor, state: torch.Tensor,
-                 alpha: float):
-    """Planar f32 (C, N) planes -> (yr, yi, new (C, 4) state)."""
+def apply_planar_ref(xr: torch.Tensor, xi: torch.Tensor, state: torch.Tensor,
+                     alpha: float):
+    """The plain path on any device: planar f32 (C, N) planes -> (yr, yi,
+    new (C, 4) state)."""
     yr, xr_l, yr_l = apply_plane(xr, state[:, 0], state[:, 2], alpha)
     yi, xi_l, yi_l = apply_plane(xi, state[:, 1], state[:, 3], alpha)
     return yr, yi, torch.stack([xr_l, xi_l, yr_l, yi_l], dim=-1)
+
+
+def apply_planar(xr: torch.Tensor, xi: torch.Tensor, state: torch.Tensor,
+                 alpha: float):
+    """Planar f32 (C, N) planes -> (yr, yi, new (C, 4) state): the K3
+    kernel on a CUDA tensor (``kernels.dc_block_apply``), the plain path
+    on the CPU."""
+    from iq_tool_tpu_torch.ops import kernels
+    return kernels.dc_block_apply(xr, xi, state, alpha)
+
+
+def apply_prefix(xr: torch.Tensor, xi: torch.Tensor, state: torch.Tensor,
+                 alpha: float, m: int):
+    """The DC-blocked first ``m`` samples of a block, from the carried
+    (C, 4) state: what the I/Q estimator taps, recomputed beside the
+    fused pre-stage kernel (which outputs only the corrected signal)."""
+    yr, _, _ = apply_plane(xr[:, :m], state[:, 0], state[:, 2], alpha)
+    yi, _, _ = apply_plane(xi[:, :m], state[:, 1], state[:, 3], alpha)
+    return yr, yi

@@ -5,8 +5,7 @@ is numpy-only, but importing it runs ``iq_tool_tpu/ops/__init__.py``,
 which imports jax.  The port's designed taps must equal the reference's
 bit for bit (the chain tests compare the composed resampler matrices
 with ``np.array_equal``), so every formula and operation order here is
-the reference's.  The FFT block sizing is not ported: FFT-method filters
-are outside this package's slice.
+the reference's, the overlap-save block sizing included.
 """
 
 from __future__ import annotations
@@ -172,3 +171,23 @@ def max_filter_freq_hz(requests: list[FilterRequest]) -> float:
             cur = abs(req.freq1_hz) + req.freq2_hz / 2.0
         mx = max(mx, cur)
     return mx
+
+
+def choose_fft_block(num_taps: int, user_fft_size: int | None = None) -> int:
+    """Overlap-save block size b (outputs per window; the FFT is 2b):
+    the next power of two >= taps - 1, doubled if under 2 * taps, at least
+    FFT_MIN_BLOCK; a user FFT size overrides.  The doubling guarantees
+    b/2 >= taps - 1, which the 3/4-window advance relies on."""
+    if user_fft_size is not None and user_fft_size > 0:
+        block = user_fft_size // 2
+        if block < num_taps - 1:
+            raise ValueError(
+                f"--filter-fft-size {user_fft_size} too small for {num_taps} taps; "
+                f"need at least {(num_taps - 1) * 2}")
+        return block
+    block = 1
+    while block < num_taps - 1:
+        block *= 2
+    if block < num_taps * 2:
+        block *= 2
+    return max(block, C.FFT_MIN_BLOCK)

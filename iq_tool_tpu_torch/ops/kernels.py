@@ -6,6 +6,14 @@
   quantize-and-pack epilogue.
 * K1 ``banded_apply_dc`` (``csrc/banded_dc.cu`` then ``csrc/banded.cu``):
   stage 0 with the wire decode, DC block and NCO mix in front.
+* K3 ``dc_block_apply`` (``csrc/banded_dc.cu``): the chain's pre-stage,
+  DC block + I/Q apply + NCO mix over packed wire or planes.
+* K4 ``post_apply`` (``csrc/post.cu``): post-NCO + AGC gains + quantize
+  and pack; beside it ``rms_scan``, the AGC's sequential gain loop
+  (a helper kernel, not a TPU kernel).
+* K5 ``osfft_apply`` (``csrc/osfft.cu``): the overlap-save FFT filter.
+* ``iq_descent`` (``csrc/iq_est.cu``): the I/Q estimator's greedy
+  descent and power gate (a helper kernel, not a TPU kernel).
 
 Each wrapper keeps the reference's signature minus ``interpret`` and the
 TPU tiling, and dispatches on where its input lies: a CPU tensor runs the
@@ -22,8 +30,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from iq_tool_tpu import constants as C
 from iq_tool_tpu.formats import get_format
-from iq_tool_tpu_torch.ops import banded, convert, dc_block, nco
+from iq_tool_tpu_torch.ops import banded, convert, dc_block, iq_balance, nco
+from iq_tool_tpu_torch.ops import fft as tfft
 
 # Formats the kernels quantize and pack in their epilogue: two codes per
 # element, element dtype sized so a bitcast gives the interleaved wire.
@@ -259,7 +269,7 @@ def banded_apply_dc_ref(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
     """Plain twin of banded_apply_dc: decode, the two-level DC scan
     (ops/dc_block.py), NCO mix, then the plain banded map."""
     xr, xi = convert.decode_packed(wire_i32, wire_kind, wire_norm, wire_gain)
-    yr, yi, new_dc = dc_block.apply_planar(xr, xi, dc_state, dc_alpha)
+    yr, yi, new_dc = dc_block.apply_planar_ref(xr, xi, dc_state, dc_alpha)
     if nco_dtheta:
         yr, yi = nco.mix(yr, yi, nco_phase, nco_dtheta)
     out = banded_apply_ref(state_r, state_i, yr, yi, a_r, a_i, stride, hist,
@@ -319,6 +329,383 @@ def banded_apply_dc(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
 banded_apply_dc.launches = 0
 
 
+# ------------------------------ K3 --------------------------------------------
+
+def dc_block_apply_ref(xr, xi, state, alpha: float, iq_factors=None,
+                       phase_acc=None, dtheta: int = 0, wire_i32=None,
+                       wire_norm: float = 0.0, wire_gain: float = 1.0,
+                       wire_kind: str = "cs16"):
+    """Plain twin of dc_block_apply: decode, the two-level DC scan
+    (ops/dc_block.py), I/Q apply, NCO mix."""
+    if wire_i32 is not None:
+        xr, xi = convert.decode_packed(wire_i32, wire_kind, wire_norm, wire_gain)
+    yr, yi, new_state = dc_block.apply_planar_ref(xr, xi, state, alpha)
+    if iq_factors is not None:
+        yr, yi = iq_balance.apply_planar(yr, yi, iq_factors)
+    if dtheta:
+        yr, yi = nco.mix(yr, yi, phase_acc, dtheta)
+    return yr, yi, new_state
+
+
+def dc_block_apply(xr, xi, state, alpha: float, iq_factors=None,
+                   phase_acc=None, dtheta: int = 0, wire_i32=None,
+                   wire_norm: float = 0.0, wire_gain: float = 1.0,
+                   wire_kind: str = "cs16"):
+    """K3: DC block with the I/Q apply and NCO mix behind it.
+
+    x*: (C, N) float32 planes, or ``wire_i32`` (C, N) packed wire
+    (convert.wire_pack) decoded with wire_norm/wire_gain; state: (C, 4)
+    [xr, xi, yr, yi] prevs; iq_factors: (C, 2) [g, phi] or None;
+    phase_acc: (C,) int64 uint32 phases, needed when dtheta != 0.  Any N.
+    Returns (yr, yi, new_state); the state is the pre-I/Q DC state."""
+    if wire_i32 is not None and not wire_norm:
+        raise ValueError("wire_i32 requires wire_norm (the format normalizer)")
+    if dtheta and phase_acc is None:
+        raise ValueError("dtheta needs phase_acc")
+    x0 = wire_i32 if wire_i32 is not None else xr
+    if x0.device.type == "cpu":
+        return dc_block_apply_ref(xr, xi, state, alpha, iq_factors, phase_acc,
+                                  dtheta, wire_i32, wire_norm, wire_gain,
+                                  wire_kind)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    if wire_i32 is not None:
+        xr = xi = None
+        kind = _WIRE_KINDS[wire_kind]
+    else:
+        kind = _PLANAR
+    dth = int(dtheta) & 0xFFFFFFFF
+    _require_cuda(wire_i32, xr, xi, state, iq_factors, phase_acc if dth else None)
+    _require_dtypes(wire_i32, kind, phase_acc if dth else None, xr, xi, state,
+                    iq_factors)
+    ch, n = x0.shape
+    if state.shape != (ch, 4):
+        raise ValueError(f"state must be ({ch}, 4)")
+    if iq_factors is not None and iq_factors.shape != (ch, 2):
+        raise ValueError(f"iq_factors must be ({ch}, 2)")
+    dev = x0.device
+    yr = torch.empty((ch, n), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    new_state = torch.empty((ch, 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.iq_dc_block_apply(
+            _ptr(wire_i32), kind, convert._f32(wire_norm), convert._f32(wire_gain),
+            _ptr(xr), _ptr(xi), _ptr(state), float(1.0 - alpha), _ptr(iq_factors),
+            _ptr(phase_acc if dth else None), dth, ch, n, _ptr(yr), _ptr(yi),
+            _ptr(new_state), _stream())
+    _check(rc, "dc block kernel")
+    dc_block_apply.launches += 1
+    return yr, yi, new_state
+
+
+dc_block_apply.launches = 0
+
+
+# ------------------------------ K4 --------------------------------------------
+
+def _segment_gains(gains: torch.Tensor, seg: int, n: int) -> torch.Tensor:
+    """(C, n) or (C, 1) per-sample gains: samples past the last whole
+    segment take the last segment's gain."""
+    if not seg:
+        return gains[:, :1]
+    idx = torch.clamp(torch.arange(n, device=gains.device) // seg,
+                      max=gains.shape[-1] - 1)
+    return gains[:, idx]
+
+
+def post_apply_ref(xr, xi, gains, seg: int, phase_acc=None, dtheta: int = 0,
+                   out_fmt: str = "cs16"):
+    """Plain twin of post_apply: NCO mix, gain multiply, pack."""
+    if dtheta:
+        xr, xi = nco.mix(xr, xi, phase_acc, dtheta)
+    g = _segment_gains(gains, seg, xr.shape[-1])
+    return pack_wire_ref(xr * g, xi * g, out_fmt)
+
+
+def post_apply(xr, xi, gains, seg: int, phase_acc=None, dtheta: int = 0,
+               out_fmt: str = "cs16"):
+    """K4: post-NCO + AGC gains + quantize-and-pack over (C, N) planes.
+
+    gains: (C, n_seg) float32 gains of consecutive ``seg``-sample segments
+    (the chain's AGC gives seg 128; samples past n_seg*seg take the last
+    gain), or (C, 1) with seg 0 (one gain per channel: the digital
+    profile, or no AGC); phase_acc: (C,) int64 uint32 phases when
+    dtheta != 0.  Returns the (C, N) packed wire (int32 for 16-bit
+    formats, int16 for 8-bit)."""
+    if not packable_out(out_fmt):
+        raise ValueError(f"format {out_fmt!r} has no packed epilogue")
+    if seg < 0 or (not seg and gains.shape[-1] != 1):
+        raise ValueError("seg 0 takes (C, 1) gains; seg > 0 takes (C, n_seg)")
+    if dtheta and phase_acc is None:
+        raise ValueError("dtheta needs phase_acc")
+    if xr.device.type == "cpu":
+        return post_apply_ref(xr, xi, gains, seg, phase_acc, dtheta, out_fmt)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    dth = int(dtheta) & 0xFFFFFFFF
+    _require_cuda(xr, xi, gains, phase_acc if dth else None)
+    _require_dtypes(None, 0, phase_acc if dth else None, xr, xi, gains)
+    ch, n = xr.shape
+    if xi.shape != (ch, n) or gains.shape[0] != ch or gains.dim() != 2:
+        raise ValueError(f"planes must be ({ch}, {n}) and gains ({ch}, m)")
+    out = torch.empty((ch, n), dtype=_PACK_INFO[out_fmt][0], device=xr.device)
+    with torch.cuda.device(xr.device):
+        rc = lib.iq_post_apply(
+            _ptr(xr), _ptr(xi), _ptr(gains), int(seg), gains.shape[-1],
+            _ptr(phase_acc if dth else None), dth, ch, n, _ptr(out),
+            *_pack_args(out_fmt), _stream())
+    _check(rc, "post kernel")
+    post_apply.launches += 1
+    return out
+
+
+post_apply.launches = 0
+
+
+def _scan_consts(beta: float, target: float):
+    """(beta, 1 - beta, -beta/2, target^2) rounded to float32 as the
+    reference's float32 scan computes them."""
+    b = convert._f32(beta)
+    return (b, convert._f32(1.0 - b), convert._f32(-0.5 * b),
+            convert._f32(target * target))
+
+
+def rms_scan_ref(e_in, gain, e2, beta: float, target: float):
+    """Plain twin of rms_scan: the per-segment loop in tensor ops."""
+    b, omb, nhb, t2 = _scan_consts(beta, target)
+    g, e2_ = gain, e2
+    gains = []
+    for k in range(e_in.shape[0]):
+        e_out = e_in[k] * g * g
+        e2_ = omb * e2_ + b * e_out
+        g = g * torch.exp(nhb * torch.log(torch.clamp(e2_, min=1e-16) / t2))
+        g = torch.clamp(g, 1e-6, 1e6)
+        gains.append(g)
+    return torch.stack(gains), g, e2_
+
+
+def rms_scan(e_in, gain, e2, beta: float, target: float):
+    """The AGC's RMS gain loop (helper kernel in csrc/post.cu; the
+    reference runs it as a lax.scan): e_in (n_seg, C) mean input
+    energies, gain/e2 (C,) -> (gains (n_seg, C), final gain, final e2)."""
+    if e_in.device.type == "cpu":
+        return rms_scan_ref(e_in, gain, e2, beta, target)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    _require_cuda(e_in, gain, e2)
+    _require_dtypes(None, 0, None, e_in, gain, e2)
+    n_seg, ch = e_in.shape
+    if gain.shape != (ch,) or e2.shape != (ch,):
+        raise ValueError(f"gain and e2 must be ({ch},)")
+    gains = torch.empty_like(e_in)
+    g_fin = torch.empty_like(gain)
+    e2_fin = torch.empty_like(e2)
+    with torch.cuda.device(e_in.device):
+        rc = lib.iq_agc_rms_scan(_ptr(e_in), _ptr(gain), _ptr(e2),
+                                 *_scan_consts(beta, target), n_seg, ch,
+                                 _ptr(gains), _ptr(g_fin), _ptr(e2_fin), _stream())
+    _check(rc, "agc scan kernel")
+    rms_scan.launches += 1
+    return gains, g_fin, e2_fin
+
+
+rms_scan.launches = 0
+
+
+# ------------------------------ K5 --------------------------------------------
+
+# The kernel holds one whole window in shared memory (8 B per point);
+# 227 KB per block fits nfft 16384 and not 32768.
+OSFFT_MAX_NFFT = 16384
+
+
+@dataclasses.dataclass(frozen=True)
+class Spectrum:
+    """A filter's frequency response ready for both paths: H (nfft,)
+    complex64 for the twin, and for the kernel H/nfft in bit-reversed
+    order plus the twiddles exp(-2 pi i m / nfft), m < nfft/2, as
+    interleaved float32 pairs (computed in float64)."""
+    h: torch.Tensor
+    h_br: torch.Tensor           # (nfft, 2) float32
+    twiddles: torch.Tensor       # (nfft // 2, 2) float32
+
+    @staticmethod
+    def build(h, device) -> "Spectrum":
+        h = np.asarray(h, np.complex64)
+        nfft = h.shape[0]
+        if nfft < 2 or nfft & (nfft - 1):
+            raise ValueError(f"nfft must be a power of two >= 2, got {nfft}")
+        bits = nfft.bit_length() - 1
+        idx = np.arange(nfft)
+        rev = np.zeros(nfft, np.int64)
+        for b in range(bits):
+            rev |= ((idx >> b) & 1) << (bits - 1 - b)
+        h_br = h[rev] / np.float32(nfft)            # exact: nfft is 2^k
+        tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
+        pairs = lambda z: np.ascontiguousarray(
+            np.stack([z.real, z.imag], axis=-1).astype(np.float32))
+        dev = torch.device(device)
+        return Spectrum(h=torch.from_numpy(h).to(dev),
+                        h_br=torch.from_numpy(pairs(h_br)).to(dev),
+                        twiddles=torch.from_numpy(pairs(tw)).to(dev))
+
+    @property
+    def nfft(self) -> int:
+        return self.h.shape[0]
+
+
+def _spectrum(h, device) -> Spectrum:
+    return h if isinstance(h, Spectrum) else Spectrum.build(h, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Windows:
+    """An overlap-save schedule over ext = tail(b) ++ x: window w reads
+    ext[starts[w] : starts[w] + 2b] and emits its samples j >= heads[w]
+    as outputs starts[w] + j - b, which must tile [0, n) in order.  The
+    kernel reads the two tables from the device."""
+    starts: tuple
+    heads: tuple
+    starts_t: torch.Tensor       # (n_win,) int32
+    heads_t: torch.Tensor
+
+    @staticmethod
+    def build(starts, heads, device) -> "Windows":
+        starts, heads = tuple(map(int, starts)), tuple(map(int, heads))
+        t = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+        return Windows(starts, heads, t(starts), t(heads))
+
+    @staticmethod
+    def uniform(total: int, block: int, advance, device) -> "Windows":
+        """The reference's schedule: windows advancing by b (default) or
+        3b/2 over total - b outputs, window w emitting [w*adv, (w+1)*adv)."""
+        adv = block if advance is None else int(advance)
+        if adv not in (block, 3 * block // 2) or adv <= 0:
+            raise ValueError(f"advance must be b or 3b/2 (b = {block}), got {adv}")
+        n_full = total - block
+        if n_full <= 0 or n_full % adv:
+            raise ValueError(f"{n_full} outputs are not a positive multiple of "
+                             f"the advance {adv}")
+        nw = n_full // adv
+        return Windows.build([w * adv + adv - block for w in range(nw)],
+                             [2 * block - adv] * nw, device)
+
+
+def osfft_apply_ref(ext_r, ext_i, h, block: int, advance=None, windows=None):
+    """Plain twin of osfft_apply: gather the windows, torch.fft, pick
+    each window's emitted outputs."""
+    spec = _spectrum(h, ext_r.device)
+    nfft = spec.nfft
+    if windows is None:
+        windows = Windows.uniform(ext_r.shape[-1], block, advance, ext_r.device)
+    ext = torch.complex(ext_r, ext_i)
+    idx = (torch.tensor(windows.starts, device=ext.device)[:, None]
+           + torch.arange(nfft, device=ext.device)[None, :])
+    y = tfft.ifft(tfft.fft(ext[:, idx]) * spec.h)           # (C, n_win, nfft)
+    out = torch.cat([y[:, w, hd:] for w, hd in enumerate(windows.heads)], dim=-1)
+    return out.real.contiguous(), out.imag.contiguous()
+
+
+def osfft_apply(ext_r, ext_i, h, block: int, advance=None, windows=None):
+    """K5: overlap-save over ext = state(b) ++ x planes, (C, total).
+
+    h: the filter's (2b,) frequency response (numpy) or a prepared
+    Spectrum.  With ``advance`` (b, the default, or 3b/2) the windows
+    advance uniformly over total - b outputs, as the reference's
+    osfft_apply; ``windows`` (a Windows schedule) instead gives each
+    window's start and first emitted sample: ops/filters.py passes the
+    whole step's mixed schedule, the re-anchored ragged last window
+    included, so one launch covers a block (``launches`` counts one per
+    step).  Returns (yr, yi) (C, n_out) float32."""
+    if ext_r.device.type == "cpu":
+        return osfft_apply_ref(ext_r, ext_i, h, block, advance, windows)
+    from iq_tool_tpu_torch.ops import _build
+    spec = _spectrum(h, ext_r.device)
+    nfft = spec.nfft
+    if nfft != 2 * block:
+        raise ValueError(f"H has {nfft} points, expected 2b = {2 * block}")
+    if nfft > OSFFT_MAX_NFFT:
+        raise NotImplementedError(
+            f"overlap-save kernel at nfft {nfft}: one window no longer fits "
+            f"a block's shared memory (max {OSFFT_MAX_NFFT}); not ported yet "
+            "(ROADMAP Queue 2, K5 nfft 32768)")
+    lib = _build.library()
+    _require_cuda(ext_r, ext_i, spec.h_br)
+    _require_dtypes(None, 0, None, ext_r, ext_i)
+    ch, total = ext_r.shape
+    if ext_i.shape != (ch, total):
+        raise ValueError(f"ext planes must both be ({ch}, {total})")
+    if windows is None:
+        windows = Windows.uniform(total, block, advance, ext_r.device)
+    _require_cuda(windows.starts_t, windows.heads_t)
+    pos = 0
+    for st, hd in zip(windows.starts, windows.heads):
+        if (st < 0 or st + nfft > total or not 0 <= hd < nfft
+                or st + hd - block != pos):
+            raise ValueError("overlap-save windows must tile the output in order")
+        pos += nfft - hd
+    dev = ext_r.device
+    out_r = torch.empty((ch, pos), dtype=torch.float32, device=dev)
+    out_i = torch.empty_like(out_r)
+    with torch.cuda.device(dev):
+        rc = lib.iq_osfft_apply(
+            _ptr(ext_r), _ptr(ext_i), ch, total, _ptr(windows.starts_t),
+            _ptr(windows.heads_t), len(windows.starts), _ptr(spec.h_br),
+            _ptr(spec.twiddles), nfft.bit_length() - 1, block, _ptr(out_r),
+            _ptr(out_i), pos, _stream())
+    _check(rc, "overlap-save kernel")
+    osfft_apply.launches += 1
+    return out_r, out_i
+
+
+osfft_apply.launches = 0
+
+
+# ------------------------------ I/Q descent ------------------------------------
+
+def iq_descent_ref(base, image, factors, passes: int = 25):
+    """Plain twin of iq_descent: the descent and the gate in tensor ops."""
+    gate_db = iq_balance._power_gate(
+        iq_balance._spectrum_db(base, image, factors[:, 0], factors[:, 1]))
+    return iq_balance._optimize_core(base, image, factors, passes), gate_db
+
+
+def iq_descent(base, image, factors, passes: int = 25):
+    """The I/Q estimator's greedy descent (helper kernel in
+    csrc/iq_est.cu; the reference runs it in XLA): base/image (C, nfft)
+    complex64 shifted spectra of the windowed block and of its real part,
+    factors (C, 2) -> (factors after ``passes`` passes, unsmoothed, and
+    the (C,) power gate in dB at the starting factors)."""
+    if base.device.type == "cpu":
+        return iq_descent_ref(base, image, factors, passes)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    _require_cuda(base, image, factors)
+    ch, nfft = base.shape
+    if base.dtype != torch.complex64 or image.dtype != torch.complex64:
+        raise ValueError("spectra must be complex64")
+    if image.shape != (ch, nfft) or factors.shape != (ch, 2):
+        raise ValueError(f"image must be ({ch}, {nfft}) and factors ({ch}, 2)")
+    _require_dtypes(None, 0, None, factors)
+    lo, hi = iq_balance.band_edges(nfft)
+    dev = base.device
+    moves = iq_balance._moves(str(dev))
+    out = torch.empty_like(factors)
+    gate_db = torch.empty((ch,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.iq_est_descent(
+            _ptr(base), _ptr(image), _ptr(factors), _ptr(moves), ch, nfft, lo, hi,
+            int(passes), float(C.IQ_SPECTRUM_FLOOR_DB), _ptr(out),
+            _ptr(gate_db), _stream())
+    _check(rc, "I/Q descent kernel")
+    iq_descent.launches += 1
+    return out, gate_db
+
+
+iq_descent.launches = 0
+
+
 def reset_launch_counts() -> None:
-    banded_apply.launches = 0
-    banded_apply_dc.launches = 0
+    for fn in (banded_apply, banded_apply_dc, dc_block_apply, post_apply,
+               rms_scan, osfft_apply, iq_descent):
+        fn.launches = 0

@@ -1,26 +1,39 @@
 """The DSP chain on torch: one step per block of the whole signal path
 (the port of ``iq_tool_tpu.pipeline.chain``).
 
-This package runs the reference's wire-to-wire resample path
-(``Chain._fused_wire_resample``):
+    convert -> dc_block -> iq_correct -> pre-NCO -> pre-filter
+            -> resample -> post-filter -> post-NCO -> AGC -> convert
 
-    cs16/cu16/cu8/cs8 wire -> [DC block] -> [pre-NCO] -> resampler stages
-    (a direct FIR composed into the first or last stage) -> wire
+Two paths, as in the reference:
 
-Stage 0 is K1 (``kernels.banded_apply_dc``) when the DC block is on and
-K2 (``kernels.banded_apply``) with the wire + NCO prologue otherwise;
-later stages are K2, the last one quantizing straight to the packed
-wire.  On a CUDA device every stage launches a kernel; on the CPU the
-same calls run the kernels' plain twins.
+* the wire-to-wire resample path (``_wire_resample``) when nothing but
+  DC block, pre-NCO and the resampler runs on a packable wire: stage 0
+  is K1 (``kernels.banded_apply_dc``) with the DC block, else K2 with
+  the wire + NCO prologue; the last stage quantizes straight to the wire;
+* the general step otherwise: the pre-stage is K3
+  (``kernels.dc_block_apply``: DC block + I/Q apply + pre-NCO over the
+  packed wire or, for other formats, converted planes) when the DC block
+  is on, plain tensor ops when it is off; filters run on K2 (banded) or
+  K5 (``kernels.osfft_apply``, overlap-save); the resampler's stages on
+  K2; the post stage is K4 (``kernels.post_apply``: post-NCO + AGC
+  gains + pack, the RMS gains from the ``kernels.rms_scan`` helper) for
+  a packable output, plain ops for the others.  Whatever op is last
+  before the convert packs the wire in its kernel epilogue.
 
-The device is an explicit argument.  Asking for CUDA without a card
-raises; nothing falls back to the CPU.  All stream state lives in the
-carry, a dict of tensors:
+On a CUDA device each of those calls launches its kernel; on the CPU the
+same calls run the kernels' plain twins.  The device is an explicit
+argument: asking for CUDA without a card raises, nothing falls back to
+the CPU.  A step never reads a device value back to the host (the I/Q
+estimator runs masked, see ``ops/iq_balance.py``).  All stream state
+lives in the carry, a dict of tensors:
 
     nco_pre, nco_post: (C,) int64 holding uint32 NCO phases
     dc:                (C, 4) float32 [xr_prev, xi_prev, yr_prev, yi_prev]
+    iq:                iq_balance.IqState (factors kept across a reset)
+    pre_f, post_f:     filter tails (state_r, state_i)
     rs:                per stage (state_r, state_i), (C, hist) float32,
-                       the PROCESSED (post-DC, post-NCO) input history
+                       the PROCESSED input history
+    agc:               agc.AgcState
 """
 
 from __future__ import annotations
@@ -33,7 +46,8 @@ import torch
 
 from iq_tool_tpu import constants as C
 from iq_tool_tpu.formats import get_format
-from iq_tool_tpu_torch.ops import convert, dc_block, kernels, nco
+from iq_tool_tpu_torch.ops import agc, convert, dc_block, iq_balance, kernels, nco
+from iq_tool_tpu_torch.ops.filters import StreamingFilter
 from iq_tool_tpu_torch.ops.fir_design import (FilterRequest, design_chain,
                                               max_filter_freq_hz)
 from iq_tool_tpu_torch.ops.resample import Resampler
@@ -75,11 +89,6 @@ class ChainConfig:
     @property
     def output_rate(self) -> float:
         return self.target_rate if self.resampling else self.input_rate
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to iq_tool_tpu_torch yet (ROADMAP {item})")
 
 
 def _decide_filter_stage(cfg: ChainConfig) -> str:
@@ -126,46 +135,50 @@ class Chain:
         self.cfg = cfg
         self.fmt_in = get_format(cfg.input_format)
         self.fmt_out = get_format(cfg.output_format)
-        if cfg.iq_correction:
-            raise _not_ported("I/Q correction", "Queue 1 item 8")
-        if cfg.agc_profile:
-            raise _not_ported("AGC", "Queue 1 item 8")
-        if not cfg.resampling:
-            raise _not_ported("a chain without a resampler", "Queue 1 item 8")
-        if self.fmt_in.name not in _PACKED_INPUTS:
-            raise _not_ported(f"input format {self.fmt_in.name}",
-                              "Queue 1 item 8 (K3 pre-stage)")
 
         stage = _decide_filter_stage(cfg)
         design_rate = cfg.output_rate if stage == "post" else cfg.input_rate
         designed = design_chain(list(cfg.filters), design_rate,
                                 cfg.filter_attenuation_db, cfg.filter_taps,
                                 cfg.filter_transition_hz) if cfg.filters else None
+        self.filter_stage = stage
+        filt = (StreamingFilter(designed.taps, cfg.filter_method, cfg.filter_fft_size)
+                if designed is not None else None)
+        self.pre_filter = filt if stage == "pre" else None
+        self.post_filter = filt if stage == "post" else None
 
-        # block geometry: with no FFT-method filter there is no block
-        # constraint, so the resampler's framing of target_block decides
-        rs = Resampler(cfg.target_rate / cfg.input_rate, cfg.target_block,
-                       cfg.filter_attenuation_db, cfg.resampler_semilength)
+        # block geometry: the resampler's framing of the target block,
+        # doubled until an FFT-method filter's block fits in it
+        tb = cfg.target_block
+        for _ in range(10):
+            rs = (Resampler(cfg.target_rate / cfg.input_rate, tb,
+                            cfg.filter_attenuation_db, cfg.resampler_semilength)
+                  if cfg.resampling else None)
+            n_in = rs.plan.n_in if rs else tb
+            n_out = rs.plan.n_out if rs else tb
+            if all(f is None or f.method != "fft" or n >= f.block
+                   for f, n in ((self.pre_filter, n_in), (self.post_filter, n_out))):
+                break
+            tb *= 2
+        else:
+            raise ValueError("could not find a block size fitting the filter")
         self.resampler = rs
-        self.n_in = rs.plan.n_in
-        self.n_out = rs.plan.n_out
+        self.n_in = n_in
+        self.n_out = n_out
 
-        if designed is not None:
-            taps = designed.taps
-            method = cfg.filter_method
-            if method == "auto":
-                method = "fir" if len(taps) <= 1024 else "fft"
-            if method == "fft":
-                raise _not_ported("an FFT-method filter", "Queue 1 item 7, K5")
-            if not cfg.fuse_filters or len(taps) > C.FUSE_MAX_TAPS:
-                raise _not_ported("a filter that does not compose into a "
-                                  "resampler stage", "Queue 1 item 7")
-            taps = np.asarray(taps, np.complex128)
-            if stage == "pre":
-                rs.stages[0].compose_input_fir(taps)
-            else:
-                rs.stages[-1].compose_output_fir(taps)
-        if rs.stages[0].hist > self.n_in:
+        # a direct FIR next to a resampler stage is LTI: it folds into the
+        # stage's banded matrix (one fewer pass per step)
+        for attr, idx in (("pre_filter", 0), ("post_filter", -1)):
+            f = getattr(self, attr)
+            if (cfg.fuse_filters and rs is not None and rs.stages and f is not None
+                    and f.method == "fir" and f.num_taps <= C.FUSE_MAX_TAPS):
+                taps = np.asarray(f.taps, np.complex128)
+                if idx == 0:
+                    rs.stages[0].compose_input_fir(taps)
+                else:
+                    rs.stages[-1].compose_output_fir(taps)
+                setattr(self, attr, None)
+        if rs is not None and rs.stages[0].hist > self.n_in:
             raise ValueError(f"block of {self.n_in} frames is shorter than the "
                              f"first stage's history {rs.stages[0].hist}")
 
@@ -179,12 +192,19 @@ class Chain:
                 raise ValueError(
                     f"{name} frequency shift {shift:.0f} Hz exceeds "
                     f"{C.FREQ_SHIFT_SANITY_FACTOR}x the rate")
-        if self.dtheta_post:
-            raise _not_ported("a shift after the resampler", "Queue 1 item 8, K4")
+        self.agc_cfg = (agc.AgcConfig.make(cfg.agc_profile, cfg.output_rate,
+                                           cfg.agc_target)
+                        if cfg.agc_profile else None)
+        self.iq_interval = int(C.IQ_UPDATE_INTERVAL_SEC * cfg.input_rate)
 
-        rs.bind(self.device)
+        if rs is not None:
+            rs.bind(self.device)
         self.pack_fmt = (self.fmt_out.name if kernels.packable_out(self.fmt_out.name)
                          else None)
+        self._wire_resample = (rs is not None and not cfg.iq_correction
+                               and self.pre_filter is None and self.post_filter is None
+                               and not self.dtheta_post and self.agc_cfg is None
+                               and self.fmt_in.name in _PACKED_INPUTS)
         self.in_wire_len = self.n_in * self.fmt_in.items_per_frame
         self.out_wire_len = self.n_out * self.fmt_out.items_per_frame
         self.in_wire_dtype = convert.wire_dtype(self.fmt_in)
@@ -193,22 +213,38 @@ class Chain:
 
     def init_carry(self, channels: int | None = None) -> dict:
         ch = channels or self.cfg.channels
-        carry = {"nco_pre": nco.init(ch, self.device),
-                 "nco_post": nco.init(ch, self.device),
-                 "rs": self.resampler.init_planar(ch, self.device)}
+        dev = self.device
+        carry = {"nco_pre": nco.init(ch, dev), "nco_post": nco.init(ch, dev)}
         if self.cfg.dc_block:
-            carry["dc"] = dc_block.init_planar(ch, self.device)
+            carry["dc"] = dc_block.init_planar(ch, dev)
+        if self.cfg.iq_correction:
+            carry["iq"] = iq_balance.init(ch, dev)
+        if self.pre_filter is not None:
+            carry["pre_f"] = self.pre_filter.init_planar(ch, dev)
+        if self.resampler is not None:
+            carry["rs"] = self.resampler.init_planar(ch, dev)
+        if self.post_filter is not None:
+            carry["post_f"] = self.post_filter.init_planar(ch, dev)
+        if self.agc_cfg is not None:
+            carry["agc"] = agc.init(ch, dev)
         return carry
 
     def _reset_carry(self, carry: dict) -> dict:
-        """Discontinuity semantics: sample memory and NCO phases to zero."""
+        """Discontinuity semantics: sample memory and NCO phases to zero,
+        AGC to its initial state, learned I/Q factors kept."""
         out = dict(carry)
         out["nco_pre"] = nco.reset(carry["nco_pre"])
         out["nco_post"] = nco.reset(carry["nco_post"])
         if "dc" in carry:
             out["dc"] = torch.zeros_like(carry["dc"])
-        out["rs"] = tuple((torch.zeros_like(r), torch.zeros_like(i))
-                          for r, i in carry["rs"])
+        for key in ("pre_f", "post_f"):
+            if key in carry:
+                out[key] = tuple(torch.zeros_like(t) for t in carry[key])
+        if "rs" in carry:
+            out["rs"] = tuple((torch.zeros_like(r), torch.zeros_like(i))
+                              for r, i in carry["rs"])
+        if "agc" in carry:
+            out["agc"] = agc.reset(carry["agc"])
         return out
 
     # ------------------------------ step --------------------------------------
@@ -216,12 +252,136 @@ class Chain:
     def step(self, carry: dict, raw: torch.Tensor, reset: bool = False):
         """raw: (C, n_in * items) wire tensor on this chain's device ->
         (new carry, (C, n_out * items) wire tensor)."""
-        cfg = self.cfg
         if raw.device.type != self.device.type:
             raise ValueError(f"input on {raw.device}, chain on {self.device}")
         if reset:
             carry = self._reset_carry(carry)
         new = dict(carry)
+        if self._wire_resample:
+            return new, self._wire_resample_step(raw, carry, new)
+        xr, xi = self._pre(raw, carry, new)
+        if self.pre_filter is not None:
+            xr, xi, nr, ni = self.pre_filter.apply_planar(xr, xi, *carry["pre_f"])
+            new["pre_f"] = (nr, ni)
+        convert_only = not self.dtheta_post and self.agc_cfg is None
+        if self.resampler is not None:
+            if self.post_filter is None and convert_only and self.pack_fmt:
+                y, new["rs"] = self.resampler.apply_planar(xr, xi, carry["rs"],
+                                                           pack_fmt=self.pack_fmt)
+                return new, convert.packed_to_wire(y, self.fmt_out)
+            (xr, xi), new["rs"] = self.resampler.apply_planar(xr, xi, carry["rs"])
+        if self.post_filter is not None:
+            if convert_only and self.pack_fmt:
+                res = self.post_filter.apply_planar_packed(
+                    xr, xi, *carry["post_f"], out_fmt=self.pack_fmt)
+                if res is not None:
+                    y, nr, ni = res
+                    new["post_f"] = (nr, ni)
+                    return new, convert.packed_to_wire(y, self.fmt_out)
+            xr, xi, nr, ni = self.post_filter.apply_planar(xr, xi, *carry["post_f"])
+            new["post_f"] = (nr, ni)
+        if self.pack_fmt and not convert_only:
+            return new, self._fused_post(xr, xi, carry, new)
+        return new, self._plain_post(xr, xi, carry, new)
+
+    def _pre(self, raw, carry: dict, new: dict):
+        """Convert + [DC block + I/Q + pre-NCO]: contiguous (xr, xi)."""
+        cfg = self.cfg
+        if cfg.dc_block:
+            return self._fused_pre(raw, carry, new)
+        xr, xi = convert.to_planar(raw, self.fmt_in, cfg.gain)
+        if cfg.iq_correction:
+            new["iq"] = iq_balance.maybe_update_planar(xr, xi, carry["iq"],
+                                                       self.iq_interval)
+            xr, xi = iq_balance.apply_planar(xr, xi, new["iq"].factors)
+        if self.dtheta_pre:
+            xr, xi, new["nco_pre"] = nco.apply_planar(xr, xi, carry["nco_pre"],
+                                                      self.dtheta_pre)
+        return xr.contiguous(), xi.contiguous()
+
+    def _fused_pre(self, raw, carry: dict, new: dict):
+        """K3: DC block + I/Q apply + pre-NCO in one pass, over the packed
+        wire (decoded in the kernel) or, for formats without one, the
+        converted planes.  The I/Q estimator taps the DC-blocked signal
+        before the correction, so its IQ_FFT_SIZE-sample prefix is
+        recomputed beside the kernel from the carried DC state."""
+        cfg = self.cfg
+        packed = convert.wire_pack(raw, self.fmt_in)
+        if packed is None:
+            xr, xi = (p.contiguous() for p in convert.to_planar(raw, self.fmt_in,
+                                                                 cfg.gain))
+            wire, kind, norm = None, "cs16", 0.0
+        else:
+            (wire, kind), xr, xi = packed, None, None
+            norm = self.fmt_in.normalizer
+        n = (wire if wire is not None else xr).shape[-1]
+        state = carry["dc"]
+        factors = None
+        if cfg.iq_correction:
+            m = min(n, C.IQ_FFT_SIZE)
+            pr, pi = ((xr, xi) if wire is None
+                      else convert.decode_packed(wire[:, :m], kind, norm, cfg.gain))
+            seg_r, seg_i = dc_block.apply_prefix(pr, pi, state, self.dc_alpha, m)
+            new["iq"] = iq_balance.maybe_update_planar(
+                seg_r, seg_i, carry["iq"], self.iq_interval, advance_samples=n)
+            factors = new["iq"].factors
+        dth = self.dtheta_pre
+        yr, yi, new["dc"] = kernels.dc_block_apply(
+            xr, xi, state, self.dc_alpha, factors,
+            carry["nco_pre"] if dth else None, dth, wire_i32=wire,
+            wire_norm=norm, wire_gain=cfg.gain, wire_kind=kind)
+        if dth:
+            new["nco_pre"] = nco.advance(carry["nco_pre"], n, dth)
+        return yr, yi
+
+    def _fused_post(self, xr, xi, carry: dict, new: dict):
+        """K4: post-NCO + AGC gains + quantize/interleave in one pass.
+        Block energies and peaks are rotation-invariant, so the AGC reads
+        the planes before the NCO (the digital profile's hard thresholds
+        then see the same peak on every path)."""
+        c, n = xr.shape
+        xr, xi = xr.contiguous(), xi.contiguous()
+        dth = self.dtheta_post
+        cfg_agc = self.agc_cfg
+        seg = 0
+        if cfg_agc is not None and cfg_agc.profile != "digital":
+            gains, seg, new["agc"] = agc.rms_gains(xr, xi, carry["agc"], cfg_agc)
+        elif cfg_agc is not None:
+            g, new["agc"] = agc.digital_update(carry["agc"], agc.block_peak(xr, xi),
+                                               n, cfg_agc)
+            gains = g[:, None].contiguous()
+        else:
+            gains = torch.ones((c, 1), dtype=torch.float32, device=xr.device)
+        out = kernels.post_apply(xr, xi, gains, seg,
+                                 carry["nco_post"] if dth else None, dth,
+                                 out_fmt=self.pack_fmt)
+        if dth:
+            new["nco_post"] = nco.advance(carry["nco_post"], n, dth)
+        return convert.packed_to_wire(out, self.fmt_out)
+
+    def _plain_post(self, xr, xi, carry: dict, new: dict):
+        """Post-NCO, AGC and convert as tensor ops: formats without a
+        packed epilogue, or nothing but the convert left.  The digital
+        AGC measures its block peak before the NCO, as K4's path does."""
+        cfg_agc = self.agc_cfg
+        dig_gain = None
+        if cfg_agc is not None and cfg_agc.profile == "digital":
+            dig_gain, new["agc"] = agc.digital_update(
+                carry["agc"], agc.block_peak(xr, xi), xr.shape[-1], cfg_agc)
+        if self.dtheta_post:
+            xr, xi, new["nco_post"] = nco.apply_planar(xr, xi, carry["nco_post"],
+                                                       self.dtheta_post)
+        if dig_gain is not None:
+            xr, xi = xr * dig_gain[:, None], xi * dig_gain[:, None]
+        elif cfg_agc is not None:
+            xr, xi, new["agc"] = agc.apply_planar(xr, xi, carry["agc"], cfg_agc)
+        return convert.from_planar(xr, xi, self.fmt_out)
+
+    def _wire_resample_step(self, raw, carry: dict, new: dict):
+        """Packed wire -> [DC] -> [NCO] -> resampler -> wire: stage 0
+        decodes the wire in its prologue (K1 with the DC block, else K2),
+        the last stage packs the output."""
+        cfg = self.cfg
         wire, kind = convert.wire_pack(raw, self.fmt_in)
         stages = self.resampler.stages
         st0 = stages[0]
@@ -263,44 +423,75 @@ class Chain:
             new_rs.append((nr, ni))
         new["rs"] = tuple(new_rs)
         if self.pack_fmt:
-            return new, convert.packed_to_wire(y, self.fmt_out)
-        return new, convert.from_planar(*y, self.fmt_out)
+            return convert.packed_to_wire(y, self.fmt_out)
+        return convert.from_planar(*y, self.fmt_out)
 
     # --------------------------- accounting -----------------------------------
 
     def expected_out_frames(self, in_frames: int) -> int:
         """Output frames the stream should yield for in_frames inputs
         (the host trims the padded final block with it)."""
+        if self.resampler is None:
+            return in_frames
         return in_frames * self.resampler.plan.p // self.resampler.plan.q
 
 
 # ----------------------------- carry exchange ---------------------------------
 
+_CARRY_KEYS = {"nco_pre", "nco_post", "dc", "iq", "pre_f", "rs", "post_f", "agc"}
+
+
 def carry_from_jax(tree: dict, device="cpu") -> dict:
     """The reference chain's carry, fetched to numpy (``jax.device_get``),
-    as this package's carry on `device`.  Covers the keys of the slice:
-    nco_pre, nco_post, dc and rs."""
-    extra = set(tree) - {"nco_pre", "nco_post", "dc", "rs"}
+    as this package's carry on `device`."""
+    extra = set(tree) - _CARRY_KEYS
     if extra:
-        raise ValueError(f"carry keys outside the ported slice: {sorted(extra)}")
+        raise ValueError(f"carry keys the port does not know: {sorted(extra)}")
     dev = resolve_device(device)
-    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(dt))).to(dev)
+    t = lambda a, dt: torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a).astype(dt))).to(dev)
+    f32 = lambda a: t(a, np.float32)
     out = {k: t(tree[k], np.int64) for k in ("nco_pre", "nco_post")}
     if "dc" in tree:
-        out["dc"] = t(np.stack([np.asarray(v, np.float32) for v in tree["dc"]],
-                               axis=-1), np.float32)
-    out["rs"] = tuple((t(r, np.float32), t(i, np.float32)) for r, i in tree["rs"])
+        out["dc"] = f32(np.stack([np.asarray(v, np.float32) for v in tree["dc"]],
+                                 axis=-1))
+    if "iq" in tree:
+        factors, counter = tree["iq"]
+        out["iq"] = iq_balance.IqState(f32(factors), t(counter, np.int64))
+    for key in ("pre_f", "post_f"):
+        if key in tree:
+            out[key] = tuple(f32(v) for v in tree[key])
+    if "rs" in tree:
+        out["rs"] = tuple((f32(r), f32(i)) for r, i in tree["rs"])
+    if "agc" in tree:
+        gain, e2, peak_mem, locked, seen, weak = tree["agc"]
+        out["agc"] = agc.AgcState(f32(gain), f32(e2), f32(peak_mem),
+                                  t(locked, np.bool_), t(seen, np.int64),
+                                  t(weak, np.int64))
     return out
 
 
 def carry_to_numpy(carry: dict) -> dict:
     """This package's carry as numpy in the reference's layout: uint32
-    NCO phases, dc as the 4-tuple (xr, xi, yr, yi) of (C,) planes, rs as
-    per-stage (state_r, state_i)."""
+    NCO phases and counters, dc as the 4-tuple (xr, xi, yr, yi) of (C,)
+    planes, iq as (factors, samples_since_opt), agc as the reference's
+    six fields in order, filter tails and rs as (state_r, state_i)."""
     n = lambda x: x.detach().cpu().numpy()
     out = {k: n(carry[k]).astype(np.uint32) for k in ("nco_pre", "nco_post")}
     if "dc" in carry:
         d = n(carry["dc"])
         out["dc"] = tuple(np.ascontiguousarray(d[:, j]) for j in range(4))
-    out["rs"] = tuple((n(r), n(i)) for r, i in carry["rs"])
+    if "iq" in carry:
+        out["iq"] = (n(carry["iq"].factors),
+                     n(carry["iq"].samples_since_opt).astype(np.uint32))
+    for key in ("pre_f", "post_f"):
+        if key in carry:
+            out[key] = tuple(n(v) for v in carry[key])
+    if "rs" in carry:
+        out["rs"] = tuple((n(r), n(i)) for r, i in carry["rs"])
+    if "agc" in carry:
+        s = carry["agc"]
+        out["agc"] = (n(s.gain), n(s.e2), n(s.peak_mem), n(s.locked),
+                      n(s.samples_seen).astype(np.uint32),
+                      n(s.weak_run).astype(np.uint32))
     return out

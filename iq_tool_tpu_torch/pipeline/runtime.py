@@ -163,14 +163,17 @@ class StreamEngine:
     """Single- or multi-channel stream runner.
 
     ``source``/``sink`` may each be a single module or a sequence of
-    ``channels`` modules (one stream per channel, lockstep).  Checkpoint
-    and resume are not ported yet (ROADMAP Queue 1 item 9)."""
+    ``channels`` modules (one stream per channel, lockstep).
+    ``initial_carry`` starts the stream from a given carry (the CLI's
+    pre-stream I/Q calibration).  Checkpoint and resume are not ported
+    yet (ROADMAP Queue 1 item 9)."""
 
     def __init__(self, chain: Chain | None, source, sink,
                  raw_passthrough: bool = False,
                  progress=None, progress_total_frames: int | None = None,
                  checkpoint_path: str | None = None,
                  resume: bool = False,
+                 initial_carry: dict | None = None,
                  pipeline_depth: int = C.PIPELINE_DEPTH):
         if checkpoint_path or resume:
             raise NotImplementedError(
@@ -188,6 +191,7 @@ class StreamEngine:
         self.raw_passthrough = raw_passthrough
         self.progress = progress
         self.total_frames = progress_total_frames
+        self.initial_carry = initial_carry
         self.pipeline_depth = max(1, pipeline_depth)
         n_ch = len(self.sources)
         if len(self.sinks) != n_ch:
@@ -291,7 +295,8 @@ class StreamEngine:
         block_bytes = ch.n_in * bpf
         n_channels = ch.cfg.channels
         on_cuda = ch.device.type == "cuda"
-        carry = ch.init_carry(n_channels)
+        carry = (self.initial_carry if self.initial_carry is not None
+                 else ch.init_carry(n_channels))
         s = StreamSummary()
         t0 = time.monotonic()
         last_prog = t0

@@ -254,8 +254,8 @@ def test_cli_multichannel_and_passthrough(rng, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--mesh-time", "2"], ["--time-fold", "2"],
-                                  ["--checkpoint", "x.ckpt"], ["--iq-correction"],
-                                  ["--output-agc"], ["--profile-dir", "p"]])
+                                  ["--checkpoint", "x.ckpt"], ["--mesh-channel", "2"],
+                                  ["--resume"], ["--profile-dir", "p"]])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag):
     with pytest.raises(SystemExit) as e:
         port_main([str(tmp_path / "a"), str(tmp_path / "b"), *FLAGSHIP_FLAGS,
@@ -265,8 +265,10 @@ def test_cli_refuses_unported_flags(tmp_path, capsys, flag):
 
 
 def test_unported_chain_features_raise():
-    for kw in (dict(iq_correction=True), dict(agc_profile="local"),
-               dict(freq_shift_post_hz=50e3), dict(filter_method="fft", lowpass=400e3)):
+    """The gather stage (a ratio with a prime factor above 512, here
+    521/512) is the chain feature still to port."""
+    for kw in (dict(target_rate=2_084_000.0),
+               dict(target_rate=2_084_000.0, iq_correction=True, agc_profile="local")):
         _, pcfg = _configs(16384, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Chain(pcfg, device="cpu")
@@ -294,6 +296,16 @@ def test_port_imports_no_jax(tmp_path):
         raw = torch.zeros((1, ch.in_wire_len), dtype=torch.int16)
         _, out = ch.step(ch.init_carry(), raw)
         assert out.shape == (1, ch.out_wire_len)
+        # the general step: I/Q, overlap-save notch, post-shift, AGC
+        g = Chain(ChainConfig(input_format="cs16", output_format="cs16",
+                              input_rate=2048000.0, target_rate=1488375.0,
+                              dc_block=True, iq_correction=True,
+                              freq_shift_pre_hz=100e3, freq_shift_post_hz=-50e3,
+                              filters=(FilterRequest("stop-range", 0.0, 10e3),),
+                              agc_profile="local"), device="cpu")
+        raw = torch.ones((1, g.in_wire_len), dtype=torch.int16)
+        _, out = g.step(g.init_carry(), raw)
+        assert out.shape == (1, g.out_wire_len)
         sys.argv = ["iq_tool_tpu_torch", "--help"]
         try:
             runpy.run_module("iq_tool_tpu_torch", run_name="__main__")
@@ -310,9 +322,12 @@ def test_port_imports_no_jax(tmp_path):
 def test_no_fallback_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: this checks the CPU-only case")
-    _, pcfg = _configs(16384, **FLAGSHIP)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        Chain(pcfg, device="cuda")
+    for kw in (FLAGSHIP, dict(dc_block=True, iq_correction=True,
+                              freq_shift_post_hz=-50e3, agc_profile="local",
+                              band=("stop-range", 0.0, 10e3))):
+        _, pcfg = _configs(16384, **kw)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Chain(pcfg, device="cuda")
     # chip_smoke.py fails, from the checkout and alone in a directory
     alone = tmp_path / "alone"
     alone.mkdir()

@@ -193,3 +193,189 @@ def test_wrappers_refuse_mixed_devices(rng):
     with pytest.raises(ValueError):
         kernels.banded_apply(torch.zeros((1, st.hist)), torch.zeros((1, st.hist)),
                              xr, xi, st.band, None, st.stride, st.hist)
+
+
+# ----------------------------- K3, K4, K5 and the AGC scan --------------------
+
+def _general_cfg(block, channels=1):
+    """BASELINE config #4: DC + I/Q + pre-shift, 2175-tap overlap-save
+    notch after the resampler, post-shift, local AGC."""
+    return ChainConfig(input_format="cs16", output_format="cs16",
+                       input_rate=2_048_000.0, target_rate=1_488_375.0,
+                       channels=channels, dc_block=True, iq_correction=True,
+                       freq_shift_pre_hz=100e3, freq_shift_post_hz=-50e3,
+                       filters=(FilterRequest("stop-range", 0.0, 10e3),),
+                       agc_profile="local", target_block=block)
+
+
+@pytest.mark.parametrize("case", [("cs16", True, DTHETA), ("planar", True, 0),
+                                  ("cu8", False, DTHETA)],
+                         ids=["cs16-iq-nco", "planar-iq", "cu8-nco"])
+def test_k3_matches_twin(rng, case):
+    """Any N: 3 whole 4096-sample chunks plus a ragged 77 (not a multiple
+    of 128, which the TPU kernel required)."""
+    _need_card()
+    fmt, iq, dth = case
+    ch, n = 4, 3 * 4096 + 77
+    dc = _cuda((rng.standard_normal((ch, 4)) * 0.05).astype(np.float32))
+    fac = _cuda((rng.standard_normal((ch, 2)) * 0.02).astype(np.float32)) if iq else None
+    ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64)) if dth else None
+    if fmt == "planar":
+        xr, xi = _planes(rng, ch, n, 0.3)
+        kw = dict(xr=xr, xi=xi)
+    else:
+        wire, kind = _random_wire(rng, fmt, ch, n)
+        kw = dict(xr=None, xi=None, wire_i32=wire, wire_kind=kind,
+                  wire_norm=get_format(fmt).normalizer, wire_gain=0.9)
+    before = kernels.dc_block_apply.launches
+    got = kernels.dc_block_apply(state=dc, alpha=DC_ALPHA, iq_factors=fac,
+                                 phase_acc=ph, dtheta=dth, **kw)
+    want = kernels.dc_block_apply_ref(state=dc, alpha=DC_ALPHA, iq_factors=fac,
+                                      phase_acc=ph, dtheta=dth, **kw)
+    torch.cuda.synchronize()
+    assert kernels.dc_block_apply.launches == before + 1
+    for w, g in zip(want, got):
+        assert _snr(w, g) >= 100.0
+
+
+@pytest.mark.parametrize("case", [("cs16", 128, 123456789), ("cu8", 128, 0),
+                                  ("cs16", 0, 0), ("sc16q11", 0, 987654321)],
+                         ids=["cs16-seg-nco", "cu8-seg", "cs16-one-gain",
+                              "sc16q11-one-gain-nco"])
+def test_k4_matches_twin(rng, case):
+    """seg 128 with a ragged 48-sample tail (the last segment's gain
+    applies), and one gain per channel."""
+    _need_card()
+    fmt, seg, dth = case
+    ch, n = 3, 128 * 37 + 48
+    xr, xi = _planes(rng, ch, n, 0.3)
+    m = n // 128 if seg else 1
+    gains = _cuda(rng.uniform(0.5, 2.0, (ch, m)).astype(np.float32))
+    ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64)) if dth else None
+    before = kernels.post_apply.launches
+    got = kernels.post_apply(xr, xi, gains, seg, ph, dth, out_fmt=fmt)
+    want = kernels.post_apply_ref(xr, xi, gains, seg, ph, dth, out_fmt=fmt)
+    torch.cuda.synchronize()
+    assert kernels.post_apply.launches == before + 1
+    assert got.dtype == want.dtype
+    assert _packed_codes_close(want, got, fmt)
+
+
+@pytest.mark.parametrize("profile", ["local", "dx"])
+def test_agc_scan_matches_twin(rng, profile):
+    """1488 segments (a full block's output), a ragged ramp of energies.
+    Bound: gains within 1e-4 relative (logf/expf on the card and torch's
+    log/exp on the CPU each round within a few ulp; the loop's feedback
+    keeps the sum of those from growing)."""
+    _need_card()
+    from iq_tool_tpu_torch.ops import agc
+    cfg = agc.AgcConfig.make(profile, 1_488_375.0)
+    n_seg, seg, beta = agc.rms_params(cfg, 190512)
+    assert (n_seg, seg) == (1488, 128)
+    ch = 5
+    e = rng.uniform(0.0, 0.2, (n_seg, ch)) * np.linspace(1e-4, 1.0, n_seg)[:, None]
+    e_in = _cuda(e.astype(np.float32))
+    g0 = _cuda(rng.uniform(0.5, 2.0, ch).astype(np.float32))
+    e20 = _cuda(rng.uniform(0.0, 0.1, ch).astype(np.float32))
+    before = kernels.rms_scan.launches
+    got = kernels.rms_scan(e_in, g0, e20, beta, cfg.target)
+    want = kernels.rms_scan_ref(e_in, g0, e20, beta, cfg.target)
+    torch.cuda.synchronize()
+    assert kernels.rms_scan.launches == before + 1
+    for w, g in zip(want, got):
+        assert float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("case", [(2175, None, 190512), (2175, None, 3 * 8192),
+                                  (5000, 16384, 5 * 8192 + 1234)],
+                         ids=["three-quarter-and-tail", "three-quarter-exact",
+                              "half-and-tail"])
+def test_k5_matches_twin(rng, case):
+    """nfft 16384: 3/4-advance windows then the re-anchored ragged tail
+    (config #4's 190512 outputs), 3/4 with nothing left over, and a
+    5000-tap filter forced to half advance.  >= 100 dB against torch.fft."""
+    _need_card()
+    from iq_tool_tpu_torch.ops.filters import StreamingFilter
+    taps_n, fft_size, n = case
+    taps = rng.standard_normal(taps_n).astype(np.complex64)
+    taps /= np.abs(taps).sum()
+    f = StreamingFilter(taps, "fft", fft_size)
+    assert not f._exec_banded and f.block == 8192
+    assert f.osfft_advance == (8192 if fft_size else 12288)
+    ch = 3
+    xr, xi = _planes(rng, ch, n, 0.3)
+    sr, si = _planes(rng, ch, f.block, 0.3)
+    before = kernels.osfft_apply.launches
+    got = f.apply_planar(xr, xi, sr, si)
+    torch.cuda.synchronize()
+    assert kernels.osfft_apply.launches == before + 1
+    ext_r, ext_i = torch.cat([sr, xr], -1), torch.cat([si, xi], -1)
+    want = kernels.osfft_apply_ref(ext_r, ext_i, f._spectrum("cuda"), f.block,
+                                   windows=f._schedule(n, "cuda"))
+    for w, g in zip(want, got[:2]):
+        assert g.shape == (ch, n)
+        assert _snr(w, g) >= 100.0
+
+
+def test_k5_refuses_nfft_32768(rng):
+    _need_card()
+    from iq_tool_tpu_torch.ops.filters import StreamingFilter
+    f = StreamingFilter(rng.standard_normal(5000).astype(np.complex64), "fft")
+    assert f.nfft == 32768
+    xr, xi = _planes(rng, 1, 2 * f.block)
+    sr, si = _planes(rng, 1, f.block)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        f.apply_planar(xr, xi, sr, si)
+
+
+def test_general_chain_on_card_matches_cpu_chain(rng):
+    """Config #4 at 16384 frames, 2 channels, 3 blocks: every kernel of
+    the general step launches once per block, and the output agrees with
+    the CPU chain to 4 codes past the notch's start-up ramp (its first
+    1087 outputs are ~1e-5 of full scale, which the AGC lifts until the
+    float32 FFT rounding of either path shows)."""
+    _need_card()
+    cfg = _general_cfg(16384, channels=2)
+    gpu, cpu = Chain(cfg, device="cuda"), Chain(cfg, device="cpu")
+    t = np.arange(3 * gpu.n_in) / 2.048e6
+    x = 0.4 * np.exp(2j * np.pi * 37e3 * t) + 0.05
+    x = x.real * 1.02 + 1j * (x.imag + 0.03 * x.real)       # I/Q imbalance
+    pairs = np.stack([x.real, x.imag], -1).reshape(1, -1)
+    raw = np.repeat(np.round(pairs * 32767).astype(np.int16), 2, axis=0)
+    gc, cc = gpu.init_carry(), cpu.init_carry()
+    kernels.reset_launch_counts()
+    w = gpu.in_wire_len
+    ramp = 2 * (gpu.post_filter.num_taps // 2)                # wire items
+    for b in range(3):
+        blk = torch.from_numpy(raw[:, b * w:(b + 1) * w])
+        gc, go = gpu.step(gc, blk.cuda())
+        cc, co = cpu.step(cc, blk)
+        d = (go.cpu().to(torch.int64) - co.to(torch.int64)).abs()
+        assert int(d[:, ramp if b == 0 else 0:].max()) <= 4
+    assert (kernels.dc_block_apply.launches, kernels.banded_apply.launches,
+            kernels.osfft_apply.launches, kernels.post_apply.launches,
+            kernels.rms_scan.launches, kernels.iq_descent.launches,
+            kernels.banded_apply_dc.launches) == (3, 6, 3, 3, 3, 3, 0)
+
+
+def test_iq_descent_matches_twin(rng):
+    """The estimator's descent kernel against its tensor-op twin on
+    spectra of an imbalanced two-tone block: factors within 2 moves (a
+    near-tie may go the other way when sums round differently), the
+    power gate within 1e-4 dB relative."""
+    _need_card()
+    from iq_tool_tpu_torch.ops import iq_balance
+    ch, n = 16, 1024
+    k = np.arange(n)
+    x = (0.4 * np.exp(2j * np.pi * 0.07 * k) + 0.1 * np.exp(-2j * np.pi * 0.19 * k)
+         + 1e-3 * (rng.standard_normal((ch, n)) + 1j * rng.standard_normal((ch, n))))
+    x = (x.real * 1.01 + 1j * (x.imag + 0.012 * x.real)).astype(np.complex64)
+    base, image = iq_balance._spectra(_cuda(x))
+    f0 = _cuda((rng.standard_normal((ch, 2)) * 1e-3).astype(np.float32))
+    before = kernels.iq_descent.launches
+    got, gate = kernels.iq_descent(base, image, f0, 25)
+    want, want_gate = kernels.iq_descent_ref(base, image, f0, 25)
+    torch.cuda.synchronize()
+    assert kernels.iq_descent.launches == before + 1
+    assert float((got - want).abs().max()) <= 2e-4 + 1e-7
+    assert float(((gate - want_gate).abs() / want_gate.abs()).max()) <= 1e-4

@@ -1,12 +1,17 @@
 """The port's kernel twins (ops/kernels.py) against the JAX package's
 Pallas kernels, run in interpret mode on the CPU as the JAX tests run
-them, at the flagship stage geometries.  The kernels themselves are held
-against the twins on the card in tests/test_torch_gpu.py.
+them, at the flagship stage geometries and BASELINE config #4's.  The
+kernels themselves are held against the twins on the card in
+tests/test_torch_gpu.py.
 
 Bounds: the Pallas kernels multiply in 3-term split bf16 (~88 dB), the
 twins in float32, so planar outputs, tails and DC state are held to
 >= 80 dB and packed cs16 codes to |delta| <= 2.  The twins' own packed
-epilogue is checked bit for bit against their planar output.
+epilogue is checked bit for bit against their planar output.  K3 (DC,
+I/Q, NCO) is held to 80 dB as K1 is; K4 (NCO, gain, pack: no product
+sums) to one code on 0.1 % of samples; K5 (the Pallas four-step DFT in
+3-term bf16 against torch.fft) to 80 dB; the AGC scan (the same float32
+loop in XLA and in torch) to 1e-5 relative.
 """
 
 import numpy as np
@@ -17,8 +22,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from iq_tool_tpu.formats import get_format  # noqa: E402
+from iq_tool_tpu.ops import agc as jagc  # noqa: E402
 from iq_tool_tpu.ops import pallas_kernels  # noqa: E402
-from iq_tool_tpu_torch.ops import convert, kernels  # noqa: E402
+from iq_tool_tpu_torch.ops import agc, convert, kernels  # noqa: E402
+from iq_tool_tpu_torch.ops.filters import StreamingFilter  # noqa: E402
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
 from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig  # noqa: E402
 from tests import ref_dsp  # noqa: E402
@@ -191,3 +198,154 @@ def test_wrappers_refuse_bad_inputs(rng):
     with pytest.raises(ValueError):     # K1 needs wire input
         kernels.banded_apply_dc(z, z, torch.zeros((2, 4)), DC_ALPHA, st0._a,
                                 None, st0.stride, st0.hist, x, 0.0)
+
+
+# ------------------------------ K3, K4, K5, AGC scan ---------------------------
+
+def _wire(rng, fmt, n, ch=CH):
+    """(packed wire tensor, kind, normalizer) of a random wire."""
+    if fmt == "cs16":
+        raw = _t(_cs16_wire(rng, n, ch))
+    else:
+        raw = _t(rng.integers(0, 256, (ch, 2 * n)).astype(np.uint8))
+    wire, kind = convert.wire_pack(raw, fmt)
+    return wire, kind, get_format(fmt).normalizer
+
+
+@pytest.mark.parametrize("case", [("cs16", False, 0), ("cs16", True, DTHETA),
+                                  ("planar", True, DTHETA), ("planar", False, 0),
+                                  ("cu8", True, 0)],
+                         ids=["cs16", "cs16-iq-nco", "planar-iq-nco", "planar",
+                              "cu8-iq"])
+def test_k3_twin_matches_pallas(rng, case):
+    fmt, with_iq, dth = case
+    n = 4096
+    dc = (rng.standard_normal((CH, 4)) * 0.05).astype(np.float32)
+    fac = (rng.standard_normal((CH, 2)) * 0.02).astype(np.float32) if with_iq else None
+    pacc = rng.integers(0, 2 ** 32, (CH,), dtype=np.uint32)
+    if fmt == "planar":
+        xr = (rng.standard_normal((CH, n)) * 0.3).astype(np.float32)
+        xi = (rng.standard_normal((CH, n)) * 0.3).astype(np.float32)
+        jx, px, jkw, pkw = (jnp.asarray(xr), jnp.asarray(xi)), (_t(xr), _t(xi)), {}, {}
+    else:
+        wire, kind, norm = _wire(rng, fmt, n)
+        jx = px = (None, None)
+        jkw = dict(wire_i32=jnp.asarray(wire.numpy()), wire_norm=norm,
+                   wire_gain=1.3, wire_kind=kind)
+        pkw = dict(jkw, wire_i32=wire)
+    want = pallas_kernels.dc_block_apply(
+        *jx, jnp.asarray(dc), DC_ALPHA, None if fac is None else jnp.asarray(fac),
+        jnp.asarray(pacc)[:, None] if dth else None, dth, interpret=True, **jkw)
+    launches = kernels.dc_block_apply.launches
+    got = kernels.dc_block_apply(*px, _t(dc), DC_ALPHA,
+                                 None if fac is None else _t(fac),
+                                 _t(pacc, np.int64) if dth else None, dth, **pkw)
+    assert kernels.dc_block_apply.launches == launches      # CPU runs the twin
+    for w, g in zip(want, got):                               # yr, yi, DC state
+        assert _snr(w, g.numpy()) >= 80.0
+
+
+def _codes_of(packed, fmt):
+    """(I, Q) integer codes of a packed tensor / array of format fmt."""
+    bits = 16 if np.asarray(packed).dtype == np.int32 else 8
+    p = np.asarray(packed).astype(np.int64) & ((1 << 2 * bits) - 1)
+    lo, hi = p & ((1 << bits) - 1), p >> bits
+    if get_format(fmt).signed:
+        lo, hi = (v - ((v >> (bits - 1)) << bits) for v in (lo, hi))
+    return lo, hi
+
+
+@pytest.mark.parametrize("case", [("cs16", 128, DTHETA), ("cs16", 0, DTHETA),
+                                  ("cu8", 128, 0), ("cu8", 0, DTHETA)],
+                         ids=["cs16-seg", "cs16-one-gain", "cu8-seg", "cu8-one-gain"])
+def test_k4_twin_matches_pallas(rng, case):
+    """A ragged block (37 segments of 128 plus 48) whose tail takes the
+    last segment's gain, per-segment and per-channel gains, two formats."""
+    fmt, seg, dth = case
+    n = 128 * 37 + 48
+    xr = (rng.standard_normal((CH, n)) * 0.3).astype(np.float32)
+    xi = (rng.standard_normal((CH, n)) * 0.3).astype(np.float32)
+    gains = rng.uniform(0.5, 2.0, (CH, n // 128 if seg else 1)).astype(np.float32)
+    pacc = rng.integers(0, 2 ** 32, (CH,), dtype=np.uint32)
+    want = pallas_kernels.post_apply(
+        jnp.asarray(xr), jnp.asarray(xi), jnp.asarray(gains), seg,
+        jnp.asarray(pacc)[:, None] if dth else None, dth, interpret=True,
+        out_fmt=fmt)
+    launches = kernels.post_apply.launches
+    got = kernels.post_apply(_t(xr), _t(xi), _t(gains), seg,
+                             _t(pacc, np.int64) if dth else None, dth, out_fmt=fmt)
+    assert kernels.post_apply.launches == launches
+    assert got.numpy().dtype == np.asarray(want).dtype
+
+    def dcode(a):
+        return np.maximum(*(np.abs(x - y) for x, y in zip(_codes_of(a, fmt),
+                                                           _codes_of(got.numpy(), fmt))))
+    d = dcode(want)
+    # the Pallas kernel adds NCO angles in signed int32 (ROADMAP Queue 3);
+    # the twin takes the XLA convention, so with the NCO on it is also
+    # held to JAX's XLA ops at the tight bound
+    assert d.max() <= 1 and (d > 0).mean() <= (1e-2 if dth else 1e-3)
+    if dth:
+        from iq_tool_tpu.ops import convert as jconvert
+        from iq_tool_tpu.ops import nco as jnco
+        yr, yi, _ = jnco.apply_planar(jnp.asarray(xr), jnp.asarray(xi),
+                                      jnp.asarray(pacc), dth)
+        g = np.asarray(kernels._segment_gains(_t(gains), seg, n))
+        xla = jconvert.wire_pack(jconvert.from_planar(yr * g, yi * g, fmt), fmt)[0]
+        d = dcode(np.asarray(xla))
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("case", [(2175, None), (5000, 16384)],
+                         ids=["advance-3b/2", "advance-b"])
+def test_k5_twin_matches_pallas(rng, case):
+    """nfft 16384: config #4's 2175-tap notch size (3/4-window advance),
+    and 5000 taps forced to b 8192 (half-window advance)."""
+    taps_n, fft_size = case
+    taps = rng.standard_normal(taps_n).astype(np.complex64)
+    taps /= np.abs(taps).sum()
+    f = StreamingFilter(taps, "fft", fft_size)
+    b, adv = f.block, f.osfft_advance
+    assert (b, adv) == (8192, 12288 if fft_size is None else 8192)
+    ch, total = 2, 2 * adv + b
+    er = rng.standard_normal((ch, total)).astype(np.float32)
+    ei = rng.standard_normal((ch, total)).astype(np.float32)
+    want = pallas_kernels.osfft_apply(jnp.asarray(er), jnp.asarray(ei),
+                                      tuple(f._h.tolist()), b, advance=adv,
+                                      interpret=True)
+    launches = kernels.osfft_apply.launches
+    got = kernels.osfft_apply(_t(er), _t(ei), f._h, b, advance=adv)
+    assert kernels.osfft_apply.launches == launches
+    for w, g in zip(want, got):
+        assert g.shape == (ch, 2 * adv)
+        assert _snr(w, g.numpy()) >= 80.0
+
+
+@pytest.mark.parametrize("profile", ["local", "dx"])
+def test_agc_scan_twin_matches_jax(rng, profile):
+    """config #4's 1488 segments from a non-unit start."""
+    cfg = agc.AgcConfig.make(profile, 1_488_375.0)
+    n_seg, seg, beta = agc.rms_params(cfg, 190512)
+    e = (rng.uniform(0.0, 0.2, (n_seg, CH))
+         * np.linspace(1e-4, 1.0, n_seg)[:, None]).astype(np.float32)
+    g0 = rng.uniform(0.5, 2.0, CH).astype(np.float32)
+    e20 = rng.uniform(0.0, 0.1, CH).astype(np.float32)
+    want = jagc.rms_scan(jnp.asarray(e), jnp.asarray(g0), jnp.asarray(e20),
+                         beta, cfg.target)
+    got = kernels.rms_scan(_t(e), _t(g0), _t(e20), beta, cfg.target)
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert np.abs(g.numpy() / w - 1.0).max() <= 1e-5
+
+
+def test_general_wrappers_refuse_bad_inputs():
+    z = torch.zeros((2, 300))
+    with pytest.raises(ValueError):     # the NCO needs a phase
+        kernels.dc_block_apply(z, z, torch.zeros((2, 4)), DC_ALPHA, dtheta=5)
+    with pytest.raises(ValueError):     # cf32 has no packed epilogue
+        kernels.post_apply(z, z, torch.ones((2, 1)), 0, out_fmt="cf32")
+    with pytest.raises(ValueError):     # seg 0 takes one gain per channel
+        kernels.post_apply(z, z, torch.ones((2, 2)), 0)
+    with pytest.raises(ValueError):     # a window schedule that leaves a gap
+        kernels.Windows.uniform(3 * 64 + 10, 64, 64, "cpu")
