@@ -3,32 +3,38 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and the checkout around this file.  One line per
-phase, exits non-zero at the first failure:
+Needs one CUDA card and the checkout around this file, and refuses jax,
+jaxlib and the JAX package.  One line per phase, exits non-zero at the
+first failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: nvcc compiles the kernels from csrc/ (registers, spills);
 3. kernels vs their plain twins on the card, at the flagship shapes
-   (K1 stage 0, K2 stage 1 packed) and at the strides 224, 400 and 144,
-   each timed twin, kernel, kernel, twin with CUDA events;
+   (K1 stage 0, K2 stage 1 packed) and at the strides 224, 400 and 144
+   (planar and packed), each timed twin, kernel, kernel, twin with CUDA
+   events (K2 beside one float32 matmul of the unfolded windows);
 4. the slice: the flagship Chain (128 channels x 262144 frames) for 6
    steps; both launch counters must read 6; output against the CPU twin
    chain on 2 channels and a tone SNR check; steady-state Msps and peak
    device memory;
 5. the general step's kernels vs their twins at BASELINE config #4's
    shapes (128 channels): K3 dc_block_apply, K4 post_apply, K5
-   osfft_apply and two helper kernels, the AGC's gain scan and the I/Q
-   estimator's descent, timed the same way;
+   osfft_apply (at nfft 16384 and, on the schedule the chain makes for
+   --filter-fft-size 32768, at nfft 32768, each beside the twin's
+   torch.fft core) and two helper kernels, the AGC's gain scan and the
+   I/Q estimator's descent, timed the same way;
 6. the general step: config #4 (DC + I/Q + pre-shift, resampler,
    2175-tap overlap-save notch, post-shift, local AGC) at 128 x 262144
    for 6 steps with exact launch counters, against the CPU twin chain on
    2 channels, tone SNR, ms per step, Msps and peak memory, and the
-   masked I/Q estimator's cost per step; then configs #5 and #3 the same
-   way at 4 steps;
+   masked I/Q estimator's cost per step; then configs #5 and #3, and #4
+   with --filter-fft-size 32768 ([full32k]), the same way at 4 steps;
 7. the CLI on a 10 s, 2.048 Msps cs16 tone file: the flagship flags, then
    the general step's (I/Q correction, notch, post-shift, AGC);
 
-then one JSON line per the kernels, the nvidia-smi line, and last
+then one JSON line per the kernels (each with its bound, the bytes or
+operations that set it, the library call's time where there is one, and
+its launches per step in each phase), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Inputs are made from a fixed seed.
 """
 
@@ -42,22 +48,36 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SEED = 20261016
-CH = 128
-BLOCK = 262144
 STEPS = 6
-IN_RATE, OUT_RATE = 2_048_000.0, 1_488_375.0
-TONE_HZ = 37_000.0          # input tone; +100 kHz pre-shift -> 137 kHz out
-SHIFT_HZ = 100_000.0
-POST_SHIFT_HZ = -50_000.0   # config #4: 37 + 100 - 50 -> 87 kHz out
-GENERAL_STEPS = 4           # configs #5 and #3
+GENERAL_STEPS = 4           # configs #5 and #3, and #4 at nfft 32768
+# NVIDIA's data sheet for the H100 SXM (dense): the bounds below divide by
+# these
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+PEAK_TF32_S = 495e12
+
+
+def bound(nbytes: float, ops: float, rate: float):
+    """(ms, "bytes" | "operations"): the least time the card could take
+    for work that moves nbytes and does ops operations at peak rate."""
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / rate * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def tf32x3_ops(band, channels: int, nb: int) -> float:
+    """Tensor-core operations of K2's 3xTF32 products: three m16n8k8
+    products per 8x8 block of every column tile's span, two planes (four
+    products with complex taps), 2 operations per multiply-add."""
+    planes = 4 if band.taps_i is not None else 2
+    return 3 * 2 * planes * channels * nb * band.n_tiles * 8 * band.span
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
-    """The port must run without jax: refuse it outright."""
+    """The port must run without jax and without the JAX package: refuse
+    them outright."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "iq_tool_tpu"):
             raise ImportError(f"chip_smoke refuses to import {name}")
         return None
 
@@ -118,8 +138,11 @@ def main() -> int:
     if not os.path.abspath(iq_tool_tpu_torch.__file__).startswith(HERE + os.sep):
         fail("iq_tool_tpu_torch was not imported from this checkout")
     from iq_tool_tpu_torch.ops import _build, kernels
-    from iq_tool_tpu_torch.ops.fir_design import FilterRequest
     from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
+    # the measured chains and their seeded tone, shared with the profiler
+    from iq_tool_tpu_torch.profile_steps import (
+        BLOCK, CHANNELS as CH, IN_RATE, OUT_RATE, POST_SHIFT_HZ, SEED, SHIFT_HZ,
+        TONE_HZ, config, to_cu8, tone_wire)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -147,73 +170,38 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def flagship(channels, block):
-        return ChainConfig(input_format="cs16", output_format="cs16",
-                           input_rate=IN_RATE, target_rate=OUT_RATE,
-                           channels=channels, dc_block=True,
-                           freq_shift_pre_hz=SHIFT_HZ,
-                           filters=(FilterRequest("lowpass", 400e3),),
-                           target_block=block)
-
-    def general(name, channels, block):
-        """BASELINE configs #4, #5 and #3 (tools/bench_all.py)."""
-        base = dict(input_rate=IN_RATE, target_rate=OUT_RATE,
-                    channels=channels, target_block=block, dc_block=True)
-        if name == 4:
-            return ChainConfig(input_format="cs16", output_format="cs16",
-                               iq_correction=True, freq_shift_pre_hz=SHIFT_HZ,
-                               freq_shift_post_hz=POST_SHIFT_HZ,
-                               filters=(FilterRequest("stop-range", 0.0, 10e3),),
-                               agc_profile="local", **base)
-        if name == 5:
-            return ChainConfig(input_format="cs16", output_format="cs16",
-                               freq_shift_pre_hz=SHIFT_HZ,
-                               filters=(FilterRequest("lowpass", 400e3),),
-                               agc_profile="local", **base)
-        return ChainConfig(input_format="cu8", output_format="cs16",
-                           filters=(FilterRequest("pass-range", 0.0, 400e3),),
-                           filter_method="fft", filter_stage="pre", **base)
-
     def nrsc5(block):
         return ChainConfig(input_format="cu8", output_format="cu8",
                            input_rate=2_400_000.0, target_rate=OUT_RATE,
                            dc_block=True, target_block=block)
 
-    def make_wire(channels, frames, tone_hz=TONE_HZ):
-        """Seeded cs16 wire on the card: a 0.5 tone (channel-dependent
-        phase) plus white noise at 1e-4, as (C, 2*frames) int16."""
-        n = torch.arange(frames, device=dev, dtype=torch.float64)
-        ph = 2 * np.pi * tone_hz / IN_RATE * n[None, :] \
-            + torch.arange(channels, device=dev, dtype=torch.float64)[:, None]
-        iq = torch.stack([0.5 * torch.cos(ph), 0.5 * torch.sin(ph)], dim=-1)
-        iq = iq + 1e-4 * torch.randn(iq.shape, generator=gen, device=dev,
-                                     dtype=torch.float64)
-        q = torch.clamp(torch.round(iq * 32767.0), -32768, 32767)
-        return q.to(torch.int16).reshape(channels, 2 * frames)
-
-    def to_cu8(wire16):
-        """The same tone as cu8 codes: (C, 2*frames) uint8."""
-        x = wire16.to(torch.float32) / 32767.0
-        return torch.clamp(torch.round(x * 127.5 + 127.5), 0, 255).to(torch.uint8)
-
-    def time_pair(run_kernel, run_twin, reps=5):
+    def time_pair(run_kernel, run_twin, reps=5, run_library=None):
         """(kernel ms, twin ms) per call, interleaved twin, kernel,
-        kernel, twin after one warm-up of each."""
+        kernel, twin after one warm-up of each; with ``run_library`` also
+        its ms, timed in the same turns (twin, library, kernel, kernel,
+        library, twin).  A spin kernel ahead of each run lets the host
+        queue all its launches first, so the events time the card, not
+        the wrappers' host code."""
         def timed(fn):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)
             start.record()
             for _ in range(reps):
                 fn()
             end.record()
             torch.cuda.synchronize()
             return start.elapsed_time(end) / reps
-        run_twin()
-        run_kernel()
+        fns = [run_twin] + ([run_library] if run_library else []) + [run_kernel]
+        for fn in fns:
+            fn()
         torch.cuda.synchronize()
-        t1, k1 = timed(run_twin), timed(run_kernel)
-        k2, t2 = timed(run_kernel), timed(run_twin)
-        return (k1 + k2) / 2, (t1 + t2) / 2
+        first = [timed(fn) for fn in fns]
+        second = [timed(fn) for fn in reversed(fns)][::-1]
+        ms = [(x + y) / 2 for x, y in zip(first, second)]
+        if run_library:
+            return ms[2], ms[0], ms[1]
+        return ms[1], ms[0]
 
     def max_abs(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
@@ -225,10 +213,10 @@ def main() -> int:
 
     # --------------------------------------------------- 3. kernels vs twins
     report = {}
-    big = Chain(flagship(CH, BLOCK), device=dev)
+    big = Chain(config("flagship"), device=dev)
     st0, st1 = big.resampler.stages
     norm = big.fmt_in.normalizer
-    wire = make_wire(CH, BLOCK).view(torch.int32)
+    wire = tone_wire(CH, BLOCK, gen).view(torch.int32)
     phase0 = torch.randint(0, 2 ** 32, (CH,), generator=gen, device=dev,
                            dtype=torch.int64)
     dc_st = (0.01 * torch.randn((CH, 4), generator=gen, device=dev)).float()
@@ -252,9 +240,15 @@ def main() -> int:
                                 lambda: kernels.banded_apply_dc_ref(*k1_args))
     nb0 = BLOCK // st0.stride
     fl0 = 4 * CH * nb0 * st0.band.g * st0.band.k
+    # wire, states and DC state in; planes, tails and DC state out
+    k1_bytes = CH * (4 * BLOCK + 2 * (16 + 8 * st0.hist)) + CH * nb0 * st0.band.g * 8
+    k1_bound = bound(k1_bytes, tf32x3_ops(st0.band, CH, nb0), PEAK_TF32_S)
     say(f"[k1] kernel {k1_ms:.3f} ms, twin {k1_plain:.3f} ms; band product "
-        f"{fl0 / 1e9:.2f} GFLOP -> {fl0 / k1_ms / 1e9:.2f} TFLOP/s")
-    report["K1"] = (k1_err, k1_ms, k1_plain)
+        f"{fl0 / 1e9:.2f} GFLOP -> {fl0 / k1_ms / 1e9:.2f} TFLOP/s; bound "
+        f"{k1_bound[0]:.4f} ms ({k1_bound[1]}: {k1_bytes / 1e6:.1f} MB, "
+        f"{tf32x3_ops(st0.band, CH, nb0) / 1e9:.2f} GFLOP of 3xTF32) -> "
+        f"{100 * k1_bound[0] / k1_ms:.1f}% of bound")
+    report["K1"] = dict(err=k1_err, ms=k1_ms, plain=k1_plain, lib=None, bound=k1_bound)
 
     # K2 at flagship stage 1, fed K1's output (the chain's own stage-1 input)
     x1r, x1i = got[0]
@@ -278,18 +272,32 @@ def main() -> int:
         f"{100 * frac:.4f}% of samples")
     if s_k2 < 100.0 or int(dcode.max()) > 1 or frac > 0.01:
         fail("K2 disagrees with its twin at the flagship stage-1 shape")
-    k2_ms, k2_plain = time_pair(
+    # the yardstick: one float32 matmul of the unfolded windows (both
+    # planes) by the dense A, TF32 off
+    ext1 = torch.cat([torch.cat([s1r, x1r], -1), torch.cat([s1i, x1i], -1)])
+    a1 = st1.band.a_r
+    k2_ms, k2_plain, k2_lib = time_pair(
         lambda: kernels.banded_apply(*k2_args, pack_fmt="cs16"),
-        lambda: kernels.banded_apply_ref(*k2_args, pack_fmt="cs16"))
+        lambda: kernels.banded_apply_ref(*k2_args, pack_fmt="cs16"),
+        run_library=lambda: torch.matmul(ext1.unfold(-1, st1.stride + st1.hist,
+                                                     st1.stride), a1))
     nb1 = x1r.shape[1] // st1.stride
     fl1 = 4 * CH * nb1 * st1.band.g * st1.band.k
-    say(f"[k2] packed kernel {k2_ms:.3f} ms, twin {k2_plain:.3f} ms; band "
-        f"product {fl1 / 1e9:.2f} GFLOP -> {fl1 / k2_ms / 1e9:.2f} TFLOP/s")
-    report["K2"] = (k2_err, k2_ms, k2_plain)
+    # planes and states in, packed cs16 out
+    k2_bytes = CH * (x1r.shape[1] + st1.hist) * 8 + CH * nb1 * st1.band.g * 4
+    k2_ops = tf32x3_ops(st1.band, CH, nb1)
+    k2_bound = bound(k2_bytes, k2_ops, PEAK_TF32_S)
+    say(f"[k2] packed kernel {k2_ms:.3f} ms, twin {k2_plain:.3f} ms, one matmul "
+        f"{k2_lib:.3f} ms; band product {fl1 / 1e9:.2f} GFLOP -> "
+        f"{fl1 / k2_ms / 1e9:.2f} TFLOP/s; bound {k2_bound[0]:.4f} ms "
+        f"({k2_bound[1]}: {k2_bytes / 1e6:.1f} MB, {k2_ops / 1e9:.2f} GFLOP of "
+        f"3xTF32) -> {100 * k2_bound[0] / k2_ms:.1f}% of bound")
+    report["K2"] = dict(err=k2_err, ms=k2_ms, plain=k2_plain, lib=k2_lib, bound=k2_bound)
+    del ext1
     del got, want, planar, planar_ref, packed, packed_ref, wire
 
     # K2 at the strides the TPU sent to XLA
-    for label, cfg, idx in (("flagship@16384 stage 1", flagship(1, 16384), 1),
+    for label, cfg, idx in (("flagship@16384 stage 1", config("flagship", 1, 16384), 1),
                             ("nrsc5@16384 stage 0", nrsc5(16384), 0),
                             ("nrsc5@16384 stage 1", nrsc5(16384), 1)):
         st = Chain(cfg, device=dev).resampler.stages[idx]
@@ -302,20 +310,27 @@ def main() -> int:
         before = kernels.banded_apply.launches
         g_ = kernels.banded_apply(*args)
         w_ = kernels.banded_apply_ref(*args)
+        gp = kernels.banded_apply(*args, pack_fmt="cs16")
+        wp = kernels.banded_apply_ref(*args, pack_fmt="cs16")
         torch.cuda.synchronize()
-        if kernels.banded_apply.launches != before + 1:
+        if kernels.banded_apply.launches != before + 2:
             fail(f"K2 did not launch at stride {st.stride}")
         s_ = min(snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(w_, g_))
+        (gi, gq), (wi, wq) = codes(gp), codes(wp)
+        dcode = torch.maximum((gi - wi).abs(), (gq - wq).abs())
+        frac = float((dcode > 0).float().mean())
         ms, plain = time_pair(lambda: kernels.banded_apply(*args),
                               lambda: kernels.banded_apply_ref(*args))
         say(f"[k2] {label}: s={st.stride} hist={st.hist} G={st.band.g} "
-            f"K={st.band.k} n={n}: SNR {s_:.1f} dB, kernel {ms:.3f} ms, "
-            f"twin {plain:.3f} ms")
-        if s_ < 100.0:
+            f"K={st.band.k} n={n}: SNR {s_:.1f} dB, packed cs16 max |dcode| "
+            f"{int(dcode.max())} on {100 * frac:.4f}% of samples; planar kernel "
+            f"{ms:.3f} ms, twin {plain:.3f} ms")
+        if s_ < 100.0 or int(dcode.max()) > 1 or frac > 0.01:
             fail(f"K2 disagrees with its twin at stride {st.stride}")
+        del g_, w_, gp, wp
 
     # ------------------------------------------------------------ 4. slice
-    stream = make_wire(CH, STEPS * BLOCK)
+    stream = tone_wire(CH, STEPS * BLOCK, gen)
     carry = big.init_carry()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -343,7 +358,7 @@ def main() -> int:
     got_wire = torch.cat(outs, dim=-1).cpu().numpy()
     if got_wire.shape != (2, STEPS * 2 * big.n_out) or got_wire.dtype != np.int16:
         fail(f"chain output {got_wire.shape} {got_wire.dtype}")
-    twin = Chain(flagship(2, BLOCK), device="cpu")
+    twin = Chain(config("flagship", 2), device="cpu")
     tc = twin.init_carry()
     twin_outs = []
     host_stream = stream[:2].cpu()
@@ -365,9 +380,9 @@ def main() -> int:
     # ------------------------------------ 5. the general step's kernels
     from iq_tool_tpu_torch.ops import agc, iq_balance
 
-    g4 = Chain(general(4, CH, BLOCK), device=dev)
+    g4 = Chain(config("4"), device=dev)
     n_out = g4.n_out
-    wire = make_wire(CH, BLOCK).view(torch.int32)
+    wire = tone_wire(CH, BLOCK, gen).view(torch.int32)
     fac = (0.02 * torch.randn((CH, 2), generator=gen, device=dev)).float()
     k3_args = (None, None, dc_st, g4.dc_alpha, fac, phase0, g4.dtheta_pre)
     k3_kw = dict(wire_i32=wire, wire_norm=norm)
@@ -383,9 +398,13 @@ def main() -> int:
         fail(f"K3 disagrees with its twin: min SNR {min(snrs):.1f} dB < 100 dB")
     k3_ms, k3_plain = time_pair(lambda: kernels.dc_block_apply(*k3_args, **k3_kw),
                                 lambda: kernels.dc_block_apply_ref(*k3_args, **k3_kw))
+    # wire in, planes out (+ the (C, 4) DC states, I/Q factors, phases);
+    # ~40 float32 operations a sample (decode, DC, I/Q, sincos, rotate)
+    k3_bound = bound(CH * (12 * BLOCK + 48), 40 * CH * BLOCK, PEAK_FP32_S)
     say(f"[k3] kernel {k3_ms:.3f} ms, twin {k3_plain:.3f} ms; "
-        f"{CH * BLOCK * 12 / k3_ms / 1e6:.1f} GB/s of wire in + planes out")
-    report["K3"] = (k3_err, k3_ms, k3_plain)
+        f"{CH * BLOCK * 12 / k3_ms / 1e6:.1f} GB/s of wire in + planes out; bound "
+        f"{k3_bound[0]:.4f} ms ({k3_bound[1]}) -> {100 * k3_bound[0] / k3_ms:.1f}%")
+    report["K3"] = dict(err=k3_err, ms=k3_ms, plain=k3_plain, lib=None, bound=k3_bound)
 
     # K4 and the AGC scan on config #4's output-rate planes (C, 190512):
     # 1488 segments of 128 and a ragged 48
@@ -408,8 +427,11 @@ def main() -> int:
         fail(f"AGC scan disagrees with its twin: relative error {agc_rel:.3e} > 1e-4")
     agc_ms, agc_plain = time_pair(lambda: kernels.rms_scan(*scan_args),
                                   lambda: kernels.rms_scan_ref(*scan_args), reps=2)
-    say(f"[agc] kernel {agc_ms:.3f} ms, twin (a loop of tensor ops) {agc_plain:.3f} ms")
-    report["AGC"] = (agc_err, agc_ms, agc_plain)
+    # energies in, gains out; ~30 operations a segment (exp and log)
+    agc_bound = bound(2 * 4 * n_seg * CH + 16 * CH, 30 * n_seg * CH, PEAK_FP32_S)
+    say(f"[agc] kernel {agc_ms:.3f} ms, twin (a loop of tensor ops) {agc_plain:.3f} "
+        f"ms; bound {agc_bound[0]:.5f} ms ({agc_bound[1]}): a sequential scan")
+    report["AGC"] = dict(err=agc_err, ms=agc_ms, plain=agc_plain, lib=None, bound=agc_bound)
     gains = got[0].T.contiguous()                        # (C, 1488)
     k4_args = (pr, pi, gains, seg, phase0, g4.dtheta_post)
     got = kernels.post_apply(*k4_args, out_fmt="cs16")
@@ -424,33 +446,66 @@ def main() -> int:
         fail("K4 disagrees with its twin by more than 1 code on 1% of samples")
     k4_ms, k4_plain = time_pair(lambda: kernels.post_apply(*k4_args, out_fmt="cs16"),
                                 lambda: kernels.post_apply_ref(*k4_args, out_fmt="cs16"))
+    # planes and gains in, wire out; ~30 operations a sample (sincos,
+    # rotate, gain, quantize)
+    k4_bound = bound(CH * (12 * n_out + 4 * gains.shape[1] + 8), 30 * CH * n_out,
+                     PEAK_FP32_S)
     say(f"[k4] kernel {k4_ms:.3f} ms, twin {k4_plain:.3f} ms; "
-        f"{CH * n_out * 12 / k4_ms / 1e6:.1f} GB/s of planes in + wire out")
-    report["K4"] = (int(dcode.max()), k4_ms, k4_plain)
+        f"{CH * n_out * 12 / k4_ms / 1e6:.1f} GB/s of planes in + wire out; bound "
+        f"{k4_bound[0]:.4f} ms ({k4_bound[1]}) -> {100 * k4_bound[0] / k4_ms:.1f}%")
+    report["K4"] = dict(err=int(dcode.max()), ms=k4_ms, plain=k4_plain, lib=None,
+                        bound=k4_bound)
 
-    filt = g4.post_filter
-    b = filt.block
-    spec, windows = filt._spectrum(dev), filt._schedule(n_out, dev)
-    er, ei = (0.3 * torch.randn((CH, n_out + b), generator=gen, device=dev)
-              for _ in range(2))
-    k5_args = (er, ei, spec, b)
-    got = kernels.osfft_apply(*k5_args, windows=windows)
-    want = kernels.osfft_apply_ref(*k5_args, windows=windows)
-    torch.cuda.synchronize()
-    snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(want, got)]
-    k5_err = max_abs(want, got)
-    full = sum(1 for h in windows.heads if h == b // 2)
-    say(f"[k5] C={CH} n={n_out} taps {filt.num_taps} nfft {2 * b}: "
-        f"{len(windows.starts)} windows ({full} at advance 3b/2, then the "
-        f"re-anchored tail): SNR {snrs[0]:.1f}/{snrs[1]:.1f} dB vs torch.fft, "
-        f"max |err| {k5_err:.3e}")
-    if min(snrs) < 100.0:
-        fail(f"K5 disagrees with its twin: min SNR {min(snrs):.1f} dB < 100 dB")
-    k5_ms, k5_plain = time_pair(lambda: kernels.osfft_apply(*k5_args, windows=windows),
-                                lambda: kernels.osfft_apply_ref(*k5_args, windows=windows))
-    say(f"[k5] kernel {k5_ms:.3f} ms, twin (torch.fft) {k5_plain:.3f} ms")
-    report["K5"] = (k5_err, k5_ms, k5_plain)
-    del got, want, wire, pr, pi, er, ei
+    def k5_check(label, filt, key):
+        """K5 against its twin on the schedule the chain makes for
+        `filt` over n_out outputs, the carried tail and the block through
+        two pointers; timed beside the twin and its torch.fft core."""
+        b = filt.block
+        spec, windows = filt._spectrum(dev), filt._schedule(n_out, dev)
+        xr, xi = (0.3 * torch.randn((CH, n_out), generator=gen, device=dev)
+                  for _ in range(2))
+        tr, ti = (0.3 * torch.randn((CH, b), generator=gen, device=dev)
+                  for _ in range(2))
+        args = (xr, xi, spec, b)
+        kw = dict(windows=windows, tail=(tr, ti))
+        got = kernels.osfft_apply(*args, **kw)
+        want = kernels.osfft_apply_ref(*args, **kw)
+        torch.cuda.synchronize()
+        snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(want, got)]
+        err = max_abs(want, got)
+        adv = {2 * b - h for h in windows.heads[:-1]}
+        say(f"[k5] {label}: C={CH} n={n_out} taps {filt.num_taps} nfft {2 * b}: "
+            f"{len(windows.starts)} windows (advances {sorted(adv)}, then the "
+            f"re-anchored tail): SNR {snrs[0]:.1f}/{snrs[1]:.1f} dB vs torch.fft, "
+            f"max |err| {err:.3e}")
+        if min(snrs) < 100.0:
+            fail(f"K5 disagrees with its twin at nfft {2 * b}: min SNR "
+                 f"{min(snrs):.1f} dB < 100 dB")
+        # the yardstick: the twin's torch.fft core on the gathered windows
+        ext = torch.complex(torch.cat([tr, xr], -1), torch.cat([ti, xi], -1))
+        idx = (windows.starts_t.long()[:, None]
+               + torch.arange(2 * b, device=dev)[None, :])
+        win = ext[:, idx]
+        ms, plain, lib = time_pair(
+            lambda: kernels.osfft_apply(*args, **kw),
+            lambda: kernels.osfft_apply_ref(*args, **kw),
+            run_library=lambda: torch.fft.ifft(torch.fft.fft(win) * spec.h))
+        nfft, nw = 2 * b, len(windows.starts)
+        nbytes = CH * (n_out + b) * 8 + CH * n_out * 8 + nfft * 8
+        ops = CH * nw * (2 * 5 * nfft * (nfft.bit_length() - 1) + 6 * nfft)
+        bd = bound(nbytes, ops, PEAK_FP32_S)
+        say(f"[k5] {label}: kernel {ms:.3f} ms, twin {plain:.3f} ms, torch.fft "
+            f"core {lib:.3f} ms; bound {bd[0]:.4f} ms ({bd[1]}: {nbytes / 1e6:.1f} "
+            f"MB, {ops / 1e9:.2f} GFLOP) -> {100 * bd[0] / ms:.1f}% of bound")
+        report[key] = dict(err=err, ms=ms, plain=plain, lib=lib, bound=bd)
+
+    k5_check("config #4's notch", g4.post_filter, "K5")
+    # the schedule the chain makes for --filter-fft-size 32768: b 16384, a
+    # 2-CTA cluster per window
+    g4k = Chain(config("4k32"), device=dev)
+    k5_check("config #4's notch at --filter-fft-size 32768", g4k.post_filter,
+             "K5@32768")
+    del got, want, wire, pr, pi, g4k
 
     # the I/Q estimator's descent on the spectra of config #4's tap: the
     # block's first 1024 DC-blocked samples, here a tone behind a 1 % / 0.01
@@ -473,17 +528,23 @@ def main() -> int:
         fail(f"I/Q descent kernel parts from its twin by {moves:.2f} moves (> 2)")
     iq_ms, iq_plain = time_pair(lambda: kernels.iq_descent(base, image, f0),
                                 lambda: kernels.iq_descent_ref(base, image, f0), reps=3)
-    say(f"[iq] kernel {iq_ms:.3f} ms, twin (25 passes of tensor ops) {iq_plain:.3f} ms")
-    report["IQ"] = (iq_err, iq_ms, iq_plain)
+    # spectra in, factors and gate out; 25 passes x 4 moves x both sides of
+    # the band, ~24 operations a bin (complex product, hypot, log10)
+    lo, hi = iq_balance.band_edges(m)
+    iq_bound = bound(CH * (2 * m * 8 + 8 + 12), CH * 25 * 4 * 2 * (hi - lo) * 24,
+                     PEAK_FP32_S)
+    say(f"[iq] kernel {iq_ms:.3f} ms, twin (25 passes of tensor ops) {iq_plain:.3f} "
+        f"ms; bound {iq_bound[0]:.5f} ms ({iq_bound[1]})")
+    report["IQ"] = dict(err=iq_err, ms=iq_ms, plain=iq_plain, lib=None, bound=iq_bound)
 
     # ------------------------------------------------- 6. the general step
     def run_general(name, steps):
         """Config `name` at CH x BLOCK for `steps` steps; returns the
         launch counts, and checks output against the CPU twin chain."""
-        cfg = general(name, CH, BLOCK)
-        label = "[full]" if name == 4 else f"[config{name}]"
+        cfg = config(name)
+        label = {"4": "[full]", "4k32": "[full32k]"}.get(name, f"[config{name}]")
         ch_ = Chain(cfg, device=dev)
-        stream = make_wire(CH, steps * BLOCK)
+        stream = tone_wire(CH, steps * BLOCK, gen)
         if cfg.input_format == "cu8":
             stream = to_cu8(stream)
         carry = ch_.init_carry()
@@ -530,8 +591,8 @@ def main() -> int:
                 f"ms per step")
         got_w = torch.cat(outs, dim=-1).cpu().numpy()
         if got_w.shape != (2, steps * 2 * ch_.n_out) or got_w.dtype != np.int16:
-            fail(f"config #{name} output {got_w.shape} {got_w.dtype}")
-        twin = Chain(general(name, 2, BLOCK), device="cpu")
+            fail(f"{label} output {got_w.shape} {got_w.dtype}")
+        twin = Chain(config(name, 2), device="cpu")
         tc = twin.init_carry()
         host = stream[:2].cpu()
         twin_outs = []
@@ -545,42 +606,50 @@ def main() -> int:
         skip = 2 * (ch_.post_filter.num_taps // 2) if ch_.post_filter else 0
         dmax = int(np.abs(got_w.astype(np.int64) - want_w)[:, skip:].max())
         tone = TONE_HZ
-        if name in (4, 5):
+        if name != "3":
             tone += nco_hz(SHIFT_HZ, IN_RATE)
-        if name == 4:
+        if name in ("4", "4k32"):
             tone += nco_hz(POST_SHIFT_HZ, OUT_RATE)
         snr_t = tone_snr_db(cs16_iq(got_w[0]), tone, OUT_RATE, 2 * ch_.n_out)
         say(f"{label} vs CPU twin chain (2 channels): max |dcode| {dmax} "
             f"past the first {skip // 2} frames; tone at {tone:.4f} Hz: SNR "
             f"{snr_t:.1f} dB over steps 3-{steps}")
         if dmax > 4:
-            fail(f"config #{name} differs from its CPU twin by {dmax} codes (> 4)")
+            fail(f"{label} differs from its CPU twin by {dmax} codes (> 4)")
         # cu8 input: the 8-bit codes alone hold the tone to ~48 dB
         need = 40.0 if cfg.input_format == "cu8" else 60.0
         if snr_t < need:
-            fail(f"config #{name} tone SNR {snr_t:.1f} dB < {need:.0f} dB")
+            fail(f"{label} tone SNR {snr_t:.1f} dB < {need:.0f} dB")
+        step_ms_of[label] = step_ms
         return counts
 
-    general_launches = run_general(4, STEPS)
+    step_ms_of = {"[slice]": step_ms}
+    general_launches = run_general("4", STEPS)
     want_counts = {"K1": 0, "K2": 2 * STEPS, "K3": STEPS, "K4": STEPS,
                    "K5": STEPS, "AGC": STEPS, "IQ": STEPS}
     if general_launches != want_counts:
         fail(f"config #4 launch counters {general_launches}, expected {want_counts}")
-    s5 = run_general(5, GENERAL_STEPS)
+    s5 = run_general("5", GENERAL_STEPS)
     if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
               "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQ": 0}:
         fail(f"config #5 launch counters {s5}")
-    s3 = run_general(3, GENERAL_STEPS)
+    s3 = run_general("3", GENERAL_STEPS)
     if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K3": GENERAL_STEPS,
               "K4": 0, "K5": 0, "AGC": 0, "IQ": 0}:
         fail(f"config #3 launch counters {s3}")
+    s4k = run_general("4k32", GENERAL_STEPS)
+    if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
+               "K4": GENERAL_STEPS, "K5": GENERAL_STEPS, "AGC": GENERAL_STEPS,
+               "IQ": GENERAL_STEPS}:
+        fail(f"config #4 at nfft 32768 launch counters {s4k}")
+    say(f"[steps] ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms_of.items()))
 
     # -------------------------------------------------------------- 7. CLI
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     inp, outp = os.path.join(work, "tone_in.cs16"), os.path.join(work, "out.cs16")
     frames = int(10 * IN_RATE)
-    make_wire(1, frames).cpu().numpy().tofile(inp)
+    tone_wire(1, frames, gen).cpu().numpy().tofile(inp)
     cmd = [sys.executable, "-m", "iq_tool_tpu_torch", "-i", "raw-file", "-o", "raw",
            inp, outp, "--raw-file-input-rate", "2048000",
            "--raw-file-input-sample-format", "cs16", "--output-rate", "1488375",
@@ -610,7 +679,7 @@ def main() -> int:
     # (a tone outside the band leaves the estimator to noise, which it
     # turns into an image at -35 to -52 dBc: ROADMAP Queue 3); it leaves
     # at 87 kHz
-    make_wire(1, frames, tone_hz=TONE_HZ + SHIFT_HZ).cpu().numpy().tofile(inp)
+    tone_wire(1, frames, gen, tone_hz=TONE_HZ + SHIFT_HZ).cpu().numpy().tofile(inp)
     cmd = [sys.executable, "-m", "iq_tool_tpu_torch", "-i", "raw-file", "-o", "raw",
            inp, outp, "--raw-file-input-rate", "2048000",
            "--raw-file-input-sample-format", "cs16", "--output-rate", "1488375",
@@ -651,12 +720,22 @@ def main() -> int:
            "K5": "iq_tool_tpu/ops/pallas_kernels.py:1324",
            "AGC": "iq_tool_tpu/ops/agc.py:78",
            "IQ": "iq_tool_tpu/ops/iq_balance.py:147"}
-    # K1/K2 launches from the flagship slice, the rest from config #4's run
-    counts = {**general_launches, **launches}
+    # K1/K2 launches from the flagship slice, the rest from config #4's
+    # run, K5 at nfft 32768 from the [full32k] run; and each phase's
+    # launches per step
+    counts = {**general_launches, **launches, "K5@32768": s4k["K5"]}
+    src["K5@32768"], rep["K5@32768"] = src["K5"], rep["K5"]
+    phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQ=0), STEPS),
+              "#4": (general_launches, STEPS), "#4@32768": (s4k, GENERAL_STEPS),
+              "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS)}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k], "replaces": rep[k],
-         "launches": counts[k], "max_abs_err": report[k][0],
-         "ms": report[k][1], "plain_ms": report[k][2]} for k in src]}))
+         "launches": counts[k], "max_abs_err": report[k]["err"],
+         "ms": report[k]["ms"], "plain_ms": report[k]["plain"],
+         "bound_ms": report[k]["bound"][0], "bound_by": report[k]["bound"][1],
+         "library_ms": report[k]["lib"],
+         "launches_per_step": {ph: c[k.split("@")[0]] / n for ph, (c, n) in phases.items()}}
+        for k in src]}))
     say(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

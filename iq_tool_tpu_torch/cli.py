@@ -21,11 +21,11 @@ import re
 import signal
 import sys
 
-from iq_tool_tpu import __version__
-from iq_tool_tpu import constants as C
-from iq_tool_tpu.formats import complex_formats
-from iq_tool_tpu.modules import INPUT_MODULES, OUTPUT_MODULES, get_input, get_output
-from iq_tool_tpu.presets import load_presets
+from iq_tool_tpu_torch import __version__
+from iq_tool_tpu_torch import constants as C
+from iq_tool_tpu_torch.formats import complex_formats
+from iq_tool_tpu_torch.modules import INPUT_MODULES, OUTPUT_MODULES, get_input, get_output
+from iq_tool_tpu_torch.presets import load_presets
 from iq_tool_tpu_torch.config import (AppConfig, apply_preset,
                                       collect_filter_requests, resolve_rates,
                                       validate)
@@ -339,7 +339,7 @@ def main(argv=None) -> int:
             print(f"  {name:<22} {pr.values.get('description', '')}")
         return 0
 
-    from iq_tool_tpu.utils.log import configure as configure_log
+    from iq_tool_tpu_torch.utils.log import configure as configure_log
     configure_log(args.log_level)
 
     def _sigterm(_sig, _frm):

@@ -10,9 +10,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from iq_tool_tpu import constants as C
-from iq_tool_tpu.formats import get_format
-from iq_tool_tpu.presets import Preset
+from iq_tool_tpu_torch import constants as C
+from iq_tool_tpu_torch.formats import get_format
+from iq_tool_tpu_torch.presets import Preset
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest
 
 

@@ -44,8 +44,8 @@ _SIGNATURES = {
     "iq_post_apply": [_P, _P, _P, _I, _I, _P, _U, _I, _I, _P, _I, _I, _F, _F,
                       _F, _F, _P],
     "iq_agc_rms_scan": [_P, _P, _P, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
-    "iq_osfft_apply": [_P, _P, _I, ctypes.c_longlong, _P, _P, _I, _P, _P, _I,
-                       _I, _P, _P, ctypes.c_longlong, _P],
+    "iq_osfft_apply": [_P, _P, _I, _P, _P, ctypes.c_longlong, _I, _P, _P, _I,
+                       _P, _P, _P, _I, _I, _I, _I, _P, _P, ctypes.c_longlong, _P],
     "iq_est_descent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
 }
 

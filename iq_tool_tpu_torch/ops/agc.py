@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from iq_tool_tpu import constants as C
+from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.ops import kernels
 
 PROFILES = ("dx", "local", "digital")

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from iq_tool_tpu.formats import SampleFormat, get_format
+from iq_tool_tpu_torch.formats import SampleFormat, get_format
 
 _F32 = torch.float32
 

@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from iq_tool_tpu.constants import DC_BLOCK_CUTOFF_HZ
+from iq_tool_tpu_torch.constants import DC_BLOCK_CUTOFF_HZ
 
 
 def alpha_for_rate(sample_rate: float, cutoff_hz: float = DC_BLOCK_CUTOFF_HZ) -> float:

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from iq_tool_tpu import constants as C
+from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.ops import banded, kernels
 from iq_tool_tpu_torch.ops.fir_design import choose_fft_block
 
@@ -173,9 +173,8 @@ class StreamingFilter:
         n = xr.shape[-1]
         if n < b:
             raise ValueError(f"block length {n} smaller than filter block {b}")
-        ext_r = torch.cat([state_r, xr], dim=-1)
-        ext_i = torch.cat([state_i, xi], dim=-1)
-        yr, yi = kernels.osfft_apply(ext_r, ext_i, self._spectrum(xr.device), b,
-                                     windows=self._schedule(n, xr.device))
+        yr, yi = kernels.osfft_apply(xr, xi, self._spectrum(xr.device), b,
+                                     windows=self._schedule(n, xr.device),
+                                     tail=(state_r, state_i))
         return (yr, yi, banded.new_tail(state_r, xr, b),
                 banded.new_tail(state_i, xi, b))

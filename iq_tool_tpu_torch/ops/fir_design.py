@@ -15,7 +15,7 @@ from typing import Literal
 
 import numpy as np
 
-from iq_tool_tpu import constants as C
+from iq_tool_tpu_torch import constants as C
 
 FilterType = Literal["lowpass", "highpass", "pass-range", "stop-range"]
 

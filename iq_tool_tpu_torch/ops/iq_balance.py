@@ -30,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from iq_tool_tpu import constants as C
+from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.ops import fft as tfft
 
 _SAT = 0xF0000000

@@ -30,8 +30,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from iq_tool_tpu import constants as C
-from iq_tool_tpu.formats import get_format
+from iq_tool_tpu_torch import constants as C
+from iq_tool_tpu_torch.formats import get_format
 from iq_tool_tpu_torch.ops import banded, convert, dc_block, iq_balance, nco
 from iq_tool_tpu_torch.ops import fft as tfft
 
@@ -60,20 +60,27 @@ def pack_wire_ref(yr: torch.Tensor, yi: torch.Tensor, fmt_name: str) -> torch.Te
     return (packed - ((packed >> (2 * bits - 1)) << (2 * bits))).to(dt)
 
 
+TILE_COLS = 16     # output columns of one column tile: two mma n-blocks
+
+
 @dataclasses.dataclass(frozen=True)
 class Band:
     """A banded matrix A (L, G) ready for both paths: the dense float32
-    tensors for the twin, and for the kernel each column's first band row
-    and its K taps (the same linear map with exact zeros skipped), plus
-    how many consecutive columns have their first rows within 32 words
-    (one warp's share: its shared-memory loads then avoid bank
-    conflicts)."""
+    tensors for the twin, and for the kernel A cut into tiles of 16
+    columns.  Tile t covers the rows [tile_first[t], tile_first[t] +
+    span) that hold its columns' non-zeros (tile_first even, span the
+    widest tile's rounded up to 8), as a dense (span, 16) block B_t of A
+    (zeros outside the band and past A's edges), stored in the order the
+    tensor cores' B fragments take with k paired: taps[t, kc, lane] =
+    (B_t[r, c], B_t[r + 1, c], B_t[r, c + 8], B_t[r + 1, c + 8]) for
+    r = 8 kc + 2 (lane % 4), c = lane // 4 (csrc/banded.cu)."""
     a_r: torch.Tensor
     a_i: torch.Tensor | None
-    first: torch.Tensor          # (G,) int32
-    taps_r: torch.Tensor         # (K, G) float32
+    tile_first: torch.Tensor     # (n_tiles,) int32
+    taps_r: torch.Tensor         # (n_tiles, span // 8, 32, 4) float32
     taps_i: torch.Tensor | None
-    cols_per_warp: int
+    k: int                       # the longest column band (non-zero taps)
+    span: int
 
     @staticmethod
     def build(a_r: np.ndarray, a_i: np.ndarray | None, device) -> "Band":
@@ -82,24 +89,32 @@ class Band:
         rows, g = a_r.shape
         nz = (a_r != 0) | (a_i != 0 if a_i is not None else False)
         has = nz.any(axis=0)
-        lo = np.where(has, nz.argmax(axis=0), 0)
-        hi = np.where(has, rows - 1 - nz[::-1].argmax(axis=0), 0)
+        lo = np.where(has, nz.argmax(axis=0), rows)
+        hi = np.where(has, rows - 1 - nz[::-1].argmax(axis=0), -1)
         k = max(1, int((hi - lo + 1).max()))
-        first = np.minimum(lo, rows - k)           # keep every band inside A
-        take = first[None, :] + np.arange(k)[:, None]
-        cols = np.arange(g)[None, :]
-        cpw = 1
-        for length in range(2, min(32, g) + 1):
-            win = np.lib.stride_tricks.sliding_window_view(first, length)
-            if (win.max(axis=1) - win.min(axis=1)).max() > 31:
-                break
-            cpw = length
+        n_tiles = -(-g // TILE_COLS)
+        pad = n_tiles * TILE_COLS - g
+        lo_t = np.concatenate([lo, np.full(pad, rows)]).reshape(n_tiles, -1).min(axis=1)
+        hi_t = np.concatenate([hi, np.full(pad, -1)]).reshape(n_tiles, -1).max(axis=1)
+        first = np.where(hi_t >= lo_t, lo_t, 0) & ~1
+        span = 8 * -(-max(1, int((hi_t - first + 1).max())) // 8)
+        take = first[:, None] + np.arange(span)[None, :]               # (T, span)
+        cols = np.arange(n_tiles * TILE_COLS).reshape(n_tiles, 1, TILE_COLS)
+        lane = np.arange(32)
+        r, c = 2 * (lane % 4), lane // 4
+
+        def tiles(a):
+            dense = np.zeros((rows + span, n_tiles * TILE_COLS), np.float32)
+            dense[:rows, :g] = a
+            b = dense[take[:, :, None], cols].reshape(n_tiles, span // 8, 8, TILE_COLS)
+            return np.stack([b[:, :, r, c], b[:, :, r + 1, c],
+                             b[:, :, r, c + 8], b[:, :, r + 1, c + 8]], axis=-1)
+
         dev = torch.device(device)
         t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         return Band(a_r=t(a_r), a_i=None if a_i is None else t(a_i),
-                    first=t(first.astype(np.int32)), taps_r=t(a_r[take, cols]),
-                    taps_i=None if a_i is None else t(a_i[take, cols]),
-                    cols_per_warp=cpw)
+                    tile_first=t(first.astype(np.int32)), taps_r=t(tiles(a_r)),
+                    taps_i=None if a_i is None else t(tiles(a_i)), k=k, span=span)
 
     @property
     def rows(self) -> int:
@@ -110,8 +125,8 @@ class Band:
         return self.a_r.shape[1]
 
     @property
-    def k(self) -> int:
-        return self.taps_r.shape[0]
+    def n_tiles(self) -> int:
+        return self.tile_first.shape[0]
 
 
 def _band(a_r, a_i, device) -> Band:
@@ -219,8 +234,8 @@ def _launch_banded(lib, band: Band, state_r, state_i, xr, xi, wire, kind: int,
         rc = lib.iq_banded_apply(
             _ptr(xr), _ptr(xi), _ptr(wire), kind, convert._f32(wire_norm),
             convert._f32(wire_gain), _ptr(nco_phase), int(nco_dtheta) & 0xFFFFFFFF,
-            _ptr(state_r), _ptr(state_i), _ptr(band.first), _ptr(band.taps_r),
-            _ptr(band.taps_i), band.k, band.cols_per_warp, ch, n, stride, hist,
+            _ptr(state_r), _ptr(state_i), _ptr(band.taps_r), _ptr(band.taps_i),
+            _ptr(band.tile_first), band.n_tiles, band.span, ch, n, stride, hist,
             band.g, _ptr(out_r), _ptr(out_i), _ptr(packed), *_pack_args(pack_fmt),
             _stream())
     _check(rc, "banded kernel")
@@ -514,20 +529,40 @@ rms_scan.launches = 0
 
 # ------------------------------ K5 --------------------------------------------
 
-# The kernel holds one whole window in shared memory (8 B per point);
-# 227 KB per block fits nfft 16384 and not 32768.
-OSFFT_MAX_NFFT = 16384
+# A window of nfft points runs on one CTA up to OSFFT_LOCAL points, above
+# that on a cluster of nfft / OSFFT_LOCAL CTAs (csrc/osfft.cu takes up to
+# 4): 32768 is the largest size a filter of up to 8193 taps gets
+# (choose_fft_block), 65536 what 8194-16385 taps get.
+OSFFT_LOCAL = 16384
+OSFFT_MIN_NFFT = 1024
+OSFFT_MAX_NFFT = 4 * OSFFT_LOCAL
+
+
+def _bitrev(nfft: int) -> np.ndarray:
+    bits = nfft.bit_length() - 1
+    idx = np.arange(nfft)
+    rev = np.zeros(nfft, np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
 
 
 @dataclasses.dataclass(frozen=True)
 class Spectrum:
     """A filter's frequency response ready for both paths: H (nfft,)
-    complex64 for the twin, and for the kernel H/nfft in bit-reversed
-    order plus the twiddles exp(-2 pi i m / nfft), m < nfft/2, as
-    interleaved float32 pairs (computed in float64)."""
+    complex64 for the twin, and for the kernel, split over a cluster of
+    C = 2^log2c CTAs of nl = nfft / C points, H/nfft in each CTA's
+    bit-reversed order laid out by thread (h_k[q nl + j nl/32 + t] =
+    H[C bitrev(32 t + j) + q] / nfft: thread t's 32 points of CTA q's
+    last pass) and the two twiddle tables exp(-2 pi i m / nfft), m < 2^B
+    and m = i * 2^B, as interleaved float32 pairs (computed in
+    float64)."""
     h: torch.Tensor
-    h_br: torch.Tensor           # (nfft, 2) float32
-    twiddles: torch.Tensor       # (nfft // 2, 2) float32
+    h_k: torch.Tensor            # (nfft, 2) float32
+    tw_lo: torch.Tensor          # (2^B, 2) float32
+    tw_hi: torch.Tensor          # (nfft / 2^B, 2) float32
+    tw_bits: int                 # B
+    log2c: int
 
     @staticmethod
     def build(h, device) -> "Spectrum":
@@ -535,19 +570,23 @@ class Spectrum:
         nfft = h.shape[0]
         if nfft < 2 or nfft & (nfft - 1):
             raise ValueError(f"nfft must be a power of two >= 2, got {nfft}")
-        bits = nfft.bit_length() - 1
-        idx = np.arange(nfft)
-        rev = np.zeros(nfft, np.int64)
-        for b in range(bits):
-            rev |= ((idx >> b) & 1) << (bits - 1 - b)
-        h_br = h[rev] / np.float32(nfft)            # exact: nfft is 2^k
-        tw = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
+        log2n = nfft.bit_length() - 1
+        bits = max(1, log2n // 2)
+        cs = max(1, nfft // OSFFT_LOCAL)
+        nl = nfft // cs
+        k = cs * _bitrev(nl)[None, :] + np.arange(cs)[:, None]      # (C, nl)
+        h_k = h[k] / np.float32(nfft)                         # exact: nfft is 2^k
+        if nl >= 32:
+            h_k = h_k.reshape(cs, nl // 32, 32).transpose(0, 2, 1)
+        w = lambda m: np.exp(-2j * np.pi * m / nfft)
         pairs = lambda z: np.ascontiguousarray(
-            np.stack([z.real, z.imag], axis=-1).astype(np.float32))
+            np.stack([z.real, z.imag], axis=-1).reshape(-1, 2).astype(np.float32))
         dev = torch.device(device)
-        return Spectrum(h=torch.from_numpy(h).to(dev),
-                        h_br=torch.from_numpy(pairs(h_br)).to(dev),
-                        twiddles=torch.from_numpy(pairs(tw)).to(dev))
+        t = lambda z: torch.from_numpy(pairs(z)).to(dev)
+        return Spectrum(h=torch.from_numpy(h).to(dev), h_k=t(h_k),
+                        tw_lo=t(w(np.arange(1 << bits))),
+                        tw_hi=t(w(np.arange(nfft >> bits) << bits)), tw_bits=bits,
+                        log2c=cs.bit_length() - 1)
 
     @property
     def nfft(self) -> int:
@@ -591,14 +630,16 @@ class Windows:
                              [2 * block - adv] * nw, device)
 
 
-def osfft_apply_ref(ext_r, ext_i, h, block: int, advance=None, windows=None):
-    """Plain twin of osfft_apply: gather the windows, torch.fft, pick
-    each window's emitted outputs."""
-    spec = _spectrum(h, ext_r.device)
+def osfft_apply_ref(xr, xi, h, block: int, advance=None, windows=None, tail=None):
+    """Plain twin of osfft_apply: build ext, gather the windows,
+    torch.fft, pick each window's emitted outputs."""
+    spec = _spectrum(h, xr.device)
     nfft = spec.nfft
+    if tail is not None:
+        xr, xi = torch.cat([tail[0], xr], dim=-1), torch.cat([tail[1], xi], dim=-1)
     if windows is None:
-        windows = Windows.uniform(ext_r.shape[-1], block, advance, ext_r.device)
-    ext = torch.complex(ext_r, ext_i)
+        windows = Windows.uniform(xr.shape[-1], block, advance, xr.device)
+    ext = torch.complex(xr, xi)
     idx = (torch.tensor(windows.starts, device=ext.device)[:, None]
            + torch.arange(nfft, device=ext.device)[None, :])
     y = tfft.ifft(tfft.fft(ext[:, idx]) * spec.h)           # (C, n_win, nfft)
@@ -606,37 +647,42 @@ def osfft_apply_ref(ext_r, ext_i, h, block: int, advance=None, windows=None):
     return out.real.contiguous(), out.imag.contiguous()
 
 
-def osfft_apply(ext_r, ext_i, h, block: int, advance=None, windows=None):
-    """K5: overlap-save over ext = state(b) ++ x planes, (C, total).
+def osfft_apply(xr, xi, h, block: int, advance=None, windows=None, tail=None):
+    """K5: overlap-save over ext = tail ++ x, (C, total) planes.
 
-    h: the filter's (2b,) frequency response (numpy) or a prepared
-    Spectrum.  With ``advance`` (b, the default, or 3b/2) the windows
-    advance uniformly over total - b outputs, as the reference's
-    osfft_apply; ``windows`` (a Windows schedule) instead gives each
-    window's start and first emitted sample: ops/filters.py passes the
-    whole step's mixed schedule, the re-anchored ragged last window
-    included, so one launch covers a block (``launches`` counts one per
-    step).  Returns (yr, yi) (C, n_out) float32."""
-    if ext_r.device.type == "cpu":
-        return osfft_apply_ref(ext_r, ext_i, h, block, advance, windows)
+    ``tail`` is the carried (tail_r, tail_i) (C, b) pair, or None when
+    (xr, xi) already are ext; the kernel reads both where they lie (no
+    concatenated copy).  h: the filter's (2b,) frequency response (numpy)
+    or a prepared Spectrum.  With ``advance`` (b, the default, or 3b/2)
+    the windows advance uniformly over total - b outputs, as the
+    reference's osfft_apply; ``windows`` (a Windows schedule) instead
+    gives each window's start and first emitted sample: ops/filters.py
+    passes the whole step's mixed schedule, the re-anchored ragged last
+    window included, so one launch covers a block (``launches`` counts
+    one per step).  Returns (yr, yi) (C, n_out) float32."""
+    if xr.device.type == "cpu":
+        return osfft_apply_ref(xr, xi, h, block, advance, windows, tail)
     from iq_tool_tpu_torch.ops import _build
-    spec = _spectrum(h, ext_r.device)
+    spec = _spectrum(h, xr.device)
     nfft = spec.nfft
     if nfft != 2 * block:
         raise ValueError(f"H has {nfft} points, expected 2b = {2 * block}")
-    if nfft > OSFFT_MAX_NFFT:
+    if not OSFFT_MIN_NFFT <= nfft <= OSFFT_MAX_NFFT:
         raise NotImplementedError(
-            f"overlap-save kernel at nfft {nfft}: one window no longer fits "
-            f"a block's shared memory (max {OSFFT_MAX_NFFT}); not ported yet "
-            "(ROADMAP Queue 2, K5 nfft 32768)")
+            f"overlap-save kernel at nfft {nfft}: sizes {OSFFT_MIN_NFFT} to "
+            f"{OSFFT_MAX_NFFT} are ported (ROADMAP Queue 2, K5 sizes)")
     lib = _build.library()
-    _require_cuda(ext_r, ext_i, spec.h_br)
-    _require_dtypes(None, 0, None, ext_r, ext_i)
-    ch, total = ext_r.shape
-    if ext_i.shape != (ch, total):
-        raise ValueError(f"ext planes must both be ({ch}, {total})")
+    tail_r, tail_i = (None, None) if tail is None else tail
+    _require_cuda(xr, xi, tail_r, tail_i, spec.h_k)
+    _require_dtypes(None, 0, None, xr, xi, tail_r, tail_i)
+    ch, n_x = xr.shape
+    tail_len = 0 if tail is None else tail_r.shape[-1]
+    if xi.shape != (ch, n_x) or (tail is not None and (
+            tail_r.shape != (ch, tail_len) or tail_i.shape != (ch, tail_len))):
+        raise ValueError(f"planes must be ({ch}, n) pairs")
+    total = tail_len + n_x
     if windows is None:
-        windows = Windows.uniform(total, block, advance, ext_r.device)
+        windows = Windows.uniform(total, block, advance, xr.device)
     _require_cuda(windows.starts_t, windows.heads_t)
     pos = 0
     for st, hd in zip(windows.starts, windows.heads):
@@ -644,15 +690,16 @@ def osfft_apply(ext_r, ext_i, h, block: int, advance=None, windows=None):
                 or st + hd - block != pos):
             raise ValueError("overlap-save windows must tile the output in order")
         pos += nfft - hd
-    dev = ext_r.device
+    dev = xr.device
     out_r = torch.empty((ch, pos), dtype=torch.float32, device=dev)
     out_i = torch.empty_like(out_r)
     with torch.cuda.device(dev):
         rc = lib.iq_osfft_apply(
-            _ptr(ext_r), _ptr(ext_i), ch, total, _ptr(windows.starts_t),
-            _ptr(windows.heads_t), len(windows.starts), _ptr(spec.h_br),
-            _ptr(spec.twiddles), nfft.bit_length() - 1, block, _ptr(out_r),
-            _ptr(out_i), pos, _stream())
+            _ptr(tail_r), _ptr(tail_i), tail_len, _ptr(xr), _ptr(xi), n_x, ch,
+            _ptr(windows.starts_t), _ptr(windows.heads_t), len(windows.starts),
+            _ptr(spec.h_k), _ptr(spec.tw_lo), _ptr(spec.tw_hi), spec.tw_bits,
+            nfft.bit_length() - 1, spec.log2c, block, _ptr(out_r), _ptr(out_i), pos,
+            _stream())
     _check(rc, "overlap-save kernel")
     osfft_apply.launches += 1
     return out_r, out_i

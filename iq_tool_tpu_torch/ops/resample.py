@@ -22,7 +22,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from iq_tool_tpu import constants as C
+from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.ops import banded, kernels
 from iq_tool_tpu_torch.ops.fir_design import kaiser_beta as _kaiser_beta
 

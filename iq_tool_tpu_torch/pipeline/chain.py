@@ -44,8 +44,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from iq_tool_tpu import constants as C
-from iq_tool_tpu.formats import get_format
+from iq_tool_tpu_torch import constants as C
+from iq_tool_tpu_torch.formats import get_format
 from iq_tool_tpu_torch.ops import agc, convert, dc_block, iq_balance, kernels, nco
 from iq_tool_tpu_torch.ops.filters import StreamingFilter
 from iq_tool_tpu_torch.ops.fir_design import (FilterRequest, design_chain,

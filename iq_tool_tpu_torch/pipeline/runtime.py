@@ -32,8 +32,8 @@ import time
 import numpy as np
 import torch
 
-from iq_tool_tpu import constants as C
-from iq_tool_tpu.modules.base import OutputClosed
+from iq_tool_tpu_torch import constants as C
+from iq_tool_tpu_torch.modules.base import OutputClosed
 from iq_tool_tpu_torch.pipeline.chain import Chain
 
 

@@ -275,14 +275,20 @@ def test_unported_chain_features_raise():
 
 
 def test_port_imports_no_jax(tmp_path):
-    """In a fresh interpreter that refuses jax: import the port, run one
-    CPU block of the flagship chain and the CLI's --help."""
+    """In a fresh interpreter that refuses jax, jaxlib and the JAX
+    package itself: import the port, run one CPU block of the flagship
+    chain and of the general step, the CLI's --help, and the CLI file to
+    file."""
+    src = tmp_path / "in.cs16"
+    np.random.default_rng(7).integers(-3000, 3000, 2 * 40000, dtype=np.int16).tofile(src)
     script = textwrap.dedent("""
-        import runpy, sys
+        import os, runpy, sys
+        REFUSED = ("jax", "jaxlib", "iq_tool_tpu")
+        src, dst = sys.argv[1:3]
         class NoJax:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax refused: " + name)
+                if name.split(".")[0] in REFUSED:
+                    raise ImportError("refused: " + name)
         sys.meta_path.insert(0, NoJax())
         import torch
         import iq_tool_tpu_torch.cli, iq_tool_tpu_torch.pipeline.runtime
@@ -311,9 +317,17 @@ def test_port_imports_no_jax(tmp_path):
             runpy.run_module("iq_tool_tpu_torch", run_name="__main__")
         except SystemExit as e:
             assert e.code in (0, None), e.code
-        assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+        from iq_tool_tpu_torch.cli import main
+        assert main([src, dst, "-i", "raw-file", "-o", "raw",
+                     "--raw-file-input-rate", "2048000",
+                     "--raw-file-input-sample-format", "cs16",
+                     "--output-rate", "1488375", "--dc-block", "--lowpass", "400000",
+                     "--block-size", "16384", "--device", "cpu"]) in (0, None)
+        assert os.path.getsize(dst) == 4 * (40000 * 11907 // 16384), os.path.getsize(dst)
+        assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
     """)
-    res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+    res = subprocess.run([sys.executable, "-c", script, str(src), str(tmp_path / "out.cs16")],
+                         cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "--device" in res.stdout

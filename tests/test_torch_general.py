@@ -23,6 +23,7 @@ from iq_tool_tpu.ops import convert as jconvert  # noqa: E402
 from iq_tool_tpu.ops.fir_design import FilterRequest as JaxFilter  # noqa: E402
 from iq_tool_tpu.pipeline.chain import Chain as JaxChain  # noqa: E402
 from iq_tool_tpu.pipeline.chain import ChainConfig as JaxConfig  # noqa: E402
+from iq_tool_tpu_torch import profile_steps  # noqa: E402
 from iq_tool_tpu_torch.ops import kernels, nco  # noqa: E402
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
 from iq_tool_tpu_torch.pipeline.chain import (Chain, ChainConfig,  # noqa: E402
@@ -134,6 +135,29 @@ def test_general_configs_parity(rng, name, block):
     if "agc" in pnp:
         np.testing.assert_allclose(pnp["agc"][0], np.asarray(jcarry["agc"].gain),
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["3", "4", "5", "4k32"])
+def test_measured_configs_are_baseline(name):
+    """The chains chip_smoke.py and the profiler measure are the configs
+    tested here (4k32: #4 with --filter-fft-size 32768)."""
+    cfg = {"3": CONFIG3, "4": CONFIG4, "5": CONFIG5,
+           "4k32": dict(CONFIG4, filter_fft_size=32768)}[name]
+    _, want = _configs(16384, **cfg)
+    assert profile_steps.config(name, 2, 16384) == want
+
+
+def test_measured_tone_wire():
+    """The measured chains' input: seeded, full-scale-safe cs16, and the
+    same tone as cu8 codes."""
+    wires = [profile_steps.tone_wire(3, 4096, torch.Generator().manual_seed(7))
+             for _ in range(2)]
+    assert torch.equal(*wires)
+    w = wires[0]
+    assert w.shape == (3, 8192) and w.dtype == torch.int16
+    assert 16300 < int(w.abs().max()) <= 16400          # a 0.5 tone plus noise
+    u = profile_steps.to_cu8(w)
+    assert u.dtype == torch.uint8 and 63 <= int(u.min()) and int(u.max()) <= 192
 
 
 def test_config4_tone_snr(rng):

@@ -15,7 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from iq_tool_tpu.formats import get_format  # noqa: E402
+from iq_tool_tpu_torch.formats import get_format  # noqa: E402
 from iq_tool_tpu_torch.ops import convert, kernels  # noqa: E402
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
 from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig  # noqa: E402
@@ -126,6 +126,33 @@ def test_k2_wire_nco_packed_formats(rng, fmt):
     got_p = kernels.banded_apply(*args, **kw)
     want_p = kernels.banded_apply_ref(*args, **kw)
     for w, g in zip(want_p, got_p):
+        assert _snr(w, g) >= 100.0
+
+
+@pytest.mark.parametrize("case", [(1155, False), (1155, True), (3 * 1009, False)],
+                         ids=["stride-231", "stride-231-complex", "stride-3"])
+def test_k2_odd_strides(rng, case):
+    """A FIR filter's Toeplitz band at the stride its block length gives:
+    odd (the kernel's single-word loads, pairs straddling staged rows)
+    and below 8 (spans crossing several rows per chunk)."""
+    _need_card()
+    from iq_tool_tpu_torch.ops.filters import StreamingFilter
+    n, cplx = case
+    taps = rng.standard_normal(75).astype(np.complex64) / 75
+    if cplx:
+        taps = taps * np.exp(2j * np.pi * 0.1 * np.arange(75)).astype(np.complex64)
+    f = StreamingFilter(taps, "fir")
+    xr, xi = _planes(rng, 2, n)
+    sr, si = _planes(rng, 2, f.block)
+    before = kernels.banded_apply.launches
+    got = f.apply_planar(xr, xi, sr, si)
+    torch.cuda.synchronize()
+    assert kernels.banded_apply.launches == before + 1
+    stride = n // 5 if n == 1155 else 3
+    band = f._band(stride, "cuda")
+    assert (band.taps_i is not None) == cplx
+    want = kernels.banded_apply_ref(sr, si, xr, xi, band, None, stride, 74)
+    for w, g in zip(want, got[:2]):
         assert _snr(w, g) >= 100.0
 
 
@@ -287,21 +314,28 @@ def test_agc_scan_matches_twin(rng, profile):
 
 
 @pytest.mark.parametrize("case", [(2175, None, 190512), (2175, None, 3 * 8192),
-                                  (5000, 16384, 5 * 8192 + 1234)],
+                                  (5000, 16384, 5 * 8192 + 1234),
+                                  (5000, None, 190512), (9000, 32768, 5 * 16384 + 1234)],
                          ids=["three-quarter-and-tail", "three-quarter-exact",
-                              "half-and-tail"])
+                              "half-and-tail", "nfft32768-three-quarter-and-tail",
+                              "nfft32768-half-and-tail"])
 def test_k5_matches_twin(rng, case):
     """nfft 16384: 3/4-advance windows then the re-anchored ragged tail
     (config #4's 190512 outputs), 3/4 with nothing left over, and a
-    5000-tap filter forced to half advance.  >= 100 dB against torch.fft."""
+    5000-tap filter forced to half advance; nfft 32768 (a 2-CTA cluster
+    per window): 5000 taps at the default size (3/4 advance) and 9000
+    taps with --filter-fft-size 32768 (half advance).  The kernel reads
+    the carried tail and the block through two pointers.  >= 100 dB
+    against torch.fft."""
     _need_card()
     from iq_tool_tpu_torch.ops.filters import StreamingFilter
     taps_n, fft_size, n = case
     taps = rng.standard_normal(taps_n).astype(np.complex64)
     taps /= np.abs(taps).sum()
     f = StreamingFilter(taps, "fft", fft_size)
-    assert not f._exec_banded and f.block == 8192
-    assert f.osfft_advance == (8192 if fft_size else 12288)
+    b = fft_size // 2 if fft_size else (16384 if taps_n > 4097 else 8192)
+    assert not f._exec_banded and f.block == b
+    assert f.osfft_advance == (b if fft_size else 3 * b // 2)
     ch = 3
     xr, xi = _planes(rng, ch, n, 0.3)
     sr, si = _planes(rng, ch, f.block, 0.3)
@@ -317,15 +351,33 @@ def test_k5_matches_twin(rng, case):
         assert _snr(w, g) >= 100.0
 
 
-def test_k5_refuses_nfft_32768(rng):
+def test_k5_nfft_65536_and_uniform_windows(rng):
+    """A 10000-tap filter's nfft 65536 (a cluster of 4 CTAs per window),
+    on the chain's schedule with the carried tail, and in the reference's
+    own form: ext in one pair, uniform half advance."""
     _need_card()
     from iq_tool_tpu_torch.ops.filters import StreamingFilter
-    f = StreamingFilter(rng.standard_normal(5000).astype(np.complex64), "fft")
-    assert f.nfft == 32768
-    xr, xi = _planes(rng, 1, 2 * f.block)
-    sr, si = _planes(rng, 1, f.block)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        f.apply_planar(xr, xi, sr, si)
+    taps = rng.standard_normal(10000).astype(np.complex64)
+    taps /= np.abs(taps).sum()
+    f = StreamingFilter(taps, "fft")
+    b = f.block
+    assert 2 * b == 65536
+    spec = f._spectrum("cuda")
+    assert spec.log2c == 2
+    ch, n = 2, 3 * b + 777
+    xr, xi = _planes(rng, ch, n, 0.3)
+    sr, si = _planes(rng, ch, b, 0.3)
+    kw = dict(windows=f._schedule(n, "cuda"), tail=(sr, si))
+    before = kernels.osfft_apply.launches
+    got = kernels.osfft_apply(xr, xi, spec, b, **kw)
+    want = kernels.osfft_apply_ref(xr, xi, spec, b, **kw)
+    ext = (xr[:, :3 * b], xi[:, :3 * b])
+    got_u = kernels.osfft_apply(*(e.contiguous() for e in ext), spec, b, advance=b)
+    want_u = kernels.osfft_apply_ref(*ext, spec, b, advance=b)
+    torch.cuda.synchronize()
+    assert kernels.osfft_apply.launches == before + 2
+    for w, g in zip((*want, *want_u), (*got, *got_u)):
+        assert _snr(w, g) >= 100.0
 
 
 def test_general_chain_on_card_matches_cpu_chain(rng):

@@ -170,19 +170,115 @@ def test_k2_twin_matches_pallas_assemble_wire_nco(rng):
                 assert _snr(w, gt.numpy()) >= 80.0
 
 
-def test_band_compression_is_the_same_map(rng):
-    """The kernels' band form (first row + K taps per column) holds every
-    non-zero of A, for the flagship stages at both block sizes."""
-    for block in (16384, 262144):
-        for st in _flagship_stages(block):
-            band = kernels.Band.build(st._a, st._a_i, "cpu")
-            rebuilt = np.zeros_like(st._a)
-            first = band.first.numpy()
-            taps = band.taps_r.numpy()
-            for i in range(st._a.shape[1]):
-                rebuilt[first[i]:first[i] + band.k, i] = taps[:, i]
-            np.testing.assert_array_equal(rebuilt, st._a)
-            assert band.k < st._a.shape[0] // 4      # mostly zeros skipped
+def _stage_matrix(which):
+    """(A_r, A_i) of one stage geometry the tests and the chain run."""
+    if which.startswith("flagship"):
+        block, idx = {"flagship-16384-0": (16384, 0), "flagship-16384-1": (16384, 1),
+                      "flagship-262144-0": (262144, 0),
+                      "flagship-262144-1": (262144, 1)}[which]
+        st = _flagship_stages(block)[idx]
+        return st._a, st._a_i
+    if which.startswith("nrsc5"):
+        cfg = ChainConfig(input_format="cu8", output_format="cu8",
+                          input_rate=2_400_000.0, target_rate=1_488_375.0,
+                          dc_block=True, target_block=16384)
+        st = Chain(cfg, device="cpu").resampler.stages[int(which[-1])]
+        return st._a, st._a_i
+    if which == "complex-taps":
+        st = _flagship_stages(16384)[1]
+        st.compose_output_fir(np.exp(2j * np.pi * 0.1 * np.arange(9)) / 9)
+        return st._a, st._a_i
+    taps = np.hanning(77)[1:-1].astype(np.complex64)         # a 75-tap FIR
+    f = StreamingFilter(taps, "fir")
+    band = f._band(256, "cpu")
+    return band.a_r.numpy(), None
+
+
+def _dense_from_tiles(band, taps):
+    """Invert the B-fragment layout (16-column tiles, k paired): the
+    (L, G) matrix the tiles hold, checking that nothing lies past A's
+    edges and that the tiles do not overlap."""
+    t = taps.numpy()
+    n_tiles, n_chunks = t.shape[:2]
+    lane = np.arange(32)
+    r, c = 2 * (lane % 4), lane // 4
+    b = np.zeros((n_tiles, n_chunks, 8, kernels.TILE_COLS), np.float32)
+    b[:, :, r, c], b[:, :, r + 1, c] = t[..., 0], t[..., 1]
+    b[:, :, r, c + 8], b[:, :, r + 1, c + 8] = t[..., 2], t[..., 3]
+    b = b.reshape(n_tiles, band.span, kernels.TILE_COLS)
+    w = kernels.TILE_COLS
+    dense = np.zeros((band.rows + band.span, n_tiles * w), np.float32)
+    for i, f in enumerate(band.tile_first.numpy()):
+        assert f % 2 == 0
+        assert not dense[f:f + band.span, w * i:w * (i + 1)].any()
+        dense[f:f + band.span, w * i:w * (i + 1)] = b[i]
+    assert not dense[band.rows:].any() and not dense[:, band.g:].any()
+    return dense[:band.rows, :band.g]
+
+
+@pytest.mark.parametrize("which", ["flagship-16384-0", "flagship-16384-1",
+                                   "flagship-262144-0", "flagship-262144-1",
+                                   "nrsc5-0", "nrsc5-1", "complex-taps", "fir-toeplitz"])
+def test_band_compression_is_the_same_map(which):
+    """The kernel's column tiles (16 columns over the rows that hold their
+    non-zeros, in B-fragment order) rebuild the dense A exactly, at every
+    stage geometry the tests run: the flagship stages at both block sizes
+    (strides 512, 224 and 256), the NRSC5 strides 400 and 144, complex
+    taps, and a FIR filter's Toeplitz band."""
+    a_r, a_i = _stage_matrix(which)
+    band = kernels.Band.build(a_r, a_i, "cpu")
+    assert band.span % 8 == 0 and band.n_tiles == -(-band.g // kernels.TILE_COLS)
+    np.testing.assert_array_equal(_dense_from_tiles(band, band.taps_r), a_r)
+    if a_i is not None and np.any(a_i):
+        np.testing.assert_array_equal(_dense_from_tiles(band, band.taps_i), a_i)
+    else:
+        assert band.taps_i is None
+    # the span is the band plus the tile's spread of band starts, a
+    # fraction of the window
+    assert band.k <= band.span < band.k + 8 + 2 * 16 * 4
+    if not which.startswith("fir"):
+        assert band.span < a_r.shape[0] // 2
+
+
+def _tf32(x: torch.Tensor, rounded: bool) -> torch.Tensor:
+    """float32 to TF32's 10 mantissa bits by masking the low 13: rounded
+    to nearest, ties away from zero (half a TF32 ulp added to the
+    magnitude bits first, as csrc/banded.cu does for the high part), or
+    truncated (as the tensor cores read the low part)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + (0x1000 if rounded else 0)) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x, True)
+    return hi, _tf32(x - hi, False)
+
+
+def test_3xtf32_split_precision(rng):
+    """The precision argument for K2's tensor-core products, before any
+    chip run: the windows of the flagship's stage-1 input times its band
+    matrix with both operands split in two TF32 parts and the three
+    leading products summed in float32 (x_lo a_hi + x_hi a_lo + x_hi
+    a_hi, as csrc/banded.cu accumulates them) agree with the float64
+    product to >= 110 dB; one TF32 product falls short of the kernels'
+    100 dB gate."""
+    st1 = _flagship_stages(262144)[1]
+    s, hist = st1.stride, st1.hist
+    assert (s, hist) == (256, 287)
+    a = torch.from_numpy(np.ascontiguousarray(st1._a, np.float32))
+    x = torch.from_numpy((rng.standard_normal((4, 64 * s + hist)) * 0.3).astype(np.float32))
+    win = x.unfold(-1, s + hist, s)                              # (4, 64, 543)
+    exact = torch.matmul(win.double(), a.double())
+    (xh, xl), (ah, al) = _split(win), _split(a)
+    # the two parts hold x to 2^-21 relative (lo keeps 11 of x's 13
+    # remaining bits)
+    assert bool(((xh + xl - win).abs() <= win.abs() * 2.0 ** -21).all())
+    got = torch.matmul(xl, ah) + torch.matmul(xh, al) + torch.matmul(xh, ah)
+    one = torch.matmul(xh, ah)
+    snr3 = _snr(exact.numpy(), got.numpy())
+    snr1 = _snr(exact.numpy(), one.numpy())
+    assert snr3 >= 110.0, snr3
+    assert snr1 < 80.0, snr1
 
 
 def test_wrappers_refuse_bad_inputs(rng):
@@ -296,17 +392,22 @@ def test_k4_twin_matches_pallas(rng, case):
         assert d.max() <= 1 and (d > 0).mean() <= 1e-3
 
 
-@pytest.mark.parametrize("case", [(2175, None), (5000, 16384)],
-                         ids=["advance-3b/2", "advance-b"])
+@pytest.mark.parametrize("case", [(2175, None, 8192), (5000, 16384, 8192),
+                                  (5000, None, 16384), (9000, 32768, 16384)],
+                         ids=["advance-3b/2", "advance-b", "nfft32768-advance-3b/2",
+                              "nfft32768-advance-b"])
 def test_k5_twin_matches_pallas(rng, case):
     """nfft 16384: config #4's 2175-tap notch size (3/4-window advance),
-    and 5000 taps forced to b 8192 (half-window advance)."""
-    taps_n, fft_size = case
+    and 5000 taps forced to b 8192 (half-window advance); nfft 32768:
+    5000 taps at the default size (3/4 advance) and 9000 taps with
+    --filter-fft-size 32768 (half advance).  The twin also takes the
+    carried tail as its own pair, as the chain hands it."""
+    taps_n, fft_size, want_b = case
     taps = rng.standard_normal(taps_n).astype(np.complex64)
     taps /= np.abs(taps).sum()
     f = StreamingFilter(taps, "fft", fft_size)
     b, adv = f.block, f.osfft_advance
-    assert (b, adv) == (8192, 12288 if fft_size is None else 8192)
+    assert (b, adv) == (want_b, 3 * want_b // 2 if fft_size is None else want_b)
     ch, total = 2, 2 * adv + b
     er = rng.standard_normal((ch, total)).astype(np.float32)
     ei = rng.standard_normal((ch, total)).astype(np.float32)
@@ -315,10 +416,35 @@ def test_k5_twin_matches_pallas(rng, case):
                                       interpret=True)
     launches = kernels.osfft_apply.launches
     got = kernels.osfft_apply(_t(er), _t(ei), f._h, b, advance=adv)
+    split = kernels.osfft_apply(_t(er[:, b:]), _t(ei[:, b:]), f._h, b, advance=adv,
+                                tail=(_t(er[:, :b]), _t(ei[:, :b])))
     assert kernels.osfft_apply.launches == launches
-    for w, g in zip(want, got):
+    for w, g, g2 in zip(want, got, split):
         assert g.shape == (ch, 2 * adv)
         assert _snr(w, g.numpy()) >= 80.0
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("nfft", [4096, 16384, 32768, 65536])
+def test_k5_spectrum_layout(nfft):
+    """The kernel's tables: with the window split over C = nfft / nl CTAs
+    (nl = min(nfft, 16384)), h_k holds H/nfft at bin C bitrev(32 t + j) + q
+    for CTA q, thread t, point j (position q nl + j nl/32 + t), and the
+    two twiddle tables multiply to exp(-2 pi i m / nfft) for every m."""
+    h = (np.arange(nfft) + 1j * np.arange(nfft)[::-1]).astype(np.complex64)
+    spec = kernels.Spectrum.build(h, "cpu")
+    cs = max(1, nfft // kernels.OSFFT_LOCAL)
+    nl = nfft // cs
+    assert spec.log2c == cs.bit_length() - 1
+    hk = spec.h_k.numpy()
+    hk = (hk[:, 0] + 1j * hk[:, 1]).reshape(cs, 32, nl // 32)
+    rev = kernels._bitrev(nl)
+    q, j, t = np.meshgrid(np.arange(cs), np.arange(32), np.arange(nl // 32), indexing="ij")
+    np.testing.assert_array_equal(hk, h[cs * rev[32 * t + j] + q] / np.float32(nfft))
+    lo, hi = (z.numpy()[:, 0] + 1j * z.numpy()[:, 1] for z in (spec.tw_lo, spec.tw_hi))
+    m = np.arange(nfft)
+    w = hi[m >> spec.tw_bits] * lo[m & ((1 << spec.tw_bits) - 1)]
+    assert np.abs(w - np.exp(-2j * np.pi * m / nfft)).max() < 3e-7
 
 
 @pytest.mark.parametrize("profile", ["local", "dx"])
