@@ -10,19 +10,22 @@ first failure:
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: nvcc compiles the kernels from csrc/ (registers, spills);
 3. kernels vs their plain twins on the card, at the flagship shapes
-   (K1 stage 0, K2 stage 1 packed) and at the strides 224, 400 and 144
-   (planar and packed), each timed twin, kernel, kernel, twin with CUDA
-   events (K2 beside one float32 matmul of the unfolded windows);
+   (K1 stage 0, its DC prologue alone with a bit-for-bit repeat, K2
+   stage 1 packed) and at the strides 224, 400 and 144 (planar and
+   packed), each timed twin, kernel, kernel, twin with CUDA events (K2
+   beside one float32 matmul of the unfolded windows);
 4. the slice: the flagship Chain (128 channels x 262144 frames) for 6
    steps; both launch counters must read 6; output against the CPU twin
    chain on 2 channels and a tone SNR check; steady-state Msps and peak
    device memory;
 5. the general step's kernels vs their twins at BASELINE config #4's
-   shapes (128 channels): K3 dc_block_apply, K4 post_apply, K5
-   osfft_apply (at nfft 16384 and, on the schedule the chain makes for
-   --filter-fft-size 32768, at nfft 32768, each beside the twin's
-   torch.fft core) and two helper kernels, the AGC's gain scan and the
-   I/Q estimator's descent, timed the same way;
+   shapes (128 channels): K3 dc_block_apply (cs16 and cu8 wire), K4
+   post_apply, K5 osfft_apply (at nfft 16384 and, on the schedule the
+   chain makes for --filter-fft-size 32768, at nfft 32768, each beside
+   the twin's torch.fft core) and two helper kernels, the AGC's gains
+   (segment energies and gain loop; its bound the larger of its bytes
+   and its dependency chain, the chain alone timed over the same
+   energies) and the I/Q estimator's descent, timed the same way;
 6. the general step: config #4 (DC + I/Q + pre-shift, resampler,
    2175-tap overlap-save notch, post-shift, local AGC) at 128 x 262144
    for 6 steps with exact launch counters, against the CPU twin chain on
@@ -250,6 +253,39 @@ def main() -> int:
         f"{100 * k1_bound[0] / k1_ms:.1f}% of bound")
     report["K1"] = dict(err=k1_err, ms=k1_ms, plain=k1_plain, lib=None, bound=k1_bound)
 
+    # K1's DC prologue alone (the DC kernel's grid of (tiles, C) CTAs),
+    # and two launches on the same input compared bit for bit
+    pro_args = (wire, dc_st, big.dc_alpha, st0.hist, norm, 1.0, big.dtheta_pre, phase0)
+    got_p = kernels.dc_prologue(*pro_args)
+    want_p = kernels.dc_prologue_ref(*pro_args)
+    again = kernels.dc_prologue(*pro_args)
+    torch.cuda.synchronize()
+    snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(want_p, got_p)]
+    pro_err = max_abs(want_p, got_p)
+    same = all(torch.equal(x, y) for x, y in zip(got_p, again))
+    rep_db = min(snr_db(x.cpu().numpy(), y.cpu().numpy()) for x, y in zip(got_p, again))
+    say(f"[k1pro] C={CH} n={BLOCK} tiles of {kernels.DC_TILE}: SNR planar "
+        f"{snrs[0]:.1f}/{snrs[1]:.1f} dB, tail {snrs[2]:.1f}/{snrs[3]:.1f} dB, dc "
+        f"state {snrs[4]:.1f} dB, max |err| {pro_err:.3e}")
+    say(f"[k1pro] determinism: two launches on the same input "
+        f"{'bit-identical' if same else f'differ, {rep_db:.1f} dB apart'}")
+    if min(snrs) < 100.0:
+        fail(f"K1's prologue disagrees with its twin: min SNR {min(snrs):.1f} dB < 100 dB")
+    if not same and rep_db < 140.0:
+        fail(f"two DC prologue launches differ at {rep_db:.1f} dB (< 140 dB)")
+    pro_ms, pro_plain = time_pair(lambda: kernels.dc_prologue(*pro_args),
+                                  lambda: kernels.dc_prologue_ref(*pro_args))
+    # wire, DC state and phases in; planes, tails and DC state out; ~40
+    # float32 operations a sample (decode, DC, sincos, rotate)
+    pro_bytes = CH * (12 * BLOCK + 8 * st0.hist + 40)
+    pro_bound = bound(pro_bytes, 40 * CH * BLOCK, PEAK_FP32_S)
+    say(f"[k1pro] kernel {pro_ms:.3f} ms, twin {pro_plain:.3f} ms; bound "
+        f"{pro_bound[0]:.4f} ms ({pro_bound[1]}: {pro_bytes / 1e6:.1f} MB) -> "
+        f"{100 * pro_bound[0] / pro_ms:.1f}% of bound")
+    report["K1pro"] = dict(err=pro_err, ms=pro_ms, plain=pro_plain, lib=None,
+                           bound=pro_bound)
+    del got_p, want_p, again
+
     # K2 at flagship stage 1, fed K1's output (the chain's own stage-1 input)
     x1r, x1i = got[0]
     s1r, s1i = (0.1 * torch.randn((CH, st1.hist), generator=gen, device=dev)
@@ -346,14 +382,15 @@ def main() -> int:
     ev[1].record()
     torch.cuda.synchronize()
     launches = {"K1": kernels.banded_apply_dc.launches,
-                "K2": kernels.banded_apply.launches}
+                "K2": kernels.banded_apply.launches,
+                "K1pro": kernels.dc_prologue.launches}
     step_ms = ev[0].elapsed_time(ev[1]) / (STEPS - 2)
     peak = torch.cuda.max_memory_allocated()
     msps = CH * BLOCK / (step_ms / 1e3) / 1e6
     say(f"[slice] {STEPS} steps of {CH} x {BLOCK}: launches {launches}, "
         f"{step_ms:.3f} ms/step over steps 3-{STEPS} -> {msps:.1f} Msps in, "
         f"peak device memory {peak / 2 ** 20:.1f} MiB")
-    if launches != {"K1": STEPS, "K2": STEPS}:
+    if launches != {"K1": STEPS, "K2": STEPS, "K1pro": STEPS}:
         fail(f"launch counters {launches}, expected {STEPS} each")
     got_wire = torch.cat(outs, dim=-1).cpu().numpy()
     if got_wire.shape != (2, STEPS * 2 * big.n_out) or got_wire.dtype != np.int16:
@@ -378,7 +415,8 @@ def main() -> int:
     del stream, outs, carry, big
 
     # ------------------------------------ 5. the general step's kernels
-    from iq_tool_tpu_torch.ops import agc, iq_balance
+    from iq_tool_tpu_torch.formats import get_format
+    from iq_tool_tpu_torch.ops import agc, convert, iq_balance
 
     g4 = Chain(config("4"), device=dev)
     n_out = g4.n_out
@@ -406,33 +444,85 @@ def main() -> int:
         f"{k3_bound[0]:.4f} ms ({k3_bound[1]}) -> {100 * k3_bound[0] / k3_ms:.1f}%")
     report["K3"] = dict(err=k3_err, ms=k3_ms, plain=k3_plain, lib=None, bound=k3_bound)
 
-    # K4 and the AGC scan on config #4's output-rate planes (C, 190512):
+    # K3 on the cu8 wire (config #3's input): DC only
+    w8, kind8 = convert.wire_pack(to_cu8(tone_wire(CH, BLOCK, gen)), "cu8")
+    k3c_args = (None, None, dc_st, g4.dc_alpha)
+    k3c_kw = dict(wire_i32=w8, wire_norm=get_format("cu8").normalizer, wire_kind=kind8)
+    got = kernels.dc_block_apply(*k3c_args, **k3c_kw)
+    want = kernels.dc_block_apply_ref(*k3c_args, **k3c_kw)
+    torch.cuda.synchronize()
+    snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(want, got)]
+    k3c_err = max_abs(want, got)
+    say(f"[k3] C={CH} n={BLOCK} cu8 wire + DC: SNR planar {snrs[0]:.1f}/{snrs[1]:.1f} "
+        f"dB, dc state {snrs[2]:.1f} dB, max |err| {k3c_err:.3e}")
+    if min(snrs) < 100.0:
+        fail(f"K3 (cu8) disagrees with its twin: min SNR {min(snrs):.1f} dB < 100 dB")
+    k3c_ms, k3c_plain = time_pair(lambda: kernels.dc_block_apply(*k3c_args, **k3c_kw),
+                                  lambda: kernels.dc_block_apply_ref(*k3c_args, **k3c_kw))
+    k3c_bound = bound(CH * (10 * BLOCK + 32), 30 * CH * BLOCK, PEAK_FP32_S)
+    say(f"[k3] cu8 kernel {k3c_ms:.3f} ms, twin {k3c_plain:.3f} ms; bound "
+        f"{k3c_bound[0]:.4f} ms ({k3c_bound[1]}: {CH * (10 * BLOCK + 32) / 1e6:.1f} MB) "
+        f"-> {100 * k3c_bound[0] / k3c_ms:.1f}%")
+    report["K3@cu8"] = dict(err=k3c_err, ms=k3c_ms, plain=k3c_plain, lib=None,
+                            bound=k3c_bound)
+    del w8
+
+    # K4 and the AGC gains on config #4's output-rate planes (C, 190512):
     # 1488 segments of 128 and a ragged 48
     pr, pi = (0.3 * torch.randn((CH, n_out), generator=gen, device=dev)
               for _ in range(2))
     n_seg, seg, beta = agc.rms_params(g4.agc_cfg, n_out)
-    e_in = torch.mean((pr[:, :n_seg * seg] ** 2 + pi[:, :n_seg * seg] ** 2)
-                      .reshape(CH, n_seg, seg), dim=-1).T.contiguous()
     g0 = torch.ones(CH, device=dev)
     e20 = torch.zeros(CH, device=dev)
-    scan_args = (e_in, g0, e20, beta, g4.agc_cfg.target)
-    got = kernels.rms_scan(*scan_args)
-    want = kernels.rms_scan_ref(*scan_args)
+    agc_args = (pr, pi, g0, e20, beta, g4.agc_cfg.target)
+    got = kernels.rms_gains(*agc_args)
+    want = kernels.rms_gains_ref(*agc_args)
     torch.cuda.synchronize()
     agc_rel = max(float(((g - w).abs() / w.abs()).max()) for w, g in zip(want, got))
     agc_err = max_abs(want, got)
     say(f"[agc] {n_seg} segments x {CH} channels: max relative error "
         f"{agc_rel:.3e}, max |err| {agc_err:.3e}")
     if agc_rel > 1e-4:
-        fail(f"AGC scan disagrees with its twin: relative error {agc_rel:.3e} > 1e-4")
-    agc_ms, agc_plain = time_pair(lambda: kernels.rms_scan(*scan_args),
-                                  lambda: kernels.rms_scan_ref(*scan_args), reps=2)
-    # energies in, gains out; ~30 operations a segment (exp and log)
-    agc_bound = bound(2 * 4 * n_seg * CH + 16 * CH, 30 * n_seg * CH, PEAK_FP32_S)
-    say(f"[agc] kernel {agc_ms:.3f} ms, twin (a loop of tensor ops) {agc_plain:.3f} "
-        f"ms; bound {agc_bound[0]:.5f} ms ({agc_bound[1]}): a sequential scan")
+        fail(f"AGC gains disagree with their twin: relative error {agc_rel:.3e} > 1e-4")
+    agc_ms, agc_plain = time_pair(lambda: kernels.rms_gains(*agc_args),
+                                  lambda: kernels.rms_gains_ref(*agc_args), reps=2)
+    # the chain alone: one thread a channel over the same energies (the
+    # twin's), from shared memory; the fused kernel cannot beat it
+    e_seg = torch.mean((pr[:, :n_seg * seg] ** 2 + pi[:, :n_seg * seg] ** 2)
+                       .reshape(CH, n_seg, seg), dim=-1)
+    chain_args = (e_seg, g0, e20, beta, g4.agc_cfg.target)
+    got_c = kernels.agc_chain(*chain_args)
+    want_c = kernels.rms_scan_ref(e_seg.T, g0, e20, beta, g4.agc_cfg.target)
+    want_c = (want_c[0].T, *want_c[1:])
+    torch.cuda.synchronize()
+    chain_rel = max(float(((g - w).abs() / w.abs()).max()) for w, g in zip(want_c, got_c))
+    if chain_rel > 1e-4:
+        fail(f"the AGC chain kernel disagrees with rms_scan_ref: {chain_rel:.3e} > 1e-4")
+    chain_ms, _ = time_pair(lambda: kernels.agc_chain(*chain_args),
+                            lambda: kernels.rms_scan_ref(e_seg.T, *chain_args[1:]), reps=2)
+    # planes in, gains and the (C,) states out
+    agc_bytes = CH * (8 * n_out + 4 * n_seg + 16)
+    agc_b_ms = agc_bytes / PEAK_BYTES_S * 1e3
+    agc_bound = (chain_ms, "operations") if chain_ms > agc_b_ms else (agc_b_ms, "bytes")
+    say(f"[agc] kernel {agc_ms:.3f} ms, twin (a mean and a loop of tensor ops) "
+        f"{agc_plain:.3f} ms; bound {agc_bound[0]:.4f} ms ({agc_bound[1]}): bytes "
+        f"{agc_bytes / 1e6:.1f} MB -> {agc_b_ms:.4f} ms; the chain alone (one thread "
+        f"a channel over {n_seg} given energies, {chain_rel:.1e} from rms_scan_ref, "
+        f"timed) {chain_ms:.4f} ms; {100 * agc_bound[0] / agc_ms:.1f}% of bound")
+    del e_seg, got_c, want_c
+    # the power-of-two path (the default target's t2 = 0.25, the division
+    # as a multiplication) against the IEEE division (a target 2^-11 off),
+    # interleaved
+    if kernels._chain_consts(beta, g4.agc_cfg.target)[4] == 0:
+        fail(f"the default AGC target {g4.agc_cfg.target} takes the division path")
+    div_args = (pr, pi, g0, e20, beta, g4.agc_cfg.target * (1 + 2 ** -11))
+    div_ms, mul_ms = time_pair(lambda: kernels.rms_gains(*div_args),
+                               lambda: kernels.rms_gains(*agc_args))
+    say(f"[agc] the chain's division: {mul_ms:.4f} ms as a multiplication (t2 a "
+        f"power of two), {div_ms:.4f} ms divided (a target 2^-11 off)")
     report["AGC"] = dict(err=agc_err, ms=agc_ms, plain=agc_plain, lib=None, bound=agc_bound)
-    gains = got[0].T.contiguous()                        # (C, 1488)
+    gains = got[0]                                       # (C, 1488)
+
     k4_args = (pr, pi, gains, seg, phase0, g4.dtheta_post)
     got = kernels.post_apply(*k4_args, out_fmt="cs16")
     want = kernels.post_apply_ref(*k4_args, out_fmt="cs16")
@@ -565,8 +655,9 @@ def main() -> int:
                   "K3": kernels.dc_block_apply.launches,
                   "K4": kernels.post_apply.launches,
                   "K5": kernels.osfft_apply.launches,
-                  "AGC": kernels.rms_scan.launches,
-                  "IQ": kernels.iq_descent.launches}
+                  "AGC": kernels.rms_gains.launches,
+                  "IQ": kernels.iq_descent.launches,
+                  "K1pro": kernels.dc_prologue.launches}
         step_ms = ev[0].elapsed_time(ev[1]) / (steps - 2)
         peak = torch.cuda.max_memory_allocated()
         say(f"{label} {steps} steps of {CH} x {BLOCK}: launches {counts}, "
@@ -626,21 +717,22 @@ def main() -> int:
     step_ms_of = {"[slice]": step_ms}
     general_launches = run_general("4", STEPS)
     want_counts = {"K1": 0, "K2": 2 * STEPS, "K3": STEPS, "K4": STEPS,
-                   "K5": STEPS, "AGC": STEPS, "IQ": STEPS}
+                   "K5": STEPS, "AGC": STEPS, "IQ": STEPS, "K1pro": 0}
     if general_launches != want_counts:
         fail(f"config #4 launch counters {general_launches}, expected {want_counts}")
     s5 = run_general("5", GENERAL_STEPS)
     if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
-              "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQ": 0}:
+              "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQ": 0,
+              "K1pro": 0}:
         fail(f"config #5 launch counters {s5}")
     s3 = run_general("3", GENERAL_STEPS)
     if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K3": GENERAL_STEPS,
-              "K4": 0, "K5": 0, "AGC": 0, "IQ": 0}:
+              "K4": 0, "K5": 0, "AGC": 0, "IQ": 0, "K1pro": 0}:
         fail(f"config #3 launch counters {s3}")
     s4k = run_general("4k32", GENERAL_STEPS)
     if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
                "K4": GENERAL_STEPS, "K5": GENERAL_STEPS, "AGC": GENERAL_STEPS,
-               "IQ": GENERAL_STEPS}:
+               "IQ": GENERAL_STEPS, "K1pro": 0}:
         fail(f"config #4 at nfft 32768 launch counters {s4k}")
     say(f"[steps] ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms_of.items()))
 
@@ -712,19 +804,22 @@ def main() -> int:
            "K4": "iq_tool_tpu_torch/csrc/post.cu",
            "K5": "iq_tool_tpu_torch/csrc/osfft.cu",
            "AGC": "iq_tool_tpu_torch/csrc/post.cu",
-           "IQ": "iq_tool_tpu_torch/csrc/iq_est.cu"}
+           "IQ": "iq_tool_tpu_torch/csrc/iq_est.cu",
+           "K1pro": "iq_tool_tpu_torch/csrc/banded_dc.cu"}
     rep = {"K1": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "K2": "iq_tool_tpu/ops/pallas_kernels.py:492",
            "K3": "iq_tool_tpu/ops/pallas_kernels.py:1121",
            "K4": "iq_tool_tpu/ops/pallas_kernels.py:1506",
            "K5": "iq_tool_tpu/ops/pallas_kernels.py:1324",
-           "AGC": "iq_tool_tpu/ops/agc.py:78",
-           "IQ": "iq_tool_tpu/ops/iq_balance.py:147"}
-    # K1/K2 launches from the flagship slice, the rest from config #4's
-    # run, K5 at nfft 32768 from the [full32k] run; and each phase's
-    # launches per step
-    counts = {**general_launches, **launches, "K5@32768": s4k["K5"]}
+           "AGC": "iq_tool_tpu/ops/agc.py:116",
+           "IQ": "iq_tool_tpu/ops/iq_balance.py:147",
+           "K1pro": "iq_tool_tpu/ops/pallas_kernels.py:772"}
+    # K1/K1pro/K2 launches from the flagship slice, the rest from config
+    # #4's run, K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
+    # config #3's; and each phase's launches per step
+    counts = {**general_launches, **launches, "K5@32768": s4k["K5"], "K3@cu8": s3["K3"]}
     src["K5@32768"], rep["K5@32768"] = src["K5"], rep["K5"]
+    src["K3@cu8"], rep["K3@cu8"] = src["K3"], rep["K3"]
     phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQ=0), STEPS),
               "#4": (general_launches, STEPS), "#4@32768": (s4k, GENERAL_STEPS),
               "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS)}

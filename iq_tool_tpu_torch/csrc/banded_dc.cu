@@ -16,32 +16,56 @@
 //
 // Both are the same recurrence with a different front and back, so they
 // share one __global__ with template flags (planar input, I/Q apply) and
-// a runtime tail pointer, rather than two copies of the scan.  The DC
-// state written is the pre-I/Q, pre-NCO state, as _dc_kernel writes it.
+// a runtime tail pointer.  The DC state written is the pre-I/Q, pre-NCO
+// state, as _dc_kernel writes it.
 //
-// The TPU kernels carry the DC state and the previous tile's context in
-// scratch memory from one time tile to the next, which relies on the TPU
-// walking tiles in order; CUDA gives no order between CTAs.
+// What bounds it on the card: bytes.  Per sample it reads one packed
+// wire element (4 B for 16-bit wires, 2 B for 8-bit) or two float32
+// planes (8 B) and writes two float32 planes (8 B).
 //
-// What bounds it on the card: bytes and the in-order chunk walk.  Per
-// sample it reads one packed wire element (4 B for 16-bit wires) or two
-// float32 planes (8 B) and writes two float32 planes (8 B).
+// The TPU kernels carry the DC state from one time tile to the next in
+// scratch memory, which relies on the TPU walking tiles in order.  Here
+// the grid is (tiles, C): every tile of kDcTile samples of every channel
+// is its own CTA, and the recurrence y[n] = a*y[n-1] + x[n] - x[n-1]
+// crosses tiles by a single-pass chained scan with decoupled look-back
+// (Merrill & Garland 2016, the design of CUB's DeviceScan):
 //
-// Design: one CTA per channel walks the channel in chunks of kDcChunk
-// samples, in order, so the recurrence's carry never crosses CTAs.  Inside
-// a chunk the recurrence y[n] = a*y[n-1] + x[n] - x[n-1] runs as a
-// two-level scan: each thread runs kDcPer samples from zero, a block scan
-// carries the per-thread ends across threads (the combine of
-// ops/dc_block.py with a constant coefficient), and each sample adds
-// a^(j+1) times the value carried into its thread.  This arithmetic runs
-// in float64 (the decoded samples and the outputs stay float32): the pole
-// keeps every rounding error for ~32.6k samples, and in float32 two
-// equally valid summation orders already differ at ~100 dB on a
-// full-scale noise wire.  In float64 it costs nothing that shows, since
-// the kernel is bound by bytes and by its chunk loop, not arithmetic.
-// Loads and plane stores go through shared memory so both are coalesced;
-// the next chunk's input is loaded into registers while the current
-// chunk's scan runs.
+// * The input term x[n] - x[n-1] needs only the sample before the tile,
+//   read from the input (tile 0 takes the carried x), so the one carry
+//   between tiles is y.  A tile's aggregate A (its y at the end, from
+//   y = 0 at its start) composes as y_out = a^T y_in + A.
+// * A tile is loaded with 16-byte loads (neighbouring threads on
+//   neighbouring chunks) when the rows are 16-byte aligned, decoded into
+//   shared memory, and each thread runs its row of kDcPer consecutive
+//   samples from zero; a 5-level warp-shuffle scan and one Horner pass
+//   over the warp totals carry that across threads (constant coefficient
+//   a^kDcPer per thread).  Four barriers a tile.
+// * Every tile publishes A.  Tiles come in groups of kDcGroup: the last
+//   tile q of each group also publishes its inclusive y.  Tile t folds
+//   the aggregates of the tiles of its own group before it and the
+//   inclusive y of the previous group's last tile (or the carried DC
+//   state), one lane a tile, in one fixed warp reduction.  The
+//   combination order is the same on every run, so two runs on the same
+//   input give the same bits.  The chain of waits is one per group.
+// * Each status word holds the launch's sequence number (from the
+//   wrapper), so the scratch buffer needs no clearing launch: a word left
+//   by an earlier launch never matches.  Flags are written with release
+//   and read with acquire semantics after the value they guard; waiting
+//   lanes back off with __nanosleep.  CTAs of one channel are dispatched
+//   in blockIdx.x order, so a tile waits only on tiles already resident
+//   or done.
+// * Then each thread reruns its samples from its true incoming y, rounds
+//   each to float32 once, applies the I/Q correction and the NCO at the
+//   global sample index, back into its row; the tile then stores from
+//   shared memory with 16-byte stores, neighbouring threads on
+//   neighbouring chunks.  (Each thread loading and storing its own row
+//   straight from registers, 16 bytes at a time, measured markedly
+//   slower: a warp's stores then half-fill 64 sectors each.)
+//
+// The recurrence runs in float64 (the decoded samples and the outputs
+// stay float32): the pole keeps every rounding error for ~32.6k samples,
+// and in float32 two equally valid summation orders already differ at
+// ~100 dB on a full-scale noise wire.
 
 #include <cuda_runtime.h>
 
@@ -49,12 +73,42 @@
 
 namespace iqk {
 
-constexpr int kDcThreads = 512;
-constexpr int kDcPer = 8;
-constexpr int kDcChunk = kDcThreads * kDcPer;
-constexpr int kDcPad = kDcPer + 1;  // staged row stride: no bank conflicts
-constexpr int kDcLevels = 9;        // log2(kDcThreads) doubling steps
-static_assert(kDcThreads == 1 << kDcLevels, "one scan level per doubling");
+constexpr int log2i(int v) { return v > 1 ? 1 + log2i(v / 2) : 0; }
+
+constexpr int kDcThreads = 256;
+constexpr int kDcWarps = kDcThreads / 32;
+constexpr int kDcPer = 16;                      // samples a thread
+constexpr int kDcTile = kDcThreads * kDcPer;    // samples a tile (CTA)
+constexpr int kDcPad = kDcPer + 1;              // staged row stride: no bank conflicts
+constexpr int kDcGroup = 32;                    // tiles a look-back group
+constexpr int kDcLevels = log2i(kDcThreads) + 1;  // a^(kDcPer 2^k): up to a^kDcTile
+constexpr int kDcMinBlocks = 6;                 // CTAs an SM keeps resident
+constexpr unsigned kDcSleepMax = 1024;          // ns, the look-back's longest backoff
+static_assert(kDcTile == kDcPer << (kDcLevels - 1), "a^T is the last level");
+static_assert(kDcPer % 8 == 0, "a thread's row takes whole 16-byte chunks");
+static_assert(kDcThreads >= 32 + kDcLevels, "a thread for each level");
+
+// The look-back scratch of one launch: for each (channel, tile) the
+// aggregate and the inclusive y (r, i) and their two status words.
+struct DcLook {
+  double2* agg;
+  double2* inc;
+  unsigned* agg_flag;
+  unsigned* inc_flag;
+};
+
+__host__ __device__ inline long long dc_tiles(int n) {
+  return (static_cast<long long>(n) + kDcTile - 1) / kDcTile;
+}
+
+__device__ __forceinline__ DcLook dc_look(void* base, long long entries) {
+  DcLook l;
+  l.agg = static_cast<double2*>(base);
+  l.inc = l.agg + entries;
+  l.agg_flag = reinterpret_cast<unsigned*>(l.inc + entries);
+  l.inc_flag = l.agg_flag + entries;
+  return l;
+}
 
 struct DcArgs {
   const void* wire;  // packed wire (C, n), or
@@ -75,185 +129,372 @@ struct DcArgs {
   float* tail_r;  // (C, hist) processed tail, or null
   float* tail_i;
   float* dc_out;  // (C, 4)
+  void* look;     // scratch of iq_dc_scratch_bytes(C, n) bytes
+  unsigned seq;   // this launch's sequence number, never 0
+  int vec;        // rows 16-byte aligned and n % 8 == 0: vector loads/stores
 };
 
-// One input sample as loaded ahead of its chunk: the raw packed element,
-// or both planes' values.
-template <bool kPlanarIn>
-struct Raw {
-  int v;
-};
-template <>
-struct Raw<true> {
-  float r, i;
-};
-
-template <bool kPlanarIn>
-__device__ __forceinline__ Raw<kPlanarIn> load_raw(const DcArgs& a,
-                                                   const char* row,
-                                                   long long row0,
-                                                   long long idx) {
-  Raw<kPlanarIn> out;
-  if constexpr (kPlanarIn) {
-    out.r = idx < a.n ? a.x_r[row0 + idx] : 0.0f;
-    out.i = idx < a.n ? a.x_i[row0 + idx] : 0.0f;
-  } else {
-    out.v = idx < a.n ? wire_load(row, a.kind, idx) : 0;
-  }
-  return out;
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void wait_flag(const unsigned* p, unsigned seq) {
+  unsigned ns = 32;
+  while (ld_acquire(p) != seq) {
+    __nanosleep(ns);
+    if (ns < kDcSleepMax) ns <<= 1;
+  }
+}
+
+// a^e by squaring: ~2 log2(e) dependent multiplies, where pow() takes a
+// long float64 log and exp (its rounding differs by a few ulps, far
+// below what the float32 outputs keep)
+__device__ __forceinline__ double ipow(double a, unsigned e) {
+  double r = 1.0;
+  while (e) {
+    if (e & 1u) r *= a;
+    a *= a;
+    e >>= 1;
+  }
+  return r;
+}
+
+// Publish a value, then its status word.
+__device__ __forceinline__ void publish(double2* slot, unsigned* flag,
+                                        double r, double i, unsigned seq) {
+  *slot = make_double2(r, i);
+  __threadfence();
+  st_release(flag, seq);
+}
+
+// Staged position of tile sample `idx`: thread idx / kDcPer's row.
+__device__ __forceinline__ int staged(int idx) {
+  return (idx / kDcPer) * kDcPad + idx % kDcPer;
+}
+
+// One sample of a wire row or of the planes, decoded.
 template <bool kPlanarIn>
-__device__ __forceinline__ void decode_raw(const DcArgs& a,
-                                           const Raw<kPlanarIn>& raw,
-                                           float* vr, float* vi) {
+__device__ __forceinline__ void load_one(const DcArgs& a, const char* row,
+                                         long long row0, long long idx,
+                                         float* vr, float* vi) {
   if constexpr (kPlanarIn) {
-    *vr = raw.r;
-    *vi = raw.i;
+    *vr = a.x_r[row0 + idx];
+    *vi = a.x_i[row0 + idx];
   } else {
-    wire_decode_value(raw.v, a.kind, a.norm, a.gain, vr, vi);
+    wire_decode(row, a.kind, idx, a.norm, a.gain, vr, vi);
+  }
+}
+
+// The tile's `len` samples from s0, decoded into the staged rows: 16-byte
+// loads, neighbouring threads on neighbouring chunks, when the rows are
+// aligned, else one element a thread at a time.  A thread's loads are
+// all issued before the first is used.
+template <bool kPlanarIn>
+__device__ __forceinline__ void load_tile(const DcArgs& a, const char* row,
+                                          int elem, long long row0,
+                                          long long s0, int len, float* sr,
+                                          float* si) {
+  const int tid = threadIdx.x;
+  constexpr int kChunks = kDcPer / 4;  // 16-byte chunks a thread, 4 samples each
+  if (a.vec) {
+    if constexpr (kPlanarIn) {
+      const float4* xr4 = reinterpret_cast<const float4*>(a.x_r + row0 + s0);
+      const float4* xi4 = reinterpret_cast<const float4*>(a.x_i + row0 + s0);
+      const int chunks = len >> 2;
+      float4 br[kChunks], bi[kChunks];
+#pragma unroll
+      for (int r = 0; r < kChunks; ++r) {
+        const int k = tid + r * kDcThreads;
+        if (k < chunks) {
+          br[r] = __ldg(xr4 + k);
+          bi[r] = __ldg(xi4 + k);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kChunks; ++r) {
+        const int k = tid + r * kDcThreads;
+        if (k < chunks) {
+          const float vr[4] = {br[r].x, br[r].y, br[r].z, br[r].w};
+          const float vi[4] = {bi[r].x, bi[r].y, bi[r].z, bi[r].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sr[staged(4 * k + e)] = vr[e];
+            si[staged(4 * k + e)] = vi[e];
+          }
+        }
+      }
+    } else {
+      const int4* w4 = reinterpret_cast<const int4*>(row + s0 * elem);
+      const int per = 16 / elem;  // samples a chunk: 4 (16-bit kinds) or 8
+      const int chunks = len / per;
+      int4 buf[kChunks];
+#pragma unroll
+      for (int r = 0; r < kChunks; ++r) {
+        const int k = tid + r * kDcThreads;
+        if (k < chunks) buf[r] = __ldg(w4 + k);
+      }
+#pragma unroll
+      for (int r = 0; r < kChunks; ++r) {
+        const int k = tid + r * kDcThreads;
+        if (k >= chunks) continue;
+        const int w[4] = {buf[r].x, buf[r].y, buf[r].z, buf[r].w};
+        float vr, vi;
+        if (elem == 4) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            wire_decode_value(w[e], a.kind, a.norm, a.gain, &vr, &vi);
+            sr[staged(4 * k + e)] = vr;
+            si[staged(4 * k + e)] = vi;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            // element e of the chunk: the low or high int16 of word e / 2,
+            // sign-extended as wire_load returns it
+            const int v = static_cast<int>(
+                static_cast<short>((e & 1) ? (w[e >> 1] >> 16) : w[e >> 1]));
+            wire_decode_value(v, a.kind, a.norm, a.gain, &vr, &vi);
+            sr[staged(8 * k + e)] = vr;
+            si[staged(8 * k + e)] = vi;
+          }
+        }
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = tid; idx < len; idx += kDcThreads) {
+      float vr, vi;
+      load_one<kPlanarIn>(a, row, row0, s0 + idx, &vr, &vi);
+      sr[staged(idx)] = vr;
+      si[staged(idx)] = vi;
+    }
   }
 }
 
 template <bool kPlanarIn, bool kIq>
-__global__ void __launch_bounds__(kDcThreads) dc_kernel(const DcArgs a) {
+__global__ void __launch_bounds__(kDcThreads, kDcMinBlocks) dc_kernel(const DcArgs a) {
   __shared__ float stage_r[kDcThreads * kDcPad];
   __shared__ float stage_i[kDcThreads * kDcPad];
-  __shared__ double scan_r[kDcThreads];
-  __shared__ double scan_i[kDcThreads];
-  __shared__ double level_coef[kDcLevels];  // a^(kDcPer * 2^k)
-  __shared__ double carry[4];  // x_prev r/i, y_prev r/i
+  __shared__ double level[kDcLevels];  // a^(kDcPer * 2^k)
+  __shared__ double lane_pow[32];      // a^(kDcPer * lane)
+  __shared__ double warp_r[kDcWarps];  // warp totals from y = 0 at the tile start
+  __shared__ double warp_i[kDcWarps];
+  __shared__ double y_before[2];       // y of the sample before the tile
+  __shared__ float x_before[2];        // x of the sample before the tile
 
-  const int c = blockIdx.x;
-  const int t = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int tiles = gridDim.x;
+  const int c = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int n = a.n;
   const long long row0 = static_cast<long long>(c) * n;
+  const long long s0 = static_cast<long long>(tile) * kDcTile;
+  const int len = static_cast<int>(n - s0 < kDcTile ? n - s0 : kDcTile);
   const char* row = nullptr;
+  int elem = 0;
   if constexpr (!kPlanarIn) {
-    const int elem = a.kind == kCs16 || a.kind == kCu16 ? 4 : 2;
+    elem = a.kind == kCs16 || a.kind == kCu16 ? 4 : 2;
     row = static_cast<const char*>(a.wire) + row0 * elem;
   }
+  const double pa = a.a;
+  const DcLook look = dc_look(a.look, static_cast<long long>(gridDim.y) * tiles);
+  const long long slot = static_cast<long long>(c) * tiles + tile;
+
+  load_tile<kPlanarIn>(a, row, elem, row0, s0, len, stage_r, stage_i);
+  const double my_pow = ipow(pa, kDcPer * tid);  // a^(kDcPer tid)
+  if (tid < 32) lane_pow[tid] = my_pow;
+  if (tid >= 32 && tid < 32 + kDcLevels) level[tid - 32] = ipow(pa, kDcPer << (tid - 32));
+  if (tid == 0) {
+    if (tile == 0) {
+      x_before[0] = a.dc_in[c * 4];
+      x_before[1] = a.dc_in[c * 4 + 1];
+    } else {
+      load_one<kPlanarIn>(a, row, row0, s0 - 1, &x_before[0], &x_before[1]);
+    }
+  }
+  __syncthreads();
+
+  // this thread's samples from y = 0; x[n-1] of its first sample is the
+  // previous thread's last
+  float* my_r = stage_r + tid * kDcPad;
+  float* my_i = stage_i + tid * kDcPad;
+  const int first = tid * kDcPer;
+  const int m = len - first <= 0 ? 0 : (len - first >= kDcPer ? kDcPer : len - first);
+  const double px_r = tid ? stage_r[tid * kDcPad - kDcPad + kDcPer - 1] : x_before[0];
+  const double px_i = tid ? stage_i[tid * kDcPad - kDcPad + kDcPer - 1] : x_before[1];
+  double er = 0.0, ei = 0.0;
+  {
+    double pr = px_r, pi = px_i;
+#pragma unroll
+    for (int j = 0; j < kDcPer; ++j) {
+      if (j < m) {
+        const double xr = my_r[j], xi = my_i[j];
+        er = fma(pa, er, xr - pr);
+        ei = fma(pa, ei, xi - pi);
+        pr = xr;
+        pi = xi;
+      }
+    }
+  }
+  // warp scan of the thread ends: every thread before the last valid one
+  // holds kDcPer samples, so each level's coefficient is one constant
+  double sr = er, si = ei;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const double ur = __shfl_up_sync(0xffffffffu, sr, 1 << k);
+    const double ui = __shfl_up_sync(0xffffffffu, si, 1 << k);
+    if (lane >= (1 << k)) {
+      sr = fma(level[k], ur, sr);
+      si = fma(level[k], ui, si);
+    }
+  }
+  double zr = __shfl_up_sync(0xffffffffu, sr, 1);
+  double zi = __shfl_up_sync(0xffffffffu, si, 1);
+  if (lane == 0) zr = zi = 0.0;
+  if (lane == 31) {
+    warp_r[warp] = sr;
+    warp_i[warp] = si;
+  }
+  __syncthreads();
+  {
+    // y at the end of the warp before, from y = 0 at the tile start
+    double wr = 0.0, wi = 0.0;
+    for (int v = 0; v < warp; ++v) {
+      wr = fma(level[5], wr, warp_r[v]);
+      wi = fma(level[5], wi, warp_i[v]);
+    }
+    zr = fma(lane_pow[lane], wr, zr);
+    zi = fma(lane_pow[lane], wi, zi);
+  }
+
+  if (warp == 0) {
+    double agg_r = 0.0, agg_i = 0.0;
+    if (lane == 0) {
+      for (int v = 0; v < kDcWarps; ++v) {
+        agg_r = fma(level[5], agg_r, warp_r[v]);
+        agg_i = fma(level[5], agg_i, warp_i[v]);
+      }
+      if (tile + 1 < tiles) {
+        publish(look.agg + slot, look.agg_flag + slot, agg_r, agg_i, a.seq);
+      }
+    }
+    // look-back: lane l < na takes tile - 1 - l's aggregate, lane na the
+    // inclusive y of the previous group's last tile (or the carried
+    // state), each times a^(T l)
+    const int na = tile & (kDcGroup - 1);
+    double vr = 0.0, vi = 0.0;
+    if (lane <= na) {
+      const int p = tile - 1 - lane;
+      double2 v;
+      if (lane < na) {
+        wait_flag(look.agg_flag + slot - 1 - lane, a.seq);
+        v = __ldcg(look.agg + slot - 1 - lane);
+      } else if (p < 0) {
+        v = make_double2(a.dc_in[c * 4 + 2], a.dc_in[c * 4 + 3]);
+      } else {
+        wait_flag(look.inc_flag + slot - 1 - lane, a.seq);
+        v = __ldcg(look.inc + slot - 1 - lane);
+      }
+      const double co = ipow(pa, kDcTile * lane);
+      vr = co * v.x;
+      vi = co * v.y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      vr += __shfl_xor_sync(0xffffffffu, vr, off);
+      vi += __shfl_xor_sync(0xffffffffu, vi, off);
+    }
+    if (lane == 0) {
+      y_before[0] = vr;
+      y_before[1] = vi;
+      if (na == kDcGroup - 1 && tile + 1 < tiles) {
+        publish(look.inc + slot, look.inc_flag + slot,
+                fma(level[kDcLevels - 1], vr, agg_r),
+                fma(level[kDcLevels - 1], vi, agg_i), a.seq);
+      }
+    }
+  }
+  __syncthreads();
+
+  // rerun this thread's samples from its true incoming y
   const unsigned ph0 = a.dtheta ? static_cast<unsigned>(a.phase[c]) : 0u;
   float g1 = 1.0f, phi = 0.0f;
   if constexpr (kIq) {
     g1 = __fadd_rn(1.0f, a.iq[c * 2]);
     phi = a.iq[c * 2 + 1];
   }
-  const double pa = a.a;
-  double apow[kDcPer];  // a^(j+1)
-#pragma unroll
-  for (int j = 0; j < kDcPer; ++j) apow[j] = pow(pa, j + 1);
-  const double carry_coef = pow(pa, static_cast<double>(kDcPer) * t);
-  if (t < kDcLevels) level_coef[t] = pow(pa, static_cast<double>(kDcPer) * (1 << t));
-  if (t < 4) carry[t] = a.dc_in[c * 4 + t];
-
-  // inputs of the next chunk, loaded one chunk ahead so that their
-  // latency hides behind the current chunk's scan (r = t + j * kDcThreads)
-  Raw<kPlanarIn> next[kDcPer];
-#pragma unroll
-  for (int j = 0; j < kDcPer; ++j) {
-    next[j] = load_raw<kPlanarIn>(a, row, row0, t + j * kDcThreads);
-  }
-  for (long long base = 0; base < n; base += kDcChunk) {
-#pragma unroll
-    for (int j = 0; j < kDcPer; ++j) {
-      const int r = t + j * kDcThreads;
-      float vr = 0.0f, vi = 0.0f;
-      if (base + r < n) decode_raw<kPlanarIn>(a, next[j], &vr, &vi);
-      stage_r[(r / kDcPer) * kDcPad + r % kDcPer] = vr;
-      stage_i[(r / kDcPer) * kDcPad + r % kDcPer] = vi;
-      next[j] = load_raw<kPlanarIn>(a, row, row0, base + kDcChunk + r);
-    }
-    __syncthreads();
-    const long long my0 = base + static_cast<long long>(t) * kDcPer;
-    const long long left = n - my0;
-    const int m = left <= 0 ? 0 : (left >= kDcPer ? kDcPer : static_cast<int>(left));
-    float xr[kDcPer], xi[kDcPer];
-#pragma unroll
-    for (int j = 0; j < kDcPer; ++j) {
-      xr[j] = stage_r[t * kDcPad + j];
-      xi[j] = stage_i[t * kDcPad + j];
-    }
-    // local recurrence from zero over this thread's m samples; x[n-1] of
-    // its first sample is the previous thread's last, still staged
-    double pr = t ? stage_r[t * kDcPad - kDcPad + kDcPer - 1] : carry[0];
-    double pi = t ? stage_i[t * kDcPad - kDcPad + kDcPer - 1] : carry[1];
-    double lr[kDcPer], li[kDcPer];
-    double accr = 0.0, acci = 0.0;
+  {
+    double yr = fma(my_pow, y_before[0], zr);
+    double yi = fma(my_pow, y_before[1], zi);
+    double pr = px_r, pi = px_i;
 #pragma unroll
     for (int j = 0; j < kDcPer; ++j) {
       if (j < m) {
-        accr = fma(pa, accr, xr[j] - pr);
-        acci = fma(pa, acci, xi[j] - pi);
+        const float xr = my_r[j], xi = my_i[j];
+        yr = fma(pa, yr, static_cast<double>(xr) - pr);
+        yi = fma(pa, yi, static_cast<double>(xi) - pi);
+        pr = xr;
+        pi = xi;
+        const long long idx = s0 + first + j;
+        if (idx == n - 1) {
+          a.dc_out[c * 4] = xr;
+          a.dc_out[c * 4 + 1] = xi;
+          a.dc_out[c * 4 + 2] = static_cast<float>(yr);
+          a.dc_out[c * 4 + 3] = static_cast<float>(yi);
+        }
+        float vr = static_cast<float>(yr);
+        float vi = static_cast<float>(yi);
+        if constexpr (kIq) {
+          // I' = (1+g) I, Q' = Q + phi I (ops/iq_balance.py apply_planar)
+          const float qr = __fmul_rn(vr, g1);
+          vi = __fadd_rn(vi, __fmul_rn(phi, vr));
+          vr = qr;
+        }
+        if (a.dtheta) nco_rotate(ph0, a.dtheta, idx, &vr, &vi);
+        my_r[j] = vr;
+        my_i[j] = vi;
       }
-      pr = xr[j];
-      pi = xi[j];
-      lr[j] = accr;
-      li[j] = acci;
     }
-    __syncthreads();  // the staged x rows are read before results overwrite them
-    // block scan of the per-thread ends: B[t] = sum_u a^(kDcPer*(t-u)) e_u.
-    // Every thread before the last valid one holds kDcPer samples, so the
-    // coefficient is one constant and each doubling step takes its power.
-    scan_r[t] = accr;
-    scan_i[t] = acci;
-    __syncthreads();
-    int level = 0;
-    for (int off = 1; off < kDcThreads; off <<= 1, ++level) {
-      double pbr = 0.0, pbi = 0.0;
-      if (t >= off) {
-        pbr = scan_r[t - off];
-        pbi = scan_i[t - off];
-      }
-      __syncthreads();
-      if (t >= off) {
-        scan_r[t] = fma(level_coef[level], pbr, scan_r[t]);
-        scan_i[t] = fma(level_coef[level], pbi, scan_i[t]);
-      }
-      __syncthreads();
-    }
-    // y value entering this thread's first sample
-    const double yin_r = t ? fma(carry_coef, carry[2], scan_r[t - 1]) : carry[2];
-    const double yin_i = t ? fma(carry_coef, carry[3], scan_i[t - 1]) : carry[3];
-    const long long last = (n - base < kDcChunk ? n - base : kDcChunk) - 1;
-    const int own_t = static_cast<int>(last / kDcPer);
-    const int own_j = static_cast<int>(last % kDcPer);
-    double nx_r = 0.0, nx_i = 0.0, ny_r = 0.0, ny_i = 0.0;
+  }
+  __syncthreads();
+
+  const long long tail0 = n - a.hist;
+  if (a.vec) {
+    float4* yr4 = reinterpret_cast<float4*>(a.y_r + row0 + s0);
+    float4* yi4 = reinterpret_cast<float4*>(a.y_i + row0 + s0);
+    for (int k = tid; k < (len >> 2); k += kDcThreads) {
+      float vr[4], vi[4];
 #pragma unroll
-    for (int j = 0; j < kDcPer; ++j) {
-      const double dr = fma(apow[j], yin_r, lr[j]);
-      const double di = fma(apow[j], yin_i, li[j]);
-      if (t == own_t && j == own_j) {
-        nx_r = xr[j];
-        nx_i = xi[j];
-        ny_r = dr;
-        ny_i = di;
+      for (int e = 0; e < 4; ++e) {
+        vr[e] = stage_r[staged(4 * k + e)];
+        vi[e] = stage_i[staged(4 * k + e)];
       }
-      float vr = static_cast<float>(dr);
-      float vi = static_cast<float>(di);
-      if constexpr (kIq) {
-        // I' = (1+g) I, Q' = Q + phi I (ops/iq_balance.py apply_planar)
-        const float qr = __fmul_rn(vr, g1);
-        vi = __fadd_rn(vi, __fmul_rn(phi, vr));
-        vr = qr;
+      yr4[k] = make_float4(vr[0], vr[1], vr[2], vr[3]);
+      yi4[k] = make_float4(vi[0], vi[1], vi[2], vi[3]);
+      if (a.tail_r != nullptr && s0 + 4 * k + 3 >= tail0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long long idx = s0 + 4 * k + e;
+          if (idx >= tail0) {
+            a.tail_r[static_cast<long long>(c) * a.hist + (idx - tail0)] = vr[e];
+            a.tail_i[static_cast<long long>(c) * a.hist + (idx - tail0)] = vi[e];
+          }
+        }
       }
-      if (a.dtheta) nco_rotate(ph0, a.dtheta, my0 + j, &vr, &vi);
-      stage_r[t * kDcPad + j] = vr;
-      stage_i[t * kDcPad + j] = vi;
     }
-    __syncthreads();  // every thread has read carry and written its samples
-    if (t == own_t) {
-      carry[0] = nx_r;
-      carry[1] = nx_i;
-      carry[2] = ny_r;
-      carry[3] = ny_i;
-    }
-    const long long tail0 = n - a.hist;
-    for (int r = t; r < kDcChunk; r += kDcThreads) {
-      const long long idx = base + r;
-      if (idx >= n) break;
-      const float vr = stage_r[(r / kDcPer) * kDcPad + r % kDcPer];
-      const float vi = stage_i[(r / kDcPer) * kDcPad + r % kDcPer];
+  } else {
+    for (int r = tid; r < len; r += kDcThreads) {
+      const long long idx = s0 + r;
+      const float vr = stage_r[staged(r)];
+      const float vi = stage_i[staged(r)];
       a.y_r[row0 + idx] = vr;
       a.y_i[row0 + idx] = vi;
       if (a.tail_r != nullptr && idx >= tail0) {
@@ -261,30 +502,38 @@ __global__ void __launch_bounds__(kDcThreads) dc_kernel(const DcArgs a) {
         a.tail_i[static_cast<long long>(c) * a.hist + (idx - tail0)] = vi;
       }
     }
-    __syncthreads();  // carry visible; staged samples consumed
   }
-  if (t < 4) a.dc_out[c * 4 + t] = static_cast<float>(carry[t]);
 }
 
-int launch_dc(const DcArgs& a, int channels, bool planar_in, bool iq,
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+}
+
+
+int launch_dc(DcArgs a, int channels, bool planar_in, bool iq,
               cudaStream_t stream) {
-  if (channels <= 0 || a.n <= 0 || (planar_in && (!a.x_r || !a.x_i)) ||
+  if (channels <= 0 || channels > 65535 || a.n <= 0 ||
+      (planar_in && (!a.x_r || !a.x_i)) ||
       (!planar_in && (!a.wire || a.kind == kPlanar)) || (iq && !a.iq) ||
-      (a.dtheta && !a.phase) ||
+      (a.dtheta && !a.phase) || !a.look || a.seq == 0 ||
       (a.tail_r && (a.hist < 0 || a.hist > a.n))) {
     return cudaErrorInvalidValue;
   }
+  const bool in_aligned = planar_in ? aligned16(a.x_r) && aligned16(a.x_i)
+                                    : aligned16(a.wire);
+  a.vec = a.n % 8 == 0 && in_aligned && aligned16(a.y_r) && aligned16(a.y_i);
+  const dim3 grid(static_cast<unsigned>(dc_tiles(a.n)), channels);
   if (planar_in) {
     if (iq) {
-      dc_kernel<true, true><<<channels, kDcThreads, 0, stream>>>(a);
+      dc_kernel<true, true><<<grid, kDcThreads, 0, stream>>>(a);
     } else {
-      dc_kernel<true, false><<<channels, kDcThreads, 0, stream>>>(a);
+      dc_kernel<true, false><<<grid, kDcThreads, 0, stream>>>(a);
     }
   } else {
     if (iq) {
-      dc_kernel<false, true><<<channels, kDcThreads, 0, stream>>>(a);
+      dc_kernel<false, true><<<grid, kDcThreads, 0, stream>>>(a);
     } else {
-      dc_kernel<false, false><<<channels, kDcThreads, 0, stream>>>(a);
+      dc_kernel<false, false><<<grid, kDcThreads, 0, stream>>>(a);
     }
   }
   return cudaGetLastError();
@@ -292,17 +541,34 @@ int launch_dc(const DcArgs& a, int channels, bool planar_in, bool iq,
 
 }  // namespace iqk
 
+// Bytes of the look-back scratch a launch over (channels, n) needs.  The
+// caller keeps one buffer per stream, zeroed once when it is allocated,
+// and passes a new nonzero sequence number to every launch.
+extern "C" long long iq_dc_scratch_bytes(int channels, int n) {
+  return static_cast<long long>(channels) * iqk::dc_tiles(n) *
+         (2 * sizeof(double2) + 2 * sizeof(unsigned));
+}
+
+// The tiling, for the host's emulation and tests: out[0..2] = threads a
+// CTA, samples a thread, tiles a look-back group.
+extern "C" void iq_dc_geometry(int* out) {
+  out[0] = iqk::kDcThreads;
+  out[1] = iqk::kDcPer;
+  out[2] = iqk::kDcGroup;
+}
+
 // K1 prologue.  Launch on `stream`; returns the launch's cudaError_t.
 extern "C" int iq_dc_prologue(const void* wire, int kind, float norm,
                               float gain, const float* dc_in, double a,
                               const long long* phase, unsigned dtheta,
                               int channels, int n, int hist, float* y_r,
                               float* y_i, float* tail_r, float* tail_i,
-                              float* dc_out, void* stream) {
+                              float* dc_out, void* look, unsigned seq,
+                              void* stream) {
   if (!tail_r || !tail_i) return cudaErrorInvalidValue;
   iqk::DcArgs args{wire, kind, norm, gain, nullptr, nullptr, dc_in, a,
                    nullptr, phase, dtheta, n, hist, y_r, y_i, tail_r, tail_i,
-                   dc_out};
+                   dc_out, look, seq, 0};
   return iqk::launch_dc(args, channels, false, false,
                         static_cast<cudaStream_t>(stream));
 }
@@ -315,9 +581,11 @@ extern "C" int iq_dc_block_apply(const void* wire, int kind, float norm,
                                  double a, const float* iq,
                                  const long long* phase, unsigned dtheta,
                                  int channels, int n, float* y_r, float* y_i,
-                                 float* dc_out, void* stream) {
+                                 float* dc_out, void* look, unsigned seq,
+                                 void* stream) {
   iqk::DcArgs args{wire, kind, norm, gain, x_r, x_i, dc_in, a, iq, phase,
-                   dtheta, n, 0, y_r, y_i, nullptr, nullptr, dc_out};
+                   dtheta, n, 0, y_r, y_i, nullptr, nullptr, dc_out, look,
+                   seq, 0};
   return iqk::launch_dc(args, channels, kind == iqk::kPlanar, iq != nullptr,
                         static_cast<cudaStream_t>(stream));
 }

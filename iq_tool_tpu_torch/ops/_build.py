@@ -37,17 +37,22 @@ _SIGNATURES = {
     "iq_banded_apply": [_P, _P, _P, _I, _F, _F, _P, _U, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _F,
                         _F, _P],
+    "iq_dc_scratch_bytes": [_I, _I],
+    "iq_dc_geometry": [_P],
     "iq_dc_prologue": [_P, _I, _F, _F, _P, ctypes.c_double, _P, _U, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P, _U, _P],
     "iq_dc_block_apply": [_P, _I, _F, _F, _P, _P, _P, ctypes.c_double, _P, _P,
-                          _U, _I, _I, _P, _P, _P, _P],
+                          _U, _I, _I, _P, _P, _P, _P, _U, _P],
     "iq_post_apply": [_P, _P, _P, _I, _I, _P, _U, _I, _I, _P, _I, _I, _F, _F,
                       _F, _F, _P],
-    "iq_agc_rms_scan": [_P, _P, _P, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
+    "iq_agc_rms_gains": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I, _P,
+                         _P, _P, _P],
+    "iq_agc_chain": [_P, _I, _P, _P, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     "iq_osfft_apply": [_P, _P, _I, _P, _P, ctypes.c_longlong, _I, _P, _P, _I,
                        _P, _P, _P, _I, _I, _I, _I, _P, _P, ctypes.c_longlong, _P],
     "iq_est_descent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
 }
+_RESTYPES = {"iq_dc_scratch_bytes": ctypes.c_longlong, "iq_dc_geometry": None}
 
 
 def _nvcc() -> str:
@@ -126,6 +131,6 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib

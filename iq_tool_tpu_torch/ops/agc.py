@@ -4,8 +4,9 @@ tracking) and digital (peak-lock) profiles.
 * dx/local: per AGC_SEGMENT (128) samples, g *= (target^2 / e2)^(beta/2)
   with e2 the smoothed output energy and beta = 1 - (1-bw)^L; the gain
   is clamped to [1e-6, 1e6].  The per-segment loop is sequential
-  (~1500 segments per full block): on a CUDA tensor it runs as one small
-  kernel (``kernels.rms_scan``), on the CPU as its plain loop.
+  (~1500 segments per full block): on a CUDA tensor the segment energies
+  and the loop are one kernel (``kernels.rms_gains``), on the CPU a mean
+  and the plain loop.
 * digital: a block-granular state machine (scan for 2 s, then lock;
   ratchet on clip, creep after 4 s of weak peaks) in tensor ops.
 
@@ -73,9 +74,7 @@ def reset(state: AgcState) -> AgcState:
 def rms_params(cfg: AgcConfig, n: int) -> tuple[int, int, float]:
     """(n_seg, seg_len, beta) for a block of n samples."""
     bw = C.AGC_BW_DX if cfg.profile == "dx" else C.AGC_BW_LOCAL
-    seg = C.AGC_SEGMENT
-    n_seg = max(n // seg, 1)
-    seg = n // n_seg
+    n_seg, seg = kernels.agc_segments(n)
     beta = float(1.0 - (1.0 - bw) ** seg)
     return n_seg, seg, beta
 
@@ -84,17 +83,14 @@ def rms_gains(xr: torch.Tensor, xi: torch.Tensor, state: AgcState,
               cfg: AgcConfig):
     """(gains (C, n_seg), seg, new_state): the per-segment gain schedule
     of a block, shared by the plain apply below and the post kernel."""
-    c, n = xr.shape
-    n_seg, seg, beta = rms_params(cfg, n)
-    xsr = xr[:, :n_seg * seg].reshape(c, n_seg, seg)
-    xsi = xi[:, :n_seg * seg].reshape(c, n_seg, seg)
-    e_in = torch.mean(xsr * xsr + xsi * xsi, dim=-1).T.contiguous()   # (n_seg, C)
-    gains, g_fin, e2_fin = kernels.rms_scan(e_in, state.gain, state.e2, beta,
-                                            cfg.target)
+    n = xr.shape[-1]
+    _, seg, beta = rms_params(cfg, n)
+    gains, g_fin, e2_fin = kernels.rms_gains(xr.contiguous(), xi.contiguous(),
+                                             state.gain, state.e2, beta, cfg.target)
     new_state = dataclasses.replace(
         state, gain=g_fin, e2=e2_fin,
         samples_seen=(state.samples_seen + n) & _MASK)
-    return gains.T.contiguous(), seg, new_state
+    return gains, seg, new_state
 
 
 def _apply_rms_planar(xr, xi, state: AgcState, cfg: AgcConfig):

@@ -4,13 +4,15 @@
 * K2 ``banded_apply`` (``csrc/banded.cu``): one resampler stage, the
   strided-window banded map, with optional packed-wire + NCO prologue and
   quantize-and-pack epilogue.
-* K1 ``banded_apply_dc`` (``csrc/banded_dc.cu`` then ``csrc/banded.cu``):
-  stage 0 with the wire decode, DC block and NCO mix in front.
-* K3 ``dc_block_apply`` (``csrc/banded_dc.cu``): the chain's pre-stage,
-  DC block + I/Q apply + NCO mix over packed wire or planes.
+* K1 ``banded_apply_dc``: stage 0 with the wire decode, DC block and NCO
+  mix in front, as two launches: ``dc_prologue`` (``csrc/banded_dc.cu``)
+  then the K2 kernel (``csrc/banded.cu``).
+* K3 ``dc_block_apply`` (``csrc/banded_dc.cu``, the prologue's kernel):
+  the chain's pre-stage, DC block + I/Q apply + NCO mix over packed wire
+  or planes.
 * K4 ``post_apply`` (``csrc/post.cu``): post-NCO + AGC gains + quantize
-  and pack; beside it ``rms_scan``, the AGC's sequential gain loop
-  (a helper kernel, not a TPU kernel).
+  and pack; beside it ``rms_gains``, the AGC's segment energies and
+  sequential gain loop (a helper kernel, not a TPU kernel).
 * K5 ``osfft_apply`` (``csrc/osfft.cu``): the overlap-save FFT filter.
 * ``iq_descent`` (``csrc/iq_est.cu``): the I/Q estimator's greedy
   descent and power gate (a helper kernel, not a TPU kernel).
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -281,16 +284,102 @@ def banded_apply_dc_ref(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
                         stride: int, hist: int, wire_i32, wire_norm: float,
                         wire_gain: float = 1.0, nco_dtheta: int = 0,
                         nco_phase=None, pack_fmt=None, wire_kind: str = "cs16"):
-    """Plain twin of banded_apply_dc: decode, the two-level DC scan
-    (ops/dc_block.py), NCO mix, then the plain banded map."""
-    xr, xi = convert.decode_packed(wire_i32, wire_kind, wire_norm, wire_gain)
-    yr, yi, new_dc = dc_block.apply_planar_ref(xr, xi, dc_state, dc_alpha)
-    if nco_dtheta:
-        yr, yi = nco.mix(yr, yi, nco_phase, nco_dtheta)
+    """Plain twin of banded_apply_dc: the prologue's twin, then the plain
+    banded map, as the kernels compose."""
+    yr, yi, _, _, new_dc = dc_prologue_ref(wire_i32, dc_state, dc_alpha, hist,
+                                           wire_norm, wire_gain, nco_dtheta,
+                                           nco_phase, wire_kind)
     out = banded_apply_ref(state_r, state_i, yr, yi, a_r, a_i, stride, hist,
                            pack_fmt)
     return (out, banded.new_tail(state_r, yr, hist),
             banded.new_tail(state_i, yi, hist), new_dc)
+
+
+# csrc/banded_dc.cu's tiling: a CTA takes DC_THREADS x DC_PER samples of
+# one channel, and tiles look back in groups of DC_GROUP.  The library
+# exports its own (iq_dc_geometry); the first launch checks they agree.
+DC_THREADS, DC_PER, DC_GROUP = 256, 16, 32
+DC_TILE = DC_THREADS * DC_PER
+_DC_SCRATCH: dict = {}   # (device index, stream) -> the DC look-back buffer
+_dc_seq = 0
+
+
+def _dc_look(lib, dev: torch.device, channels: int, n: int):
+    """(scratch, sequence number) of one DC kernel launch: the look-back
+    status buffer of this device and stream, zeroed once when it is
+    allocated or grown (its status words hold the launch's sequence
+    number, so no launch clears it), and a new nonzero sequence number."""
+    global _dc_seq
+    if _dc_seq == 0:
+        geo = (ctypes.c_int * 3)()
+        lib.iq_dc_geometry(geo)
+        if tuple(geo) != (DC_THREADS, DC_PER, DC_GROUP):
+            raise RuntimeError(f"csrc/banded_dc.cu tiles {tuple(geo)}, "
+                               f"ops/kernels.py {(DC_THREADS, DC_PER, DC_GROUP)}")
+    need = int(lib.iq_dc_scratch_bytes(channels, n))
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _DC_SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.uint8, device=dev)
+        _DC_SCRATCH[key] = buf
+    _dc_seq = _dc_seq % 0x7FFFFFFF + 1
+    return buf, _dc_seq
+
+
+def dc_prologue_ref(wire_i32, dc_state, dc_alpha: float, hist: int,
+                    wire_norm: float, wire_gain: float = 1.0, nco_dtheta: int = 0,
+                    nco_phase=None, wire_kind: str = "cs16"):
+    """Plain twin of dc_prologue: decode, the two-level DC scan
+    (ops/dc_block.py), NCO mix, the last ``hist`` samples."""
+    xr, xi = convert.decode_packed(wire_i32, wire_kind, wire_norm, wire_gain)
+    yr, yi, new_dc = dc_block.apply_planar_ref(xr, xi, dc_state, dc_alpha)
+    if nco_dtheta:
+        yr, yi = nco.mix(yr, yi, nco_phase, nco_dtheta)
+    n = yr.shape[-1]
+    return yr, yi, yr[:, n - hist:].contiguous(), yi[:, n - hist:].contiguous(), new_dc
+
+
+def dc_prologue(wire_i32, dc_state, dc_alpha: float, hist: int,
+                wire_norm: float, wire_gain: float = 1.0, nco_dtheta: int = 0,
+                nco_phase=None, wire_kind: str = "cs16"):
+    """K1's prologue: packed wire (C, n) -> decode -> DC block -> NCO mix.
+    Returns (yr, yi, tail_r, tail_i, new_dc_state): the processed (C, n)
+    planes, their last ``hist`` samples and the (C, 4) DC state."""
+    if not wire_norm:
+        raise ValueError("dc_prologue requires wire input")
+    _check_args(wire_i32, wire_norm, nco_dtheta, nco_phase, None)
+    ch, n = wire_i32.shape
+    if not 0 <= hist <= n:
+        raise ValueError(f"block of {n} samples is shorter than the history {hist}")
+    if wire_i32.device.type == "cpu":
+        return dc_prologue_ref(wire_i32, dc_state, dc_alpha, hist, wire_norm,
+                               wire_gain, nco_dtheta, nco_phase, wire_kind)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    _require_cuda(wire_i32, dc_state, nco_phase)
+    _require_dtypes(wire_i32, _WIRE_KINDS[wire_kind], nco_phase, dc_state)
+    if dc_state.shape != (ch, 4):
+        raise ValueError(f"dc_state must be ({ch}, 4)")
+    dev = wire_i32.device
+    yr = torch.empty((ch, n), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    tail_r = torch.empty((ch, hist), dtype=torch.float32, device=dev)
+    tail_i = torch.empty_like(tail_r)
+    new_dc = torch.empty((ch, 4), dtype=torch.float32, device=dev)
+    dth = int(nco_dtheta) & 0xFFFFFFFF
+    with torch.cuda.device(dev):
+        look, seq = _dc_look(lib, dev, ch, n)
+        rc = lib.iq_dc_prologue(
+            _ptr(wire_i32), _WIRE_KINDS[wire_kind], convert._f32(wire_norm),
+            convert._f32(wire_gain), _ptr(dc_state), float(1.0 - dc_alpha),
+            _ptr(nco_phase), dth, ch, n, hist, _ptr(yr), _ptr(yi), _ptr(tail_r),
+            _ptr(tail_i), _ptr(new_dc), _ptr(look), seq, _stream())
+    _check(rc, "dc prologue kernel")
+    dc_prologue.launches += 1
+    return yr, yi, tail_r, tail_i, new_dc
+
+
+dc_prologue.launches = 0
 
 
 def banded_apply_dc(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
@@ -303,8 +392,8 @@ def banded_apply_dc(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
     dc_state: (C, 4) [xr, xi, yr, yi] prevs.  Returns (y | packed wire,
     tail_r, tail_i, new_dc_state), tail_* the processed (C, hist)
     history for the next block.  On CUDA this is two launches: the
-    prologue kernel writes the processed planes, then the K2 banded
-    kernel runs over them."""
+    prologue kernel (``dc_prologue``) writes the processed planes, then
+    the K2 banded kernel runs over them."""
     if not wire_norm:
         raise ValueError("banded_apply_dc requires wire input")
     _check_args(wire_i32, wire_norm, nco_dtheta, nco_phase, pack_fmt)
@@ -313,30 +402,13 @@ def banded_apply_dc(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
                                    stride, hist, wire_i32, wire_norm, wire_gain,
                                    nco_dtheta, nco_phase, pack_fmt, wire_kind)
     from iq_tool_tpu_torch.ops import _build
-    lib = _build.library()
-    _require_cuda(wire_i32, dc_state, nco_phase)
-    _require_dtypes(wire_i32, _WIRE_KINDS[wire_kind], nco_phase, dc_state)
-    ch, n = wire_i32.shape
-    if n < hist:
-        raise ValueError(f"block of {n} samples is shorter than the history {hist}")
-    if dc_state.shape != (ch, 4):
-        raise ValueError(f"dc_state must be ({ch}, 4)")
+    yr, yi, tail_r, tail_i, new_dc = dc_prologue(
+        wire_i32, dc_state, dc_alpha, hist, wire_norm, wire_gain, nco_dtheta,
+        nco_phase, wire_kind)
     dev = wire_i32.device
-    yr = torch.empty((ch, n), dtype=torch.float32, device=dev)
-    yi = torch.empty_like(yr)
-    tail_r = torch.empty((ch, hist), dtype=torch.float32, device=dev)
-    tail_i = torch.empty_like(tail_r)
-    new_dc = torch.empty((ch, 4), dtype=torch.float32, device=dev)
-    dth = int(nco_dtheta) & 0xFFFFFFFF
-    with torch.cuda.device(dev):
-        rc = lib.iq_dc_prologue(
-            _ptr(wire_i32), _WIRE_KINDS[wire_kind], convert._f32(wire_norm),
-            convert._f32(wire_gain), _ptr(dc_state), float(1.0 - dc_alpha),
-            _ptr(nco_phase), dth, ch, n, hist, _ptr(yr), _ptr(yi), _ptr(tail_r),
-            _ptr(tail_i), _ptr(new_dc), _stream())
-    _check(rc, "dc prologue kernel")
-    out = _launch_banded(lib, _band(a_r, a_i, dev), state_r, state_i, yr, yi,
-                         None, _PLANAR, 0.0, 1.0, 0, None, stride, hist, pack_fmt)
+    out = _launch_banded(_build.library(), _band(a_r, a_i, dev), state_r, state_i,
+                         yr, yi, None, _PLANAR, 0.0, 1.0, 0, None, stride, hist,
+                         pack_fmt)
     banded_apply_dc.launches += 1
     return out, tail_r, tail_i, new_dc
 
@@ -403,11 +475,12 @@ def dc_block_apply(xr, xi, state, alpha: float, iq_factors=None,
     yi = torch.empty_like(yr)
     new_state = torch.empty((ch, 4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        look, seq = _dc_look(lib, dev, ch, n)
         rc = lib.iq_dc_block_apply(
             _ptr(wire_i32), kind, convert._f32(wire_norm), convert._f32(wire_gain),
             _ptr(xr), _ptr(xi), _ptr(state), float(1.0 - alpha), _ptr(iq_factors),
             _ptr(phase_acc if dth else None), dth, ch, n, _ptr(yr), _ptr(yi),
-            _ptr(new_state), _stream())
+            _ptr(new_state), _ptr(look), seq, _stream())
     _check(rc, "dc block kernel")
     dc_block_apply.launches += 1
     return yr, yi, new_state
@@ -485,8 +558,19 @@ def _scan_consts(beta: float, target: float):
             convert._f32(target * target))
 
 
+def _chain_consts(beta: float, target: float):
+    """_scan_consts and inv_t2, as csrc/post.cu's chains take them: t2's
+    reciprocal when t2 is a power of two (the multiplication by it gives
+    the division's bits, without the division on the chain), else 0."""
+    b, omb, nhb, t2 = _scan_consts(beta, target)
+    pow2 = math.frexp(t2)[0] == 0.5 and 1.0 / t2 < float(np.finfo(np.float32).max)
+    return b, omb, nhb, t2, 1.0 / t2 if pow2 else 0.0
+
+
 def rms_scan_ref(e_in, gain, e2, beta: float, target: float):
-    """Plain twin of rms_scan: the per-segment loop in tensor ops."""
+    """The AGC's per-segment gain loop in tensor ops, the reference's
+    rms_scan: e_in (n_seg, C) mean input energies, gain/e2 (C,) ->
+    (gains (n_seg, C), final gain, final e2)."""
     b, omb, nhb, t2 = _scan_consts(beta, target)
     g, e2_ = gain, e2
     gains = []
@@ -499,32 +583,80 @@ def rms_scan_ref(e_in, gain, e2, beta: float, target: float):
     return torch.stack(gains), g, e2_
 
 
-def rms_scan(e_in, gain, e2, beta: float, target: float):
-    """The AGC's RMS gain loop (helper kernel in csrc/post.cu; the
-    reference runs it as a lax.scan): e_in (n_seg, C) mean input
-    energies, gain/e2 (C,) -> (gains (n_seg, C), final gain, final e2)."""
+def agc_segments(n: int) -> tuple[int, int]:
+    """(n_seg, seg): the AGC's segments of a block of n samples, about
+    AGC_SEGMENT samples each; samples past n_seg * seg take no part."""
+    n_seg = max(n // C.AGC_SEGMENT, 1)
+    return n_seg, n // n_seg
+
+
+def rms_gains_ref(xr, xi, gain, e2, beta: float, target: float):
+    """Plain twin of rms_gains: the segment energies by torch.mean, then
+    the per-segment loop (rms_scan_ref)."""
+    c, n = xr.shape
+    n_seg, seg = agc_segments(n)
+    xsr = xr[:, :n_seg * seg].reshape(c, n_seg, seg)
+    xsi = xi[:, :n_seg * seg].reshape(c, n_seg, seg)
+    e_in = torch.mean(xsr * xsr + xsi * xsi, dim=-1).T.contiguous()   # (n_seg, C)
+    gains, g_fin, e2_fin = rms_scan_ref(e_in, gain, e2, beta, target)
+    return gains.T.contiguous(), g_fin, e2_fin
+
+
+def rms_gains(xr, xi, gain, e2, beta: float, target: float):
+    """The AGC's RMS gains of a block (helper kernel in csrc/post.cu; the
+    reference runs a mean and a lax.scan): (C, n) float32 planes and the
+    (C,) gain and smoothed energy carried in -> (gains (C, n_seg) of the
+    agc_segments(n) segments, final gain, final e2)."""
+    if xr.device.type == "cpu":
+        return rms_gains_ref(xr, xi, gain, e2, beta, target)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    _require_cuda(xr, xi, gain, e2)
+    _require_dtypes(None, 0, None, xr, xi, gain, e2)
+    ch, n = xr.shape
+    if xi.shape != (ch, n) or gain.shape != (ch,) or e2.shape != (ch,):
+        raise ValueError(f"planes must be ({ch}, {n}) and gain, e2 ({ch},)")
+    n_seg, seg = agc_segments(n)
+    gains = torch.empty((ch, n_seg), dtype=torch.float32, device=xr.device)
+    g_fin = torch.empty_like(gain)
+    e2_fin = torch.empty_like(e2)
+    with torch.cuda.device(xr.device):
+        rc = lib.iq_agc_rms_gains(_ptr(xr), _ptr(xi), n, seg, n_seg, _ptr(gain),
+                                  _ptr(e2), *_chain_consts(beta, target), ch,
+                                  _ptr(gains), _ptr(g_fin), _ptr(e2_fin), _stream())
+    _check(rc, "agc gains kernel")
+    rms_gains.launches += 1
+    return gains, g_fin, e2_fin
+
+
+rms_gains.launches = 0
+
+
+def agc_chain(e_in, gain, e2, beta: float, target: float):
+    """The AGC's gain loop alone over given energies e_in (C, n_seg), one
+    thread a channel (csrc/post.cu iq_agc_chain): the dependency chain of
+    rms_gains, timed by chip_smoke.py as that kernel's floor; Chain.step
+    never calls it.  Returns (gains (C, n_seg), final gain, final e2); a CPU
+    tensor runs rms_scan_ref."""
     if e_in.device.type == "cpu":
-        return rms_scan_ref(e_in, gain, e2, beta, target)
+        gains, g_fin, e2_fin = rms_scan_ref(e_in.T, gain, e2, beta, target)
+        return gains.T.contiguous(), g_fin, e2_fin
     from iq_tool_tpu_torch.ops import _build
     lib = _build.library()
     _require_cuda(e_in, gain, e2)
     _require_dtypes(None, 0, None, e_in, gain, e2)
-    n_seg, ch = e_in.shape
+    ch, n_seg = e_in.shape
     if gain.shape != (ch,) or e2.shape != (ch,):
         raise ValueError(f"gain and e2 must be ({ch},)")
-    gains = torch.empty_like(e_in)
+    gains = torch.empty((ch, n_seg), dtype=torch.float32, device=e_in.device)
     g_fin = torch.empty_like(gain)
     e2_fin = torch.empty_like(e2)
     with torch.cuda.device(e_in.device):
-        rc = lib.iq_agc_rms_scan(_ptr(e_in), _ptr(gain), _ptr(e2),
-                                 *_scan_consts(beta, target), n_seg, ch,
-                                 _ptr(gains), _ptr(g_fin), _ptr(e2_fin), _stream())
-    _check(rc, "agc scan kernel")
-    rms_scan.launches += 1
+        rc = lib.iq_agc_chain(_ptr(e_in), n_seg, _ptr(gain), _ptr(e2),
+                              *_chain_consts(beta, target), ch, _ptr(gains),
+                              _ptr(g_fin), _ptr(e2_fin), _stream())
+    _check(rc, "agc chain kernel")
     return gains, g_fin, e2_fin
-
-
-rms_scan.launches = 0
 
 
 # ------------------------------ K5 --------------------------------------------
@@ -753,6 +885,6 @@ iq_descent.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for fn in (banded_apply, banded_apply_dc, dc_block_apply, post_apply,
-               rms_scan, osfft_apply, iq_descent):
+    for fn in (banded_apply, banded_apply_dc, dc_prologue, dc_block_apply,
+               post_apply, rms_gains, osfft_apply, iq_descent):
         fn.launches = 0

@@ -16,7 +16,7 @@ Two paths, as in the reference:
   is on, plain tensor ops when it is off; filters run on K2 (banded) or
   K5 (``kernels.osfft_apply``, overlap-save); the resampler's stages on
   K2; the post stage is K4 (``kernels.post_apply``: post-NCO + AGC
-  gains + pack, the RMS gains from the ``kernels.rms_scan`` helper) for
+  gains + pack, the RMS gains from the ``kernels.rms_gains`` helper) for
   a packable output, plain ops for the others.  Whatever op is last
   before the convert packs the wire in its kernel epilogue.
 

@@ -183,11 +183,12 @@ def test_k1_matches_twin(rng, case):
     ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64)) if dth else None
     args = (sr, si, dc, DC_ALPHA, st.band, None, st.stride, st.hist, wire,
             get_format(fmt).normalizer, 1.0, dth, ph)
-    before = kernels.banded_apply_dc.launches
+    before = kernels.banded_apply_dc.launches, kernels.dc_prologue.launches
     got = kernels.banded_apply_dc(*args, wire_kind=kind)
     want = kernels.banded_apply_dc_ref(*args, wire_kind=kind)
     torch.cuda.synchronize()
-    assert kernels.banded_apply_dc.launches == before + 1
+    assert (kernels.banded_apply_dc.launches, kernels.dc_prologue.launches) == (
+        before[0] + 1, before[1] + 1)
     for w, g in zip((*want[0], *want[1:]), (*got[0], *got[1:])):
         assert _snr(w, g) >= 100.0
 
@@ -222,7 +223,7 @@ def test_wrappers_refuse_mixed_devices(rng):
                              xr, xi, st.band, None, st.stride, st.hist)
 
 
-# ----------------------------- K3, K4, K5 and the AGC scan --------------------
+# ----------------------------- K3, K4, K5 and the AGC gains -------------------
 
 def _general_cfg(block, channels=1):
     """BASELINE config #4: DC + I/Q + pre-shift, 2175-tap overlap-save
@@ -236,11 +237,15 @@ def _general_cfg(block, channels=1):
 
 
 @pytest.mark.parametrize("case", [("cs16", True, DTHETA), ("planar", True, 0),
-                                  ("cu8", False, DTHETA)],
-                         ids=["cs16-iq-nco", "planar-iq", "cu8-nco"])
+                                  ("cu8", False, DTHETA), ("cs16", False, 0),
+                                  ("planar", False, 0), ("planar", True, DTHETA),
+                                  ("cu8", True, 0)],
+                         ids=["cs16-iq-nco", "planar-iq", "cu8-nco", "cs16",
+                              "planar", "planar-iq-nco", "cu8-iq"])
 def test_k3_matches_twin(rng, case):
-    """Any N: 3 whole 4096-sample chunks plus a ragged 77 (not a multiple
-    of 128, which the TPU kernel required)."""
+    """Any N: 3 whole 4096-sample tiles plus a ragged 77 (not a multiple
+    of 128, which the TPU kernel required, nor of 8: the kernel's scalar
+    loads and stores)."""
     _need_card()
     fmt, iq, dth = case
     ch, n = 4, 3 * 4096 + 77
@@ -263,6 +268,73 @@ def test_k3_matches_twin(rng, case):
     assert kernels.dc_block_apply.launches == before + 1
     for w, g in zip(want, got):
         assert _snr(w, g) >= 100.0
+
+
+def _dc_wire(rng, fmt, ch, n):
+    """A wire of a tone behind noise and a DC offset (the pole keeps the
+    offset's step for the whole block)."""
+    k = np.arange(n)
+    x = 0.3 * np.exp(2j * np.pi * 0.013 * k) + 0.1 + 0.05 * (
+        rng.standard_normal((ch, n)) + 1j * rng.standard_normal((ch, n)))
+    if fmt == "cs16":
+        pairs = np.clip(np.round(np.stack([x.real, x.imag], -1) * 32767), -32768, 32767)
+        return convert.wire_pack(_cuda(pairs.reshape(ch, 2 * n).astype(np.int16)), fmt)
+    pairs = np.clip(np.round(np.stack([x.real, x.imag], -1) * 127.5 + 127.5), 0, 255)
+    return convert.wire_pack(_cuda(pairs.reshape(ch, 2 * n).astype(np.uint8)), fmt)
+
+
+@pytest.mark.parametrize("n_of_tile", ["1", "100", "T-1", "T", "T+1", "262144"])
+def test_dc_kernel_sizes_over_carried_blocks(rng, n_of_tile):
+    """The DC kernel at N = 1, 100, T - 1, T, T + 1 and 262144 (64 tiles,
+    two look-back groups) over 3 carried blocks, each path carrying its
+    own state: K1's prologue on cs16 with the NCO (planes, tail, state)
+    and K3 on cu8 with I/Q and the NCO, against their twins at >= 100 dB."""
+    _need_card()
+    tile = kernels.DC_TILE
+    n = {"1": 1, "100": 100, "T-1": tile - 1, "T": tile, "T+1": tile + 1,
+         "262144": 262144}[n_of_tile]
+    ch, hist = 3, min(31, n)
+    norm16, norm8 = get_format("cs16").normalizer, get_format("cu8").normalizer
+    ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64))
+    fac = _cuda((rng.standard_normal((ch, 2)) * 0.02).astype(np.float32))
+    dc0 = _cuda((rng.standard_normal((ch, 4)) * 0.05).astype(np.float32))
+    k1_got = k1_want = k3_got = k3_want = dc0
+    before = kernels.dc_prologue.launches, kernels.dc_block_apply.launches
+    for _ in range(3):
+        w16, kind16 = _dc_wire(rng, "cs16", ch, n)
+        w8, kind8 = _dc_wire(rng, "cu8", ch, n)
+        got = kernels.dc_prologue(w16, k1_got, DC_ALPHA, hist, norm16, 1.0, DTHETA, ph,
+                                  wire_kind=kind16)
+        want = kernels.dc_prologue_ref(w16, k1_want, DC_ALPHA, hist, norm16, 1.0, DTHETA,
+                                       ph, wire_kind=kind16)
+        for w, g in zip(want, got):
+            assert _snr(w, g) >= 100.0
+        k1_got, k1_want = got[-1], want[-1]
+        kw = dict(alpha=DC_ALPHA, iq_factors=fac, phase_acc=ph, dtheta=DTHETA,
+                  wire_i32=w8, wire_norm=norm8, wire_kind=kind8)
+        got = kernels.dc_block_apply(None, None, k3_got, **kw)
+        want = kernels.dc_block_apply_ref(None, None, k3_want, **kw)
+        for w, g in zip(want, got):
+            assert _snr(w, g) >= 100.0
+        k3_got, k3_want = got[-1], want[-1]
+    torch.cuda.synchronize()
+    assert (kernels.dc_prologue.launches, kernels.dc_block_apply.launches) == (
+        before[0] + 3, before[1] + 3)
+
+
+def test_dc_kernel_is_deterministic(rng):
+    """Two launches on the same input give the same bits: the look-back
+    combines in one fixed order."""
+    _need_card()
+    ch, n = 16, 262144 + 4096 * 33
+    wire, kind = _dc_wire(rng, "cs16", ch, n)
+    dc = _cuda((rng.standard_normal((ch, 4)) * 0.05).astype(np.float32))
+    args = (wire, dc, DC_ALPHA, 31, get_format("cs16").normalizer)
+    a = kernels.dc_prologue(*args, wire_kind=kind)
+    b = kernels.dc_prologue(*args, wire_kind=kind)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("case", [("cs16", 128, 123456789), ("cu8", 128, 0),
@@ -288,29 +360,61 @@ def test_k4_matches_twin(rng, case):
     assert _packed_codes_close(want, got, fmt)
 
 
+@pytest.mark.parametrize("target", [None, 0.3], ids=["default-target", "target-0.3"])
+@pytest.mark.parametrize("n", [200, 190512, 128 * 5000 + 77])
 @pytest.mark.parametrize("profile", ["local", "dx"])
-def test_agc_scan_matches_twin(rng, profile):
-    """1488 segments (a full block's output), a ragged ramp of energies.
-    Bound: gains within 1e-4 relative (logf/expf on the card and torch's
-    log/exp on the CPU each round within a few ulp; the loop's feedback
-    keeps the sum of those from growing)."""
+def test_agc_gains_matches_twin(rng, profile, n, target):
+    """The fused AGC kernel (segment energies and the gain loop) against
+    rms_gains_ref: one segment of 200, config #4's 1488 segments and a
+    ragged 48, and 5000 segments (many shared-memory chunks), at the
+    default target (t2 a power of two: the chain's division is a
+    multiplication) and at 0.3 (a division).  Bound: gains within 1e-4
+    relative (the energies sum in another order; the loop's feedback
+    keeps the sum of those roundings from growing)."""
     _need_card()
     from iq_tool_tpu_torch.ops import agc
-    cfg = agc.AgcConfig.make(profile, 1_488_375.0)
-    n_seg, seg, beta = agc.rms_params(cfg, 190512)
-    assert (n_seg, seg) == (1488, 128)
+    cfg = agc.AgcConfig.make(profile, 1_488_375.0, target)
+    n_seg, seg, beta = agc.rms_params(cfg, n)
     ch = 5
-    e = rng.uniform(0.0, 0.2, (n_seg, ch)) * np.linspace(1e-4, 1.0, n_seg)[:, None]
-    e_in = _cuda(e.astype(np.float32))
+    ramp = np.linspace(1e-2, 1.0, n)[None, :]
+    xr, xi = (_cuda((rng.standard_normal((ch, n)) * 0.3 * ramp).astype(np.float32))
+              for _ in range(2))
     g0 = _cuda(rng.uniform(0.5, 2.0, ch).astype(np.float32))
     e20 = _cuda(rng.uniform(0.0, 0.1, ch).astype(np.float32))
-    before = kernels.rms_scan.launches
-    got = kernels.rms_scan(e_in, g0, e20, beta, cfg.target)
-    want = kernels.rms_scan_ref(e_in, g0, e20, beta, cfg.target)
+    before = kernels.rms_gains.launches
+    got = kernels.rms_gains(xr, xi, g0, e20, beta, cfg.target)
+    want = kernels.rms_gains_ref(xr, xi, g0, e20, beta, cfg.target)
     torch.cuda.synchronize()
-    assert kernels.rms_scan.launches == before + 1
+    assert kernels.rms_gains.launches == before + 1
+    assert got[0].shape == (ch, n_seg)
     for w, g in zip(want, got):
         assert float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("target", [None, 0.3], ids=["default-target", "target-0.3"])
+@pytest.mark.parametrize("n_seg", [1, 1488, 5000])
+def test_agc_chain_matches_scan_twin(rng, n_seg, target):
+    """The AGC's chain alone (the floor chip_smoke.py times) against
+    rms_scan_ref on the same energies: one segment, config #4's 1488 and
+    5000 (three shared-memory chunks), at the default target (t2 a power
+    of two: the division as a multiplication) and at 0.3 (divided).  Both
+    run the reference's float32 operations in its order: gains within
+    1e-6 relative."""
+    _need_card()
+    from iq_tool_tpu_torch.ops import agc
+    cfg = agc.AgcConfig.make("local", 1_488_375.0, target)
+    _, _, beta = agc.rms_params(cfg, 190512)
+    ch = 5
+    e = _cuda((rng.uniform(0.0, 0.2, (ch, n_seg))
+               * np.linspace(1e-4, 1.0, n_seg)[None, :]).astype(np.float32))
+    g0 = _cuda(rng.uniform(0.5, 2.0, ch).astype(np.float32))
+    e20 = _cuda(rng.uniform(0.0, 0.1, ch).astype(np.float32))
+    got = kernels.agc_chain(e, g0, e20, beta, cfg.target)
+    want = kernels.rms_scan_ref(e.T, g0, e20, beta, cfg.target)
+    torch.cuda.synchronize()
+    for w, g in zip((want[0].T, *want[1:]), got):
+        assert g.shape == w.shape
+        assert float(((g - w).abs() / w.abs()).max()) <= 1e-6
 
 
 @pytest.mark.parametrize("case", [(2175, None, 190512), (2175, None, 3 * 8192),
@@ -406,8 +510,9 @@ def test_general_chain_on_card_matches_cpu_chain(rng):
         assert int(d[:, ramp if b == 0 else 0:].max()) <= 4
     assert (kernels.dc_block_apply.launches, kernels.banded_apply.launches,
             kernels.osfft_apply.launches, kernels.post_apply.launches,
-            kernels.rms_scan.launches, kernels.iq_descent.launches,
-            kernels.banded_apply_dc.launches) == (3, 6, 3, 3, 3, 3, 0)
+            kernels.rms_gains.launches, kernels.iq_descent.launches,
+            kernels.banded_apply_dc.launches, kernels.dc_prologue.launches) == (
+                3, 6, 3, 3, 3, 3, 0, 0)
 
 
 def test_iq_descent_matches_twin(rng):

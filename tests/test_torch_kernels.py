@@ -11,11 +11,13 @@ epilogue is checked bit for bit against their planar output.  K3 (DC,
 I/Q, NCO) is held to 80 dB as K1 is; K4 (NCO, gain, pack: no product
 sums) to one code on 0.1 % of samples; K5 (the Pallas four-step DFT in
 3-term bf16 against torch.fft) to 80 dB; the AGC scan (the same float32
-loop in XLA and in torch) to 1e-5 relative.
+loop in XLA and in torch) to 1e-5 relative.  A float64 emulation of the
+DC kernel's tile decomposition is held to a direct recurrence.
 """
 
 import numpy as np
 import pytest
+import scipy.signal
 
 torch = pytest.importorskip("torch")
 
@@ -449,7 +451,8 @@ def test_k5_spectrum_layout(nfft):
 
 @pytest.mark.parametrize("profile", ["local", "dx"])
 def test_agc_scan_twin_matches_jax(rng, profile):
-    """config #4's 1488 segments from a non-unit start."""
+    """config #4's 1488 segments from a non-unit start: the loop inside
+    rms_gains_ref."""
     cfg = agc.AgcConfig.make(profile, 1_488_375.0)
     n_seg, seg, beta = agc.rms_params(cfg, 190512)
     e = (rng.uniform(0.0, 0.2, (n_seg, CH))
@@ -458,11 +461,132 @@ def test_agc_scan_twin_matches_jax(rng, profile):
     e20 = rng.uniform(0.0, 0.1, CH).astype(np.float32)
     want = jagc.rms_scan(jnp.asarray(e), jnp.asarray(g0), jnp.asarray(e20),
                          beta, cfg.target)
-    got = kernels.rms_scan(_t(e), _t(g0), _t(e20), beta, cfg.target)
+    got = kernels.rms_scan_ref(_t(e), _t(g0), _t(e20), beta, cfg.target)
     for w, g in zip(want, got):
         w = np.asarray(w)
         assert g.shape == w.shape
         assert np.abs(g.numpy() / w - 1.0).max() <= 1e-5
+    # the chain kernel's wrapper takes (C, n_seg) and runs this loop here
+    chain = kernels.agc_chain(_t(e.T.copy()), _t(g0), _t(e20), beta, cfg.target)
+    for w, g in zip((got[0].T, *got[1:]), chain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [190512, 128 * 40 + 100, 200])
+@pytest.mark.parametrize("profile", ["local", "dx"])
+def test_agc_gains_twin_matches_jax(rng, profile, n):
+    """rms_gains_ref (energies by torch.mean, then the loop) against the
+    JAX package's agc.rms_gains on the same planes over 3 carried blocks:
+    config #4's 1488 segments and a ragged 48, segments of 130 samples,
+    and one segment of 200.  Gains within 1e-5 relative; the carried
+    gain and e2 within a few float32 ulps (the two means sum in another
+    order)."""
+    n_seg, seg = kernels.agc_segments(n)
+    assert n_seg * seg <= n < (n_seg + 1) * seg
+    cfg = agc.AgcConfig.make(profile, 1_488_375.0)
+    _, _, beta = agc.rms_params(cfg, n)
+    jstate = jagc.init(CH)
+    g, e2 = torch.ones(CH), torch.zeros(CH)
+    for blk in range(3):
+        scale = np.float32(0.3 * (1 + blk))
+        xr = (rng.standard_normal((CH, n)) * scale).astype(np.float32)
+        xi = (rng.standard_normal((CH, n)) * scale).astype(np.float32)
+        want, want_seg, jstate = jagc.rms_gains(jnp.asarray(xr), jnp.asarray(xi),
+                                                jstate, cfg)
+        got, g, e2 = kernels.rms_gains(_t(xr), _t(xi), g, e2, beta, cfg.target)
+        assert want_seg == seg and got.shape == (CH, n_seg)
+        assert np.abs(got.numpy() / np.asarray(want) - 1.0).max() <= 1e-5
+        for w, gt in ((jstate.gain, g), (jstate.e2, e2)):
+            w = np.asarray(w)
+            assert np.abs(gt.numpy() - w).max() <= 8 * np.spacing(np.abs(w)).max()
+
+
+def _dc_tiles_emulated(x, x_prev, y_prev, a, threads, per, group):
+    """csrc/banded_dc.cu's decomposition of y[k] = a y[k-1] + x[k] -
+    x[k-1] in float64, vectorised over (C, tile, thread): each thread's
+    samples from y = 0, a 5-level shuffle scan inside each warp of 32
+    threads, a Horner pass over the warp totals, each tile's aggregate,
+    the look-back (tile t folds the aggregates of the tiles of its group
+    before it and the inclusive y of the previous group's last tile, or
+    the carried y), and each thread's rerun from its true incoming y.
+    Samples past n are not run, as in the kernel's ragged last tile.
+    Returns (y (C, n), last y (C,))."""
+    c, n = x.shape
+    tile = threads * per
+    tiles = -(-n // tile)
+    warps = threads // 32
+    xp = np.zeros((c, tiles * tile))
+    xp[:, :n] = x
+    valid = (np.arange(tiles * tile) < n).reshape(tiles, threads, per)
+    b = (xp - np.concatenate([x_prev[:, None], xp[:, :-1]], axis=1)).reshape(
+        c, tiles, threads, per)
+    e = np.zeros((c, tiles, threads))
+    for j in range(per):
+        e = np.where(valid[:, :, j], a * e + b[..., j], e)
+    s = e.reshape(c, tiles, warps, 32).copy()
+    for k in range(5):
+        off = 1 << k
+        prev = s.copy()
+        s[..., off:] = prev[..., off:] + a ** (per * off) * prev[..., :-off]
+    ex = np.concatenate([np.zeros((c, tiles, warps, 1)), s[..., :-1]], axis=-1)
+    tot = s[..., -1]                                       # (C, tiles, warps)
+    before = np.zeros((c, tiles, warps))
+    for w in range(1, warps):
+        before[..., w] = a ** (32 * per) * before[..., w - 1] + tot[..., w - 1]
+    agg = a ** (32 * per) * before[..., -1] + tot[..., -1]
+    z = (ex + a ** (per * np.arange(32)) * before[..., None]).reshape(c, tiles, threads)
+    y_in = np.zeros((c, tiles))
+    inc = {}
+    for t in range(tiles):
+        na = t % group
+        q = t - 1 - na
+        acc = a ** (tile * na) * (inc[q] if q >= 0 else y_prev)
+        for lane in range(na):
+            acc = acc + a ** (tile * lane) * agg[:, t - 1 - lane]
+        y_in[:, t] = acc
+        if na == group - 1:
+            inc[t] = agg[:, t] + a ** tile * acc
+    y = z + a ** (per * np.arange(threads)) * y_in[..., None]
+    out = np.zeros((c, tiles, threads, per))
+    for j in range(per):
+        y = np.where(valid[:, :, j], a * y + b[..., j], y)
+        out[..., j] = y
+    out = out.reshape(c, -1)[:, :n]
+    return out, out[:, -1]
+
+
+@pytest.mark.parametrize("n_of_tile", ["1", "100", "T-1", "T", "T+1", "33T+5"])
+@pytest.mark.parametrize("tiling", [(kernels.DC_THREADS, kernels.DC_PER), (32, 4)],
+                         ids=["kernel", "small"])
+def test_dc_tile_decomposition(rng, tiling, n_of_tile):
+    """The DC kernel's float64 tile decomposition against the direct
+    recurrence (scipy's lfilter in float64) within 1e-12 of the planes'
+    peak, and rounded to float32 against dc_block.apply_planar_ref (the
+    CPU twin) within one float32 ulp, on planes and state: N = 1, 100,
+    T - 1, T, T + 1 and 33 T + 5 (past a look-back group) at the
+    kernel's tile and at a small one."""
+    from iq_tool_tpu_torch.ops import dc_block
+    threads, per = tiling
+    tile = threads * per
+    n = {"1": 1, "100": 100, "T-1": tile - 1, "T": tile, "T+1": tile + 1,
+         "33T+5": 33 * tile + 5}[n_of_tile]
+    a = 1.0 - DC_ALPHA
+    x = (rng.standard_normal((2, 2, n)) * 0.3 + 0.05).astype(np.float32)
+    st = (rng.standard_normal((2, 4)) * 0.05).astype(np.float32)
+    want_r, want_i, want_st = dc_block.apply_planar_ref(_t(x[0]), _t(x[1]), _t(st),
+                                                        DC_ALPHA)
+    for p, want in enumerate((want_r, want_i)):
+        xp, yp = st[:, p].astype(np.float64), st[:, 2 + p].astype(np.float64)
+        got, last = _dc_tiles_emulated(x[p].astype(np.float64), xp, yp, a,
+                                       threads, per, kernels.DC_GROUP)
+        zi = (a * yp - xp)[:, None]
+        exact = scipy.signal.lfilter([1.0, -1.0], [1.0, -a], x[p].astype(np.float64),
+                                     axis=-1, zi=zi)[0]
+        assert np.abs(got - exact).max() <= 1e-12 * np.abs(exact).max()
+        ulp = np.spacing(np.float32(np.abs(exact).max()))
+        assert np.abs(got.astype(np.float32) - want.numpy()).max() <= ulp
+        np.testing.assert_array_equal(want_st[:, p].numpy(), x[p][:, -1])
+        assert np.abs(last.astype(np.float32) - want_st[:, 2 + p].numpy()).max() <= ulp
 
 
 def test_general_wrappers_refuse_bad_inputs():
