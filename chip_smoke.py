@@ -32,8 +32,26 @@ first failure:
    2 channels, tone SNR, ms per step, Msps and peak memory, and the
    masked I/Q estimator's cost per step; then configs #5 and #3, and #4
    with --filter-fft-size 32768 ([full32k]), the same way at 4 steps;
-7. the CLI on a 10 s, 2.048 Msps cs16 tone file: the flagship flags, then
+7. [gather]: the gather resampler stage (2.048 Msps -> 25282.56 sps,
+   449/36371) behind the DC kernel and in front of K4 (local AGC), 128 x
+   254597 frames for 4 steps with exact launch counters, against the CPU
+   twin chain on 2 channels and an in-band tone's SNR; ms per step, Msps
+   and peak device memory; then the stage alone (weighted bag sums)
+   timed, repeated bit for bit and held against its float64 definition;
+8. [fold]: one stream at the CLI's 16384-frame block, the flagship and
+   config #4: FoldedChain at F = 8 for 3 folded blocks against the same
+   fold on the CPU (the twins) and against the row chain run 8 times a
+   block on the card, its launches per step; config #4's AGC gains and
+   K4 against their twins at the fold's shapes; then ms per step and
+   Msps at F = 1, 2, 4, 8, 16;
+9. the CLI on a 10 s, 2.048 Msps cs16 tone file: the flagship flags, then
    the general step's (I/Q correction, notch, post-shift, AGC);
+10. [ckpt]: the CLI (in this process, so the launch counters see it) on a
+   2 s tone file with the flagship flags: an uninterrupted run, a run on
+   the file cut off a block boundary with --checkpoint, a --resume run
+   against the whole file: byte-identical; again with --time-fold 4;
+11. [profile]: the CLI with --profile-dir: the trace names the DC and
+   banded kernels;
 
 then one JSON line per the kernels (each with its bound, the bytes or
 operations that set it, the library call's time where there is one, and
@@ -53,6 +71,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS = 6
 GENERAL_STEPS = 4           # configs #5 and #3, and #4 at nfft 32768
+GATHER_STEPS = 4
+FOLDS = (1, 2, 4, 8, 16)
+FOLD_STEPS = 20             # timed steps per fold factor
 # NVIDIA's data sheet for the H100 SXM (dense): the bounds below divide by
 # these
 PEAK_BYTES_S = 3.35e12
@@ -144,17 +165,17 @@ def main() -> int:
     from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
     # the measured chains and their seeded tone, shared with the profiler
     from iq_tool_tpu_torch.profile_steps import (
-        BLOCK, CHANNELS as CH, IN_RATE, OUT_RATE, POST_SHIFT_HZ, SEED, SHIFT_HZ,
-        TONE_HZ, config, to_cu8, tone_wire)
+        BLOCK, CHANNELS as CH, GATHER_RATE, GATHER_TONE_HZ, IN_RATE, OUT_RATE,
+        POST_SHIFT_HZ, SEED, SHIFT_HZ, TONE_HZ, config, make_chain, to_cu8, tone_wire)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
     smi_line = smi[0] if smi else "nvidia-smi: not available"
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     say(f"[card] {smi_line}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {name} count {torch.cuda.device_count()}")
+        f"device {device_name} count {torch.cuda.device_count()}")
     # the twins are the float32 reference: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -208,6 +229,16 @@ def main() -> int:
 
     def max_abs(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    def launch_counts():
+        return {"K1": kernels.banded_apply_dc.launches,
+                "K2": kernels.banded_apply.launches,
+                "K3": kernels.dc_block_apply.launches,
+                "K4": kernels.post_apply.launches,
+                "K5": kernels.osfft_apply.launches,
+                "AGC": kernels.rms_gains.launches,
+                "IQ": kernels.iq_descent.launches,
+                "K1pro": kernels.dc_prologue.launches}
 
     def codes(packed):
         p = packed.to(torch.int64) & 0xFFFFFFFF
@@ -416,7 +447,7 @@ def main() -> int:
 
     # ------------------------------------ 5. the general step's kernels
     from iq_tool_tpu_torch.formats import get_format
-    from iq_tool_tpu_torch.ops import agc, convert, iq_balance
+    from iq_tool_tpu_torch.ops import agc, convert, iq_balance, nco
 
     g4 = Chain(config("4"), device=dev)
     n_out = g4.n_out
@@ -650,14 +681,7 @@ def main() -> int:
             outs.append(out[:2].clone())
         ev[1].record()
         torch.cuda.synchronize()
-        counts = {"K1": kernels.banded_apply_dc.launches,
-                  "K2": kernels.banded_apply.launches,
-                  "K3": kernels.dc_block_apply.launches,
-                  "K4": kernels.post_apply.launches,
-                  "K5": kernels.osfft_apply.launches,
-                  "AGC": kernels.rms_gains.launches,
-                  "IQ": kernels.iq_descent.launches,
-                  "K1pro": kernels.dc_prologue.launches}
+        counts = launch_counts()
         step_ms = ev[0].elapsed_time(ev[1]) / (steps - 2)
         peak = torch.cuda.max_memory_allocated()
         say(f"{label} {steps} steps of {CH} x {BLOCK}: launches {counts}, "
@@ -736,7 +760,185 @@ def main() -> int:
         fail(f"config #4 at nfft 32768 launch counters {s4k}")
     say(f"[steps] ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms_of.items()))
 
-    # -------------------------------------------------------------- 7. CLI
+    # ---------------------------------------------------- 7. the gather stage
+    gch = Chain(config("gather"), device=dev)
+    n_g = gch.n_in
+    stream = tone_wire(CH, GATHER_STEPS * n_g, gen, GATHER_TONE_HZ)
+    carry = gch.init_carry()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    outs = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for k in range(GATHER_STEPS):
+        if k == 1:
+            ev[0].record()
+        carry, out = gch.step(carry, stream[:, k * 2 * n_g:(k + 1) * 2 * n_g])
+        outs.append(out[:2].clone())
+    ev[1].record()
+    torch.cuda.synchronize()
+    g_counts = launch_counts()
+    g_ms = ev[0].elapsed_time(ev[1]) / (GATHER_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[gather] {gch.resampler.plan.p}/{gch.resampler.plan.q}: {GATHER_STEPS} steps of "
+        f"{CH} x {n_g} -> {gch.n_out} frames, K {gch.resampler.stages[0].plan.weights.shape[1]}: "
+        f"launches {g_counts}, {g_ms:.3f} ms/step over steps 2-{GATHER_STEPS} -> "
+        f"{CH * n_g / (g_ms / 1e3) / 1e6:.1f} Msps in, peak device memory "
+        f"{peak / 2 ** 20:.1f} MiB ({(peak - base_mem) / 2 ** 20:.1f} MiB above the "
+        f"{base_mem / 2 ** 20:.1f} MiB held before the run, the input stream included)")
+    want_g = {k: 0 for k in g_counts}
+    want_g.update(K3=GATHER_STEPS, K4=GATHER_STEPS, AGC=GATHER_STEPS)
+    if g_counts != want_g:
+        fail(f"[gather] launch counters {g_counts}, expected {want_g}")
+    got_w = torch.cat(outs, dim=-1).cpu().numpy()
+    if got_w.shape != (2, GATHER_STEPS * 2 * gch.n_out) or got_w.dtype != np.int16:
+        fail(f"[gather] output {got_w.shape} {got_w.dtype}")
+    twin = Chain(config("gather", 2), device="cpu")
+    tc, twin_outs, host = twin.init_carry(), [], stream[:2].cpu()
+    for k in range(GATHER_STEPS):
+        tc, o = twin.step(tc, host[:, k * 2 * n_g:(k + 1) * 2 * n_g])
+        twin_outs.append(o)
+    dmax = int(np.abs(got_w.astype(np.int64) - torch.cat(twin_outs, -1).numpy()).max())
+    snr_g = tone_snr_db(cs16_iq(got_w[0]), GATHER_TONE_HZ, GATHER_RATE, gch.n_out)
+    say(f"[gather] vs CPU twin chain (2 channels): max |dcode| {dmax}; tone at "
+        f"{GATHER_TONE_HZ:.0f} Hz: SNR {snr_g:.1f} dB over steps 2-{GATHER_STEPS}")
+    if dmax > 4:
+        fail(f"[gather] differs from its CPU twin by {dmax} codes (> 4)")
+    if snr_g < 60.0:
+        fail(f"[gather] tone SNR {snr_g:.1f} dB < 60 dB")
+    step_ms_of["[gather]"] = g_ms
+    # the gather stage alone (weighted bag sums): timed, twice on the same
+    # input compared bit for bit, and held on 8 channels against its
+    # definition (the windows gathered and summed in float64)
+    st_g = gch.resampler.stages[0]
+    m_g, k_g = st_g.plan.weights.shape
+    xr_g, xi_g, sr_g, si_g = (0.3 * torch.randn((CH, w), generator=gen, device=dev)
+                              for w in (n_g, n_g, st_g.hist, st_g.hist))
+    run_g = lambda: st_g.apply_planar(xr_g, xi_g, sr_g, si_g)[0]
+    (yr_g, yi_g), again = run_g(), run_g()
+    same_g = torch.equal(yr_g, again[0]) and torch.equal(yi_g, again[1])
+    ext_g = torch.complex(torch.cat([sr_g[:8], xr_g[:8]], -1),
+                          torch.cat([si_g[:8], xi_g[:8]], -1)).to(torch.complex128)
+    cols = (torch.from_numpy(st_g.plan.starts).to(dev).long()[:, None]
+            + torch.arange(k_g, device=dev)[None, :])
+    w64 = torch.from_numpy(st_g.plan.weights).to(dev).double()
+    def_g = (ext_g[:, cols] * w64).sum(-1)                     # (8, M)
+    torch.cuda.synchronize()
+    db_g = snr_db(def_g.cpu().numpy(), torch.complex(yr_g[:8], yi_g[:8]).cpu().numpy())
+    gs_ms, _ = time_pair(run_g, run_g, reps=3)
+    say(f"[gather] the stage alone ({m_g} outputs x {k_g} taps x {2 * CH} planes, "
+        f"weighted bag sums): {gs_ms:.3f} ms; against its definition in float64 "
+        f"{db_g:.1f} dB; two runs {'bit-identical' if same_g else 'differ'}")
+    if db_g < 100.0 or not same_g:
+        fail(f"[gather] the stage is {db_g:.1f} dB from its definition (>= 100 dB) "
+             f"and two runs {'agree' if same_g else 'differ'} (bit for bit)")
+    del stream, outs, carry, gch, twin, ext_g, def_g, again, yr_g, yi_g, xr_g, xi_g
+
+    # ----------------------------------------------------- 8. one stream, folded
+    fold_counts = {}
+    for cname, label in (("c1", "flagship"), ("4c1", "config #4")):
+        fc, row = make_chain(f"{cname}f8", dev), make_chain(cname, dev)
+        n = fc.n_in
+        wire = tone_wire(1, 3 * n, gen)
+        carry = fc.init_carry()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs = []
+        for k in range(3):
+            carry, out = fc.step(carry, wire[:, k * 2 * n:(k + 1) * 2 * n])
+            outs.append(out)
+        torch.cuda.synchronize()
+        fc_counts = launch_counts()
+        fold_counts[label] = fc_counts
+        got_f = torch.cat(outs, -1).cpu().numpy().astype(np.int64)
+        skip = 2 * (fc.local.post_filter.num_taps // 2) if fc.local.post_filter else 0
+        # the same fold on the CPU (the kernels' twins) on the same wire
+        twin = make_chain(f"{cname}f8", "cpu")
+        tc, outs, host = twin.init_carry(), [], wire.cpu()
+        for k in range(3):
+            tc, out = twin.step(tc, host[:, k * 2 * n:(k + 1) * 2 * n])
+            outs.append(out)
+        d_twin = int(np.abs(got_f - torch.cat(outs, -1).numpy())[:, skip:].max())
+        # the fold's semantics: the row chain run 8 times a block
+        carry, outs, w = row.init_carry(), [], row.in_wire_len
+        for k in range(3 * 8):
+            carry, out = row.step(carry, wire[:, k * w:(k + 1) * w])
+            outs.append(out)
+        want_f = torch.cat(outs, -1).cpu().numpy().astype(np.float64)
+        diff = (got_f - want_f)[:, skip:]
+        snr_f = 10 * np.log10((want_f[:, skip:] ** 2).mean() / max((diff ** 2).mean(), 1e-30))
+        say(f"[fold] {label} C=1, F=8 x {row.n_in}: 3 folded blocks vs the CPU twin "
+            f"fold: max |dcode| {d_twin}; vs the row chain run 24 times: SNR "
+            f"{snr_f:.1f} dB, max |dcode| {int(np.abs(diff).max())}; both past the "
+            f"first {skip // 2} frames; launches per folded step "
+            f"{ {k: v / 3 for k, v in fc_counts.items() if v} }")
+        if d_twin > 4:
+            fail(f"[fold] {label}: the card's fold differs from its CPU twin by "
+                 f"{d_twin} codes (> 4)")
+        if snr_f < 60.0 or np.abs(diff).max() > 32:
+            fail(f"[fold] {label}: the fold leaves its contract (>= 60 dB, <= 32 codes)")
+        if any(fc_counts[k] == 0 for k in (("K1", "K1pro", "K2") if cname == "c1"
+                                            else ("K2", "K3", "K4", "K5", "AGC", "IQ"))):
+            fail(f"[fold] {label}: a kernel of the path did not launch: {fc_counts}")
+        if cname == "4c1":
+            # the AGC kernel and K4 at the fold's own shapes: one stream's
+            # 8 rows, segments laid per row under one gain scan; K4 with
+            # the rows as its channels, each row its own first NCO phase
+            lc = fc.local
+            n_row = lc.n_out
+            ramp = torch.linspace(1e-2, 1.0, 8 * n_row, device=dev)[None, :]
+            pr, pi = (0.3 * ramp * torch.randn((1, 8 * n_row), generator=gen, device=dev)
+                      for _ in range(2))
+            n_seg, seg, beta = agc.rms_params(lc.agc_cfg, n_row)
+            a_args = (pr, pi, torch.ones(1, device=dev), torch.zeros(1, device=dev),
+                      beta, lc.agc_cfg.target)
+            got = kernels.rms_gains(*a_args, rows=8)
+            want = kernels.rms_gains_ref(*a_args, rows=8)
+            phases = nco.row_phases(phase0[:1], 8, n_row, lc.dtheta_post)
+            k4_args = (pr.view(8, n_row), pi.view(8, n_row), want[0].view(8, n_seg),
+                       seg, phases, lc.dtheta_post)
+            got4 = kernels.post_apply(*k4_args, out_fmt="cs16")
+            want4 = kernels.post_apply_ref(*k4_args, out_fmt="cs16")
+            torch.cuda.synchronize()
+            rel = max(float(((g - w).abs() / w.abs()).max()) for w, g in zip(want, got))
+            (gi, gq), (wi, wq) = codes(got4), codes(want4)
+            dcode = torch.maximum((gi - wi).abs(), (gq - wq).abs())
+            frac = float((dcode > 0).float().mean())
+            say(f"[fold] config #4's AGC gains at (1, 8 x {n_row}), {8 * n_seg} segments "
+                f"in one scan: max relative error {rel:.3e}; K4 at (8, {n_row}) with "
+                f"per-row phases: max |dcode| {int(dcode.max())} on {100 * frac:.4f}% "
+                f"of samples")
+            if got[0].shape != (1, 8 * n_seg) or rel > 1e-4:
+                fail(f"[fold] the AGC gains disagree with their twin at the fold's "
+                     f"shape: {tuple(got[0].shape)}, relative error {rel:.3e} > 1e-4")
+            if int(dcode.max()) > 1 or frac > 0.01:
+                fail("[fold] K4 disagrees with its twin by more than 1 code on 1% of "
+                     "samples at the fold's shape")
+            del pr, pi, got, want, got4, want4
+        rates = []
+        for f in FOLDS:
+            ch_ = make_chain(f"{cname}f{f}", dev)
+            n = ch_.n_in
+            wire = tone_wire(1, (2 + FOLD_STEPS) * n, gen)
+            carry = ch_.init_carry()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            for k in range(2 + FOLD_STEPS):
+                if k == 2:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ev[0].record()
+                carry, _ = ch_.step(carry, wire[:, k * 2 * n:(k + 1) * 2 * n])
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / FOLD_STEPS
+            ms = ev[0].elapsed_time(ev[1]) / FOLD_STEPS
+            rates.append(f"F={f}: {ms:.3f} ms/step (host {wall:.3f}), "
+                         f"{n / (ms / 1e3) / 1e6:.1f} Msps")
+        say(f"[fold] {label} C=1 at {row.n_in} frames a row: " + "; ".join(rates))
+        del wire, carry, outs, fc, row, twin, host
+
+    # -------------------------------------------------------------- 9. CLI
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     inp, outp = os.path.join(work, "tone_in.cs16"), os.path.join(work, "out.cs16")
@@ -797,6 +999,71 @@ def main() -> int:
     if snr_g < 60.0:
         fail(f"CLI (general flags) tone SNR {snr_g:.1f} dB < 60 dB")
 
+    # ----------------------------------------- 10. checkpoint and resume
+    from iq_tool_tpu_torch.cli import main as cli_main
+    from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint
+    frames = int(2 * IN_RATE)
+    cut = 1_234_567                       # off every block boundary
+    tone_wire(1, frames, gen).cpu().numpy().tofile(inp)
+    half, ck = os.path.join(work, "half.cs16"), os.path.join(work, "state.ckpt")
+    with open(inp, "rb") as f_in, open(half, "wb") as f_half:
+        f_half.write(f_in.read(4 * cut))
+    full, part = os.path.join(work, "full.cs16"), os.path.join(work, "part.cs16")
+    flags = ["-i", "raw-file", "-o", "raw", "--raw-file-input-rate", "2048000",
+             "--raw-file-input-sample-format", "cs16", "--output-rate", "1488375",
+             "--dc-block", "--freq-shift", "100000", "--lowpass", "400000",
+             "--device", "cuda", "--checkpoint-interval", "0.05", "--log-level", "warn"]
+    kernels.reset_launch_counts()
+    for fold in ("1", "4"):
+        fl = flags + ["--time-fold", fold]
+        for p_ in (full, part, ck):
+            if os.path.exists(p_):
+                os.remove(p_)
+        t0 = time.perf_counter()
+        rcs = (cli_main(fl + [inp, full]),
+               cli_main(fl + [half, part, "--checkpoint", ck]),
+               cli_main(fl + [inp, part, "--checkpoint", ck, "--resume"]))
+        wall = time.perf_counter() - t0
+        if rcs != (0, 0, 0):
+            fail(f"[ckpt] --time-fold {fold}: CLI exit codes {rcs}")
+        with open(full, "rb") as a, open(part, "rb") as b:
+            same, size = a.read() == b.read(), os.path.getsize(full)
+        cpu_row = Chain(config("flagship", 1, 16384), device="cpu")
+        _, fin, fout, _ = load_checkpoint(ck, cpu_row.init_carry())
+        say(f"[ckpt] --time-fold {fold}: {frames} frames, cut at {cut}: resumed output "
+            f"{'byte-identical' if same else 'DIFFERS'} ({size} bytes); the card's "
+            f"checkpoint loads on the CPU at {fin} frames in, {fout} out; 3 runs "
+            f"{wall:.2f} s")
+        if not same or size != 4 * (frames * 11907 // 16384):
+            fail(f"[ckpt] --time-fold {fold}: resume is not byte-identical")
+    ck_counts = launch_counts()
+    say(f"[ckpt] launches over the 6 runs: {ck_counts}")
+    if not all(ck_counts[k] for k in ("K1", "K1pro", "K2")):
+        fail(f"[ckpt] the CLI runs did not launch the flagship's kernels: {ck_counts}")
+
+    # ------------------------------------------------------------ 11. profile
+    import glob
+    pdir = os.path.join(work, "profile")
+    for old in glob.glob(os.path.join(pdir, "*")):
+        os.remove(old)
+    if cli_main(flags + [inp, full, "--force-overwrite", "--profile-dir", pdir]) != 0:
+        fail("[profile] the CLI with --profile-dir failed")
+    traces = glob.glob(os.path.join(pdir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"[profile] expected one trace in {pdir}, found {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kern = sorted({e["name"].split("(")[0] for e in events
+                   if e.get("cat") == "kernel" and ("dc_kernel" in e.get("name", "")
+                                                    or "banded_kernel" in e.get("name", ""))})
+    n_k = sum(1 for e in events if e.get("cat") == "kernel")
+    say(f"[profile] {os.path.basename(traces[0])}: {os.path.getsize(traces[0]) / 2 ** 20:.1f} "
+        f"MiB, {len(events)} events, {n_k} kernel launches; the chain's kernels in it: {kern}")
+    if not (any("dc_kernel" in k for k in kern) and any("banded_kernel" in k for k in kern)):
+        fail("[profile] the trace does not name the DC and banded kernels")
+    for p_ in (inp, half, full, part, ck, traces[0]):
+        os.remove(p_)
+
     # ------------------------------------------------------------ result
     src = {"K1": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "K2": "iq_tool_tpu_torch/csrc/banded.cu",
@@ -822,7 +1089,10 @@ def main() -> int:
     src["K3@cu8"], rep["K3@cu8"] = src["K3"], rep["K3"]
     phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQ=0), STEPS),
               "#4": (general_launches, STEPS), "#4@32768": (s4k, GENERAL_STEPS),
-              "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS)}
+              "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS),
+              "gather": (g_counts, GATHER_STEPS),
+              "fold flagship C=1 F=8": (fold_counts["flagship"], 3),
+              "fold #4 C=1 F=8": (fold_counts["config #4"], 3)}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k], "replaces": rep[k],
          "launches": counts[k], "max_abs_err": report[k]["err"],
@@ -832,7 +1102,7 @@ def main() -> int:
          "launches_per_step": {ph: c[k.split("@")[0]] / n for ph, (c, n) in phases.items()}}
         for k in src]}))
     say(smi_line)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

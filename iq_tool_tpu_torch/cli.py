@@ -6,20 +6,24 @@
         --output-rate 1488375 --dc-block --freq-shift 100000 \\
         --lowpass 400000 --device cuda
 
-The flags are the reference parser's for the ported features, plus ``--device``
-(the counterpart of the reference's JAX_PLATFORMS).  ``--device cuda``
-without a card is an error; nothing falls back to the CPU.  Flags of the
-reference whose features are not ported yet are accepted by the parser
-and refused with a "not yet ported" error.
+The flags are the reference parser's, plus ``--device`` (the
+counterpart of the reference's JAX_PLATFORMS).  ``--device cuda``
+without a card is an error; nothing falls back to the CPU.  The mesh
+flags, whose sharded execution is not ported yet, are accepted by the
+parser and refused with a "not yet ported" error.  ``--profile-dir``
+writes a torch.profiler trace (CPU activity, plus the card's kernels on
+CUDA) that Perfetto or chrome://tracing opens.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import re
 import signal
 import sys
+import time
 
 from iq_tool_tpu_torch import __version__
 from iq_tool_tpu_torch import constants as C
@@ -31,11 +35,7 @@ from iq_tool_tpu_torch.config import (AppConfig, apply_preset,
                                       validate)
 
 # flag dest -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "mesh_channel": "Queue 1 item 11", "mesh_time": "Queue 1 item 11",
-    "time_fold": "Queue 1 item 10", "checkpoint": "Queue 1 item 9",
-    "resume": "Queue 1 item 9", "profile_dir": "Queue 1 item 9",
-}
+_NOT_PORTED = {"mesh_channel": "Queue 1 item 11", "mesh_time": "Queue 1 item 11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,16 +144,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "or N comma-separated paths")
     g.add_argument("--mesh-channel", type=int, help=argparse.SUPPRESS)
     g.add_argument("--mesh-time", type=int, help=argparse.SUPPRESS)
-    g.add_argument("--time-fold", type=int, help=argparse.SUPPRESS)
-    g.add_argument("--profile-dir", help=argparse.SUPPRESS)
+    g.add_argument("--time-fold", type=int, metavar="F",
+                   help="Run each channel's block as F consecutive row blocks in "
+                        "one step (default 1)")
+    g.add_argument("--profile-dir", metavar="DIR",
+                   help="Write a torch.profiler trace of the run into DIR "
+                        "(open with Perfetto or chrome://tracing)")
 
     g = p.add_argument_group("Reliability Options")
     g.add_argument("--log-level", default="info", metavar="L",
                    help="Log level {trace|debug|info|warn|error} (default info)")
-    g.add_argument("--checkpoint", help=argparse.SUPPRESS)
+    g.add_argument("--checkpoint", metavar="FILE",
+                   help="Periodically persist stream state for resume")
     g.add_argument("--checkpoint-interval", type=float, default=30.0,
-                   help=argparse.SUPPRESS)
-    g.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
+                   metavar="SEC", help="Checkpoint cadence (default 30 s)")
+    g.add_argument("--resume", action="store_true",
+                   help="Resume from an existing --checkpoint file")
+    g.add_argument("--no-watchdog", action="store_true",
+                   help="Disable the stalled-stream watchdog on live inputs")
 
     for mod in list(INPUT_MODULES.values()) + list(OUTPUT_MODULES.values()):
         mod.add_cli_options(p)
@@ -182,6 +190,7 @@ def config_from_args(args) -> AppConfig:
         filter_fft_size=args.filter_fft_size,
         preset_name=args.preset,
         force_overwrite=args.force_overwrite,
+        resume=args.resume,
     )
     if cfg.preset_name:
         presets, path = load_presets()
@@ -210,14 +219,23 @@ def expand_channel_paths(path: str | None, n: int, what: str) -> list:
     return parts
 
 
-def build_chain(cfg: AppConfig, block_size: int, channels: int, device):
+def build_chain(cfg: AppConfig, block_size: int, channels: int, device,
+                time_fold: int | None = None):
+    """The Chain, or with ``time_fold`` > 1 the FoldedChain, the flags
+    ask for (an explicit fold the configuration cannot take raises; no
+    fold is taken unasked: the reference's automatic fold is for the
+    TPU's sublanes, see pipeline/folded.py)."""
     from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
+    from iq_tool_tpu_torch.pipeline.folded import FoldedChain
     if cfg.raw_passthrough:
         return None
     shift = cfg.freq_shift_hz if cfg.freq_shift_hz is not None else cfg.nco_shift_hz
     pre = 0.0 if cfg.shift_after_resample else (shift or 0.0)
     post = (shift or 0.0) if cfg.shift_after_resample else 0.0
-    return Chain(ChainConfig(
+    fold = time_fold or 1
+    make = ((lambda c, device: FoldedChain(c, fold, device=device)) if fold > 1
+            else Chain)
+    return make(ChainConfig(
         channels=channels,
         input_format=cfg.input_format,
         output_format=cfg.output_format,
@@ -321,11 +339,35 @@ def _check_preset_pseudo_flags(parser, argv) -> None:
                 f"applied with --preset {name}")
 
 
+def _run(engine, profile_dir, on_cuda: bool, log):
+    """engine.run(), under torch.profiler when a profile directory is
+    given: CPU activity, plus CUDA on the card, synchronised before the
+    trace closes so the last steps' kernels are in it."""
+    if not profile_dir:
+        return engine.run()
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        s = engine.run()
+        if on_cuda:
+            torch.cuda.synchronize()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"iq_tool_tpu_torch_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
+    return s
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     argv = _fix_negative_numbers(list(sys.argv[1:] if argv is None else argv))
     _check_preset_pseudo_flags(parser, argv)
     args = parser.parse_args(argv)
+    if (args.mesh_channel or args.mesh_time) and (args.time_fold or 1) > 1:
+        parser.error("--time-fold does not combine with --mesh-channel/--mesh-time "
+                     "(the sharded path has its own per-shard batching)")
     for dest, item in _NOT_PORTED.items():
         if getattr(args, dest, None):
             flag = "--" + dest.replace("_", "-")
@@ -339,8 +381,9 @@ def main(argv=None) -> int:
             print(f"  {name:<22} {pr.values.get('description', '')}")
         return 0
 
-    from iq_tool_tpu_torch.utils.log import configure as configure_log
+    from iq_tool_tpu_torch.utils.log import configure as configure_log, get_logger
     configure_log(args.log_level)
+    log = get_logger("cli")
 
     def _sigterm(_sig, _frm):
         raise KeyboardInterrupt
@@ -350,6 +393,7 @@ def main(argv=None) -> int:
         pass  # not the main thread (library use)
 
     from iq_tool_tpu_torch.pipeline.runtime import StreamEngine
+    watchdog = None
     try:
         cfg = config_from_args(args)
         n_ch = max(1, args.channels)
@@ -377,7 +421,7 @@ def main(argv=None) -> int:
         cfg.nco_shift_hz = info.nco_shift_hz
         resolve_rates(cfg, info.sample_rate, info.sample_format)
         validate(cfg)
-        chain = build_chain(cfg, args.block_size, n_ch, args.device)
+        chain = build_chain(cfg, args.block_size, n_ch, args.device, args.time_fold)
         for c in range(n_ch):
             snk = get_output(cfg.output_type)
             snk_cfg = (cfg if n_ch == 1
@@ -389,6 +433,12 @@ def main(argv=None) -> int:
         initial_carry = None
         if chain is not None and cfg.iq_correction:
             initial_carry = calibrate_carry(chain, sources, cfg.gain)
+
+        if source.is_realtime and not args.no_watchdog and hasattr(source, "heartbeat"):
+            from iq_tool_tpu_torch.utils.watchdog import Watchdog
+            t_grace = time.monotonic()
+            watchdog = Watchdog(lambda: max(getattr(source, "heartbeat", 0.0), t_grace))
+            watchdog.start()
 
         summary_items = {"Device": args.device,
                          "Input Type": cfg.input_type,
@@ -408,13 +458,25 @@ def main(argv=None) -> int:
                               raw_passthrough=cfg.raw_passthrough,
                               progress=_progress if sink.requires_output_path else None,
                               progress_total_frames=info.total_frames,
+                              checkpoint_path=args.checkpoint,
+                              checkpoint_interval_sec=args.checkpoint_interval,
+                              resume=args.resume,
                               initial_carry=initial_carry,
                               pipeline_depth=args.pipeline_depth)
         try:
-            s = engine.run()
+            s = _run(engine, args.profile_dir,
+                     chain is not None and chain.device.type == "cuda", log)
         finally:
+            # finalize even when the stream fails (a partial WAV with its
+            # sizes patched), each sink on its own, after stopping the
+            # watchdog so it cannot hard-exit a process already unwinding
+            if watchdog:
+                watchdog.stop()
             for snk in sinks:
-                snk.finalize()
+                try:
+                    snk.finalize()
+                except Exception as fin_err:
+                    log.warning("finalize failed: %s", fin_err)
             for src in sources:
                 src.close()
         if sink.requires_output_path:
@@ -431,6 +493,9 @@ def main(argv=None) -> int:
     except (ValueError, OSError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if watchdog:        # a set-up error after it started: it must not fire later
+            watchdog.stop()
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@
 //   the (C, n_seg) gains directly.
 // * iq_agc_rms_gains is not a TPU kernel: it replaces the segment
 //   energies and the lax.scan of iq_tool_tpu/ops/agc.py:rms_gains and
-//   rms_scan, which XLA ran as a reduction and a loop.
+//   rms_scan, which XLA ran as a reduction and a loop.  A channel's block
+//   may be `rows` consecutive rows (a time fold): the segments are laid
+//   per row and the one chain runs over all of them in time order.
 // * iq_agc_chain runs that kernel's gain loop alone, one thread a
 //   channel over given energies in shared memory: the timed floor of
 //   iq_agc_rms_gains (chip_smoke.py's AGC bound); Chain.step never runs it.
@@ -80,16 +82,20 @@ __global__ void __launch_bounds__(kPostThreads)
 }
 
 // One chunk's segment energies, mean(xr^2 + xi^2) over `seg` samples,
-// a producer warp a segment (called by producer warps only).
+// a producer warp a segment (called by producer warps only).  Segment s
+// is segment s % row_seg of row s / row_seg, rows n_row samples apart.
 __device__ __forceinline__ void agc_energies(const float* __restrict__ xr,
                                              const float* __restrict__ xi,
-                                             int seg, int s_begin, int s_end,
+                                             int seg, int row_seg, int n_row,
+                                             int s_begin, int s_end,
                                              float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // this producer's index among the warps with warp % 4 != 0
   for (int s = s_begin + warp - (warp >> 2) - 1; s < s_end; s += kAgcProducers) {
-    const long long base = static_cast<long long>(s) * seg;
+    const int r = s / row_seg;
+    const long long base = static_cast<long long>(r) * n_row +
+                           static_cast<long long>(s - r * row_seg) * seg;
     float acc = 0.0f;
 #pragma unroll 4
     for (int i = lane; i < seg; i += 32) {
@@ -127,8 +133,9 @@ __device__ __forceinline__ void agc_step(float e, const AgcConsts& k, float* g,
 template <bool kPow2>
 __global__ void __launch_bounds__(kAgcThreads)
     agc_rms_gains_kernel(const float* __restrict__ x_r,
-                         const float* __restrict__ x_i, int n, int seg,
-                         int n_seg, const float* __restrict__ gain0,
+                         const float* __restrict__ x_i, int n, int n_row,
+                         int seg, int row_seg, int n_seg,
+                         const float* __restrict__ gain0,
                          const float* __restrict__ e2_0, const AgcConsts kc,
                          float* __restrict__ gains,
                          float* __restrict__ gain_out,
@@ -147,7 +154,9 @@ __global__ void __launch_bounds__(kAgcThreads)
     e2 = e2_0[c];
   }
   const bool producer = agc_producer(tid >> 5);
-  if (producer) agc_energies(xr, xi, seg, 0, min(n_seg, kAgcChunk), energy[0]);
+  if (producer) {
+    agc_energies(xr, xi, seg, row_seg, n_row, 0, min(n_seg, kAgcChunk), energy[0]);
+  }
   __syncthreads();
   for (int k = 0; k < chunks; ++k) {
     const int b = k & 1;
@@ -167,7 +176,8 @@ __global__ void __launch_bounds__(kAgcThreads)
     } else if (producer) {
       const int next = (k + 1) * kAgcChunk;
       if (next < n_seg) {
-        agc_energies(xr, xi, seg, next, min(n_seg, next + kAgcChunk), energy[b ^ 1]);
+        agc_energies(xr, xi, seg, row_seg, n_row, next, min(n_seg, next + kAgcChunk),
+                     energy[b ^ 1]);
       }
     }
     if (k > 0 && tid >= 32 && tid < 32 + kAgcChunk) {
@@ -246,29 +256,34 @@ extern "C" int iq_post_apply(const float* x_r, const float* x_i,
   return cudaGetLastError();
 }
 
-// The AGC's RMS gains of a block: x_r/x_i (C, n) planes -> gains
-// (C, n_seg) of the segments [k seg, (k + 1) seg), the final gain and
-// e2 (C,), from gain0/e2_0 (C,).  inv_t2: t2's exact reciprocal when t2
-// is a power of two, else 0 (the chain divides).
+// The AGC's RMS gains of a block: x_r/x_i (C, n) planes, each channel's
+// block `rows` rows of n / rows samples -> gains (C, rows * row_seg), row
+// r's segments [k seg, (k + 1) seg) at r * row_seg + k, the final gain
+// and e2 (C,), from gain0/e2_0 (C,).  inv_t2: t2's exact reciprocal when
+// t2 is a power of two, else 0 (the chain divides).
 extern "C" int iq_agc_rms_gains(const float* x_r, const float* x_i, int n,
-                                int seg, int n_seg, const float* gain0,
-                                const float* e2_0, float beta,
-                                float one_m_beta, float neg_half_beta,
-                                float t2, float inv_t2, int channels,
-                                float* gains, float* gain_out, float* e2_out,
-                                void* stream) {
-  if (channels <= 0 || n <= 0 || seg <= 0 || n_seg <= 0 ||
-      static_cast<long long>(seg) * n_seg > n) {
+                                int rows, int seg, int row_seg,
+                                const float* gain0, const float* e2_0,
+                                float beta, float one_m_beta,
+                                float neg_half_beta, float t2, float inv_t2,
+                                int channels, float* gains, float* gain_out,
+                                float* e2_out, void* stream) {
+  if (channels <= 0 || n <= 0 || rows <= 0 || n % rows || seg <= 0 ||
+      row_seg <= 0 || static_cast<long long>(seg) * row_seg > n / rows) {
     return cudaErrorInvalidValue;
   }
+  const int n_row = n / rows;
+  const int n_seg = rows * row_seg;
   const iqk::AgcConsts kc{beta, one_m_beta, neg_half_beta, t2, inv_t2};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (inv_t2 != 0.0f) {
     iqk::agc_rms_gains_kernel<true><<<channels, iqk::kAgcThreads, 0, st>>>(
-        x_r, x_i, n, seg, n_seg, gain0, e2_0, kc, gains, gain_out, e2_out);
+        x_r, x_i, n, n_row, seg, row_seg, n_seg, gain0, e2_0, kc, gains,
+        gain_out, e2_out);
   } else {
     iqk::agc_rms_gains_kernel<false><<<channels, iqk::kAgcThreads, 0, st>>>(
-        x_r, x_i, n, seg, n_seg, gain0, e2_0, kc, gains, gain_out, e2_out);
+        x_r, x_i, n, n_row, seg, row_seg, n_seg, gain0, e2_0, kc, gains,
+        gain_out, e2_out);
   }
   return cudaGetLastError();
 }

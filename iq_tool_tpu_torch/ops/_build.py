@@ -45,8 +45,8 @@ _SIGNATURES = {
                           _U, _I, _I, _P, _P, _P, _P, _U, _P],
     "iq_post_apply": [_P, _P, _P, _I, _I, _P, _U, _I, _I, _P, _I, _I, _F, _F,
                       _F, _F, _P],
-    "iq_agc_rms_gains": [_P, _P, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I, _P,
-                         _P, _P, _P],
+    "iq_agc_rms_gains": [_P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I,
+                         _P, _P, _P, _P],
     "iq_agc_chain": [_P, _I, _P, _P, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     "iq_osfft_apply": [_P, _P, _I, _P, _P, ctypes.c_longlong, _I, _P, _P, _I,
                        _P, _P, _P, _I, _I, _I, _I, _P, _P, ctypes.c_longlong, _P],

@@ -80,31 +80,37 @@ def rms_params(cfg: AgcConfig, n: int) -> tuple[int, int, float]:
 
 
 def rms_gains(xr: torch.Tensor, xi: torch.Tensor, state: AgcState,
-              cfg: AgcConfig):
-    """(gains (C, n_seg), seg, new_state): the per-segment gain schedule
-    of a block, shared by the plain apply below and the post kernel."""
-    n = xr.shape[-1]
-    _, seg, beta = rms_params(cfg, n)
+              cfg: AgcConfig, rows: int = 1):
+    """(gains (C * rows, n_seg), seg, new_state): the per-segment gain
+    schedule of a block, shared by the plain apply below and the post
+    kernel.  With ``rows`` > 1 each channel's block is that many
+    consecutive rows (a time fold): the segments are laid per row and the
+    gain scan runs once over all rows' segments in time order."""
+    c, n = xr.shape
+    n_seg, seg, beta = rms_params(cfg, n // rows)
     gains, g_fin, e2_fin = kernels.rms_gains(xr.contiguous(), xi.contiguous(),
-                                             state.gain, state.e2, beta, cfg.target)
+                                             state.gain, state.e2, beta, cfg.target,
+                                             rows)
     new_state = dataclasses.replace(
         state, gain=g_fin, e2=e2_fin,
         samples_seen=(state.samples_seen + n) & _MASK)
-    return gains, seg, new_state
+    return gains.reshape(c * rows, n_seg), seg, new_state
 
 
-def _apply_rms_planar(xr, xi, state: AgcState, cfg: AgcConfig):
+def _apply_rms_planar(xr, xi, state: AgcState, cfg: AgcConfig, rows: int = 1):
     c, n = xr.shape
-    gains, seg, new_state = rms_gains(xr, xi, state, cfg)
-    n_seg = gains.shape[-1]
+    gains, seg, new_state = rms_gains(xr, xi, state, cfg, rows)
+    r, n_seg = gains.shape
+    n_row = n // rows
+    xr, xi = xr.reshape(r, n_row), xi.reshape(r, n_row)
     gseg = gains[:, :, None]
-    yr = (xr[:, :n_seg * seg].reshape(c, n_seg, seg) * gseg).reshape(c, n_seg * seg)
-    yi = (xi[:, :n_seg * seg].reshape(c, n_seg, seg) * gseg).reshape(c, n_seg * seg)
-    if n_seg * seg < n:          # ragged tail: the final gain
-        g_fin = new_state.gain[:, None]
-        yr = torch.cat([yr, xr[:, n_seg * seg:] * g_fin], dim=-1)
-        yi = torch.cat([yi, xi[:, n_seg * seg:] * g_fin], dim=-1)
-    return yr, yi, new_state
+    yr = (xr[:, :n_seg * seg].reshape(r, n_seg, seg) * gseg).reshape(r, n_seg * seg)
+    yi = (xi[:, :n_seg * seg].reshape(r, n_seg, seg) * gseg).reshape(r, n_seg * seg)
+    if n_seg * seg < n_row:      # ragged tail: the row's last gain
+        g_last = gains[:, -1:]
+        yr = torch.cat([yr, xr[:, n_seg * seg:] * g_last], dim=-1)
+        yi = torch.cat([yi, xi[:, n_seg * seg:] * g_last], dim=-1)
+    return yr.reshape(c, n), yi.reshape(c, n), new_state
 
 
 def block_peak(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -157,8 +163,9 @@ def _apply_digital_planar(xr, xi, state: AgcState, cfg: AgcConfig):
 
 
 def apply_planar(xr: torch.Tensor, xi: torch.Tensor, state: AgcState,
-                 cfg: AgcConfig):
-    """Planar float32 (C, N) planes -> (yr, yi, new state)."""
+                 cfg: AgcConfig, rows: int = 1):
+    """Planar float32 (C, N) planes -> (yr, yi, new state); ``rows`` as
+    in rms_gains (the digital profile takes one peak over the block)."""
     if cfg.profile == "digital":
         return _apply_digital_planar(xr, xi, state, cfg)
-    return _apply_rms_planar(xr, xi, state, cfg)
+    return _apply_rms_planar(xr, xi, state, cfg, rows)

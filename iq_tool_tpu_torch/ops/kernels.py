@@ -590,25 +590,28 @@ def agc_segments(n: int) -> tuple[int, int]:
     return n_seg, n // n_seg
 
 
-def rms_gains_ref(xr, xi, gain, e2, beta: float, target: float):
+def rms_gains_ref(xr, xi, gain, e2, beta: float, target: float, rows: int = 1):
     """Plain twin of rms_gains: the segment energies by torch.mean, then
     the per-segment loop (rms_scan_ref)."""
     c, n = xr.shape
-    n_seg, seg = agc_segments(n)
-    xsr = xr[:, :n_seg * seg].reshape(c, n_seg, seg)
-    xsi = xi[:, :n_seg * seg].reshape(c, n_seg, seg)
-    e_in = torch.mean(xsr * xsr + xsi * xsi, dim=-1).T.contiguous()   # (n_seg, C)
+    n_seg, seg = agc_segments(n // rows)
+    xsr = xr.reshape(c * rows, n // rows)[:, :n_seg * seg].reshape(c, rows * n_seg, seg)
+    xsi = xi.reshape(c * rows, n // rows)[:, :n_seg * seg].reshape(c, rows * n_seg, seg)
+    e_in = torch.mean(xsr * xsr + xsi * xsi, dim=-1).T.contiguous()   # (rows n_seg, C)
     gains, g_fin, e2_fin = rms_scan_ref(e_in, gain, e2, beta, target)
     return gains.T.contiguous(), g_fin, e2_fin
 
 
-def rms_gains(xr, xi, gain, e2, beta: float, target: float):
+def rms_gains(xr, xi, gain, e2, beta: float, target: float, rows: int = 1):
     """The AGC's RMS gains of a block (helper kernel in csrc/post.cu; the
     reference runs a mean and a lax.scan): (C, n) float32 planes and the
-    (C,) gain and smoothed energy carried in -> (gains (C, n_seg) of the
-    agc_segments(n) segments, final gain, final e2)."""
+    (C,) gain and smoothed energy carried in -> (gains (C, rows * n_seg),
+    final gain, final e2).  Each channel's block is ``rows`` consecutive
+    rows (a time fold), each cut into the agc_segments(n // rows)
+    segments; the gain loop runs once over all rows' segments in time
+    order."""
     if xr.device.type == "cpu":
-        return rms_gains_ref(xr, xi, gain, e2, beta, target)
+        return rms_gains_ref(xr, xi, gain, e2, beta, target, rows)
     from iq_tool_tpu_torch.ops import _build
     lib = _build.library()
     _require_cuda(xr, xi, gain, e2)
@@ -616,12 +619,14 @@ def rms_gains(xr, xi, gain, e2, beta: float, target: float):
     ch, n = xr.shape
     if xi.shape != (ch, n) or gain.shape != (ch,) or e2.shape != (ch,):
         raise ValueError(f"planes must be ({ch}, {n}) and gain, e2 ({ch},)")
-    n_seg, seg = agc_segments(n)
-    gains = torch.empty((ch, n_seg), dtype=torch.float32, device=xr.device)
+    if n % rows:
+        raise ValueError(f"a block of {n} samples is not {rows} rows")
+    n_seg, seg = agc_segments(n // rows)
+    gains = torch.empty((ch, rows * n_seg), dtype=torch.float32, device=xr.device)
     g_fin = torch.empty_like(gain)
     e2_fin = torch.empty_like(e2)
     with torch.cuda.device(xr.device):
-        rc = lib.iq_agc_rms_gains(_ptr(xr), _ptr(xi), n, seg, n_seg, _ptr(gain),
+        rc = lib.iq_agc_rms_gains(_ptr(xr), _ptr(xi), n, rows, seg, n_seg, _ptr(gain),
                                   _ptr(e2), *_chain_consts(beta, target), ch,
                                   _ptr(gains), _ptr(g_fin), _ptr(e2_fin), _stream())
     _check(rc, "agc gains kernel")

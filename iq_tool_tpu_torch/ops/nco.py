@@ -41,6 +41,16 @@ def advance(phase_acc: torch.Tensor, n: int, dtheta: int) -> torch.Tensor:
     return (phase_acc + ((int(n) & _MASK) * int(dtheta) & _MASK)) & _MASK
 
 
+def row_phases(phase_acc: torch.Tensor, rows: int, n_row: int,
+               dtheta: int) -> torch.Tensor:
+    """(C * rows,) first phases of each channel's block cut into ``rows``
+    consecutive rows of n_row samples: row r starts r * n_row samples
+    after the accumulator."""
+    offs = (torch.arange(rows, dtype=torch.int64, device=phase_acc.device)
+            * (int(n_row) & _MASK) * int(dtheta)) & _MASK
+    return ((phase_acc[:, None] + offs[None, :]) & _MASK).reshape(-1)
+
+
 def angles(phase_acc: torch.Tensor, start: int, n: int, dtheta: int) -> torch.Tensor:
     """(C, n) float32 angles of samples start .. start+n-1 after phase_acc."""
     idx = torch.arange(start, start + n, dtype=torch.int64,

@@ -10,8 +10,9 @@ G = g*p outputs).  The run half applies each stage through the K2
 wrapper (ops/kernels.py), which launches the CUDA kernel on CUDA tensors
 and runs the plain windows + matmul path on CPU tensors.
 
-Ratios whose rationalization has a prime factor too large to stage
-(the reference's gather-based ``_ArbStage``) are not ported yet.
+Ratios whose rationalization keeps a prime factor too large to stage
+run one exact gather stage instead (``_ArbStage``), in plain torch on
+both devices, as the reference runs it in XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from fractions import Fraction
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.ops import banded, kernels
@@ -122,6 +124,63 @@ def _make_arb_plan(p: int, q: int, n_in: int, atten_db: float,
     return ArbPlan(p=p, q=q, n_in=n_in, n_out=n_out, semilength=m,
                    history=hist, weights=w.astype(np.float32),
                    starts=starts.astype(np.int32))
+
+
+class _ArbStage:
+    """The gather stage (the reference's ``_ArbStage``): one exact
+    polyphase stage, output m the dot of the plan's K weights with the K
+    inputs from ``starts[m]`` on, over ext = history ++ block.
+
+    Gathered whole, the windows are a (C, M, K) tensor: at 128 channels,
+    3143 outputs and 1298 taps (2469/200000 at a 262144-frame target)
+    2.1 GB a plane.  So the two planes go side by side as the columns of
+    ext (L, 2C) and each output row is one weighted bag sum over K rows
+    of it (``embedding_bag``): no window tensor is built, the sums run in
+    a fixed order (two runs give the same bits), and on the CPU they are
+    the reference's gather and einsum bit for bit.  The plan's outputs
+    repeat every n_in inputs, so a block of r * n_in samples (a time
+    fold) takes the plan's rows r times, each n_in further on, in one
+    call."""
+
+    def __init__(self, plan: ArbPlan):
+        self.plan = plan
+        self.p, self.q = plan.p, plan.q
+        self.hist = plan.history
+        self._cols = self._w = self._bags = None  # flat (M K,) rows, weights; bag starts
+
+    def bind(self, device) -> None:
+        m, k = self.plan.weights.shape
+        cols = self.plan.starts.astype(np.int64)[:, None] + np.arange(k)[None, :]
+        self._cols = torch.from_numpy(cols.reshape(-1)).to(device)
+        self._w = torch.from_numpy(self.plan.weights.reshape(-1)).to(device)
+        self._bags = torch.arange(0, m * k, k, device=device)
+
+    def init_planar(self, channels: int, device=None):
+        z = lambda: torch.zeros((channels, self.hist), dtype=torch.float32,
+                                device=device)
+        return z(), z()
+
+    def apply_planar(self, xr, xi, state_r, state_i, pack_fmt=None):
+        """((yr, yi), new_r, new_i) for a block of a multiple of n_in."""
+        if pack_fmt:
+            raise ValueError("the gather stage has no packed epilogue")
+        ch, n = xr.shape
+        n_in, hist = self.plan.n_in, self.hist
+        if n % n_in:
+            raise ValueError(f"block of {n} samples is not a multiple of {n_in}")
+        ext = torch.cat([torch.cat([state_r, xr], -1),
+                         torch.cat([state_i, xi], -1)]).T.contiguous()   # (L, 2C)
+        cols, bags, w = self._cols, self._bags, self._w
+        r = n // n_in
+        if r > 1:
+            cols = (cols[None, :] + n_in * torch.arange(r, device=cols.device)[:, None]
+                    ).reshape(-1)
+            bags = torch.arange(0, cols.numel(), self.plan.weights.shape[1],
+                                device=cols.device)
+            w = w.repeat(r)
+        y = F.embedding_bag(cols, ext, bags, mode="sum", per_sample_weights=w).T  # (2C, M')
+        return ((y[:ch].contiguous(), y[ch:].contiguous()),
+                banded.new_tail(state_r, xr, hist), banded.new_tail(state_i, xi, hist))
 
 
 class _MatmulStage:
@@ -226,6 +285,7 @@ class ResamplePlan:
     n_in: int
     n_out: int
     stages: tuple[tuple[int, int], ...]   # per-stage (p_i, q_i); () = passthrough
+    fallback: bool = False                # True -> one gather stage (_ArbStage)
 
     @property
     def ratio(self) -> float:
@@ -236,8 +296,8 @@ class Resampler:
     """Multi-stage streaming resampler design.
 
     Block contract: input blocks of exactly ``plan.n_in`` frames produce
-    exactly ``plan.n_out`` frames.  Raises NotImplementedError for ratios
-    that need the gather fallback stage."""
+    exactly ``plan.n_out`` frames.  A ratio with a prime factor above
+    RESAMP_STAGE_MAX runs one gather stage (``plan.fallback``)."""
 
     def __init__(self, ratio: float, target_block: int = C.DEFAULT_BLOCK_SIZE,
                  atten_db: float = C.RESAMPLER_ATTENUATION_DB,
@@ -259,13 +319,16 @@ class Resampler:
             raise ValueError(
                 f"ratio {p}/{q}: block would need {n_out} outputs (> {max_out})")
 
-        self.stages: list[_MatmulStage] = []
-        if ratios is None and p != q:
-            raise NotImplementedError(
-                f"resample ratio {p}/{q} has a prime factor above "
-                f"{C.RESAMP_STAGE_MAX}: the gather stage is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
-        if p != q:
+        self.stages: list = []
+        fallback = ratios is None and p != q
+        if fallback:
+            # deep decimation needs the semilength scaling _MatmulStage
+            # applies, else the anti-alias transition band is far too wide
+            # (~11 dB alias rejection at 2469/200000 unscaled)
+            m = max(semilength, int(np.ceil(semilength * q / (2.0 * p))))
+            self.stages.append(_ArbStage(_make_arb_plan(p, q, n_in, atten_db, m)))
+            ratios = [(p, q)]
+        elif p != q:
             n_s = n_in
             for pi, qi in ratios:
                 self.stages.append(_MatmulStage(pi, qi, n_s, atten_db, semilength))
@@ -275,7 +338,13 @@ class Resampler:
         else:
             ratios = []
         self.plan = ResamplePlan(p=p, q=q, n_in=n_in, n_out=n_out,
-                                 stages=tuple(ratios or ()))
+                                 stages=tuple(ratios or ()), fallback=fallback)
+
+    @property
+    def packs(self) -> bool:
+        """Whether the last stage can quantize to the packed wire (a
+        banded stage; the gather stage cannot)."""
+        return bool(self.stages) and isinstance(self.stages[-1], _MatmulStage)
 
     def bind(self, device) -> None:
         for st in self.stages:
@@ -286,8 +355,8 @@ class Resampler:
 
     def apply_planar(self, xr, xi, state: tuple, pack_fmt=None):
         """All stages; the last one quantizes straight to the packed wire
-        when ``pack_fmt`` is given.  Returns (y planes | packed wire,
-        new_state)."""
+        when ``pack_fmt`` is given (only where ``packs``).  Returns
+        (y planes | packed wire, new_state)."""
         new_states = []
         last = len(self.stages) - 1
         y = (xr, xi)

@@ -15,9 +15,10 @@ Two paths, as in the reference:
   packed wire or, for other formats, converted planes) when the DC block
   is on, plain tensor ops when it is off; filters run on K2 (banded) or
   K5 (``kernels.osfft_apply``, overlap-save); the resampler's stages on
-  K2; the post stage is K4 (``kernels.post_apply``: post-NCO + AGC
-  gains + pack, the RMS gains from the ``kernels.rms_gains`` helper) for
-  a packable output, plain ops for the others.  Whatever op is last
+  K2, or its one gather stage in plain torch; the post stage is K4
+  (``kernels.post_apply``: post-NCO + AGC gains + pack, the RMS gains
+  from the ``kernels.rms_gains`` helper) for a packable output, plain
+  ops for the others.  Whatever op is last
   before the convert packs the wire in its kernel epilogue.
 
 On a CUDA device each of those calls launches its kernel; on the CPU the
@@ -50,7 +51,7 @@ from iq_tool_tpu_torch.ops import agc, convert, dc_block, iq_balance, kernels, n
 from iq_tool_tpu_torch.ops.filters import StreamingFilter
 from iq_tool_tpu_torch.ops.fir_design import (FilterRequest, design_chain,
                                               max_filter_freq_hz)
-from iq_tool_tpu_torch.ops.resample import Resampler
+from iq_tool_tpu_torch.ops.resample import Resampler, _MatmulStage
 
 _PACKED_INPUTS = ("cs16", "sc16q11", "cu16", "cu8", "cs8")
 
@@ -166,11 +167,12 @@ class Chain:
         self.n_in = n_in
         self.n_out = n_out
 
-        # a direct FIR next to a resampler stage is LTI: it folds into the
-        # stage's banded matrix (one fewer pass per step)
+        # a direct FIR next to a banded resampler stage is LTI: it folds
+        # into the stage's matrix (one fewer pass per step)
         for attr, idx in (("pre_filter", 0), ("post_filter", -1)):
             f = getattr(self, attr)
             if (cfg.fuse_filters and rs is not None and rs.stages and f is not None
+                    and isinstance(rs.stages[idx], _MatmulStage)
                     and f.method == "fir" and f.num_taps <= C.FUSE_MAX_TAPS):
                 taps = np.asarray(f.taps, np.complex128)
                 if idx == 0:
@@ -201,7 +203,8 @@ class Chain:
             rs.bind(self.device)
         self.pack_fmt = (self.fmt_out.name if kernels.packable_out(self.fmt_out.name)
                          else None)
-        self._wire_resample = (rs is not None and not cfg.iq_correction
+        self._wire_resample = (rs is not None and isinstance(rs.stages[0], _MatmulStage)
+                               and not cfg.iq_correction
                                and self.pre_filter is None and self.post_filter is None
                                and not self.dtheta_post and self.agc_cfg is None
                                and self.fmt_in.name in _PACKED_INPUTS)
@@ -252,6 +255,14 @@ class Chain:
     def step(self, carry: dict, raw: torch.Tensor, reset: bool = False):
         """raw: (C, n_in * items) wire tensor on this chain's device ->
         (new carry, (C, n_out * items) wire tensor)."""
+        return self._step(carry, raw, reset, 1)
+
+    def _step(self, carry: dict, raw: torch.Tensor, reset: bool, rows: int):
+        """One step over a block of any whole number of resampler blocks.
+        ``rows`` > 1 (``FoldedChain``): each channel's block is that many
+        consecutive row blocks, and the RMS AGC lays its segments per row
+        (agc.rms_gains); every other stage is the same over the whole
+        block as over its rows in turn."""
         if raw.device.type != self.device.type:
             raise ValueError(f"input on {raw.device}, chain on {self.device}")
         if reset:
@@ -265,7 +276,8 @@ class Chain:
             new["pre_f"] = (nr, ni)
         convert_only = not self.dtheta_post and self.agc_cfg is None
         if self.resampler is not None:
-            if self.post_filter is None and convert_only and self.pack_fmt:
+            if (self.post_filter is None and convert_only and self.pack_fmt
+                    and self.resampler.packs):
                 y, new["rs"] = self.resampler.apply_planar(xr, xi, carry["rs"],
                                                            pack_fmt=self.pack_fmt)
                 return new, convert.packed_to_wire(y, self.fmt_out)
@@ -281,8 +293,8 @@ class Chain:
             xr, xi, nr, ni = self.post_filter.apply_planar(xr, xi, *carry["post_f"])
             new["post_f"] = (nr, ni)
         if self.pack_fmt and not convert_only:
-            return new, self._fused_post(xr, xi, carry, new)
-        return new, self._plain_post(xr, xi, carry, new)
+            return new, self._fused_post(xr, xi, carry, new, rows)
+        return new, self._plain_post(xr, xi, carry, new, rows)
 
     def _pre(self, raw, carry: dict, new: dict):
         """Convert + [DC block + I/Q + pre-NCO]: contiguous (xr, xi)."""
@@ -334,32 +346,33 @@ class Chain:
             new["nco_pre"] = nco.advance(carry["nco_pre"], n, dth)
         return yr, yi
 
-    def _fused_post(self, xr, xi, carry: dict, new: dict):
-        """K4: post-NCO + AGC gains + quantize/interleave in one pass.
-        Block energies and peaks are rotation-invariant, so the AGC reads
-        the planes before the NCO (the digital profile's hard thresholds
-        then see the same peak on every path)."""
+    def _fused_post(self, xr, xi, carry: dict, new: dict, rows: int = 1):
+        """K4: post-NCO + AGC gains + quantize/interleave in one pass,
+        over the block's ``rows`` rows (each row with its own gains and
+        first NCO phase).  Block energies and peaks are rotation-invariant,
+        so the AGC reads the planes before the NCO (the digital profile's
+        hard thresholds then see the same peak on every path)."""
         c, n = xr.shape
         xr, xi = xr.contiguous(), xi.contiguous()
         dth = self.dtheta_post
         cfg_agc = self.agc_cfg
         seg = 0
         if cfg_agc is not None and cfg_agc.profile != "digital":
-            gains, seg, new["agc"] = agc.rms_gains(xr, xi, carry["agc"], cfg_agc)
+            gains, seg, new["agc"] = agc.rms_gains(xr, xi, carry["agc"], cfg_agc, rows)
         elif cfg_agc is not None:
             g, new["agc"] = agc.digital_update(carry["agc"], agc.block_peak(xr, xi),
                                                n, cfg_agc)
-            gains = g[:, None].contiguous()
+            gains = g[:, None].repeat_interleave(rows, 0).contiguous()
         else:
-            gains = torch.ones((c, 1), dtype=torch.float32, device=xr.device)
-        out = kernels.post_apply(xr, xi, gains, seg,
-                                 carry["nco_post"] if dth else None, dth,
-                                 out_fmt=self.pack_fmt)
+            gains = torch.ones((c * rows, 1), dtype=torch.float32, device=xr.device)
+        phases = nco.row_phases(carry["nco_post"], rows, n // rows, dth) if dth else None
+        out = kernels.post_apply(xr.view(c * rows, -1), xi.view(c * rows, -1), gains,
+                                 seg, phases, dth, out_fmt=self.pack_fmt)
         if dth:
             new["nco_post"] = nco.advance(carry["nco_post"], n, dth)
-        return convert.packed_to_wire(out, self.fmt_out)
+        return convert.packed_to_wire(out.view(c, n), self.fmt_out)
 
-    def _plain_post(self, xr, xi, carry: dict, new: dict):
+    def _plain_post(self, xr, xi, carry: dict, new: dict, rows: int = 1):
         """Post-NCO, AGC and convert as tensor ops: formats without a
         packed epilogue, or nothing but the convert left.  The digital
         AGC measures its block peak before the NCO, as K4's path does."""
@@ -374,7 +387,7 @@ class Chain:
         if dig_gain is not None:
             xr, xi = xr * dig_gain[:, None], xi * dig_gain[:, None]
         elif cfg_agc is not None:
-            xr, xi, new["agc"] = agc.apply_planar(xr, xi, carry["agc"], cfg_agc)
+            xr, xi, new["agc"] = agc.apply_planar(xr, xi, carry["agc"], cfg_agc, rows)
         return convert.from_planar(xr, xi, self.fmt_out)
 
     def _wire_resample_step(self, raw, carry: dict, new: dict):
@@ -441,15 +454,15 @@ class Chain:
 _CARRY_KEYS = {"nco_pre", "nco_post", "dc", "iq", "pre_f", "rs", "post_f", "agc"}
 
 
-def carry_from_jax(tree: dict, device="cpu") -> dict:
-    """The reference chain's carry, fetched to numpy (``jax.device_get``),
-    as this package's carry on `device`."""
+def carry_from_numpy(tree: dict, device="cpu") -> dict:
+    """The inverse of ``carry_to_numpy``: a carry in the reference's
+    layout (a checkpoint's, or the reference chain's fetched with
+    ``jax.device_get``) as this package's carry on `device`."""
     extra = set(tree) - _CARRY_KEYS
     if extra:
         raise ValueError(f"carry keys the port does not know: {sorted(extra)}")
     dev = resolve_device(device)
-    t = lambda a, dt: torch.from_numpy(
-        np.ascontiguousarray(np.asarray(a).astype(dt))).to(dev)
+    t = lambda a, dt: torch.from_numpy(np.array(a, dtype=dt, order="C")).to(dev)
     f32 = lambda a: t(a, np.float32)
     out = {k: t(tree[k], np.int64) for k in ("nco_pre", "nco_post")}
     if "dc" in tree:
@@ -476,7 +489,7 @@ def carry_to_numpy(carry: dict) -> dict:
     NCO phases and counters, dc as the 4-tuple (xr, xi, yr, yi) of (C,)
     planes, iq as (factors, samples_since_opt), agc as the reference's
     six fields in order, filter tails and rs as (state_r, state_i)."""
-    n = lambda x: x.detach().cpu().numpy()
+    n = lambda x: x.detach().to("cpu", copy=True).numpy()
     out = {k: n(carry[k]).astype(np.uint32) for k in ("nco_pre", "nco_post")}
     if "dc" in carry:
         d = n(carry["dc"])

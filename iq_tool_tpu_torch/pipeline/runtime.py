@@ -16,6 +16,15 @@ with an event the writer waits on.  EOS pads the final partial block with
 zeros and trims the output to exactly floor(valid_in * P/Q) frames;
 stream discontinuities set the step's reset flag.
 
+With a checkpoint path the engine saves (carry, frames in, frames out)
+every ``checkpoint_interval_sec`` and at the end, each time after the
+writer has flushed, so the cut is consistent: everything consumed has
+been written.  ``resume`` loads it, seeks or skips the input past the
+frames consumed and truncates the sinks to the frames written.  The
+carry comes to the host (a synchronising copy on CUDA) only at a
+checkpoint and before a zero-padded partial block, whose padding would
+otherwise pollute the state a checkpoint records.
+
 Multi-channel: N sources + N sinks drive a ``channels=N`` chain; channels
 advance in lockstep, a multi-channel stream ends at the SHORTEST channel
 and a discontinuity on any channel resets the whole chain at the next
@@ -25,6 +34,7 @@ block boundary.
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue as queue_mod
 import threading
 import time
@@ -34,7 +44,8 @@ import torch
 
 from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.modules.base import OutputClosed
-from iq_tool_tpu_torch.pipeline.chain import Chain
+from iq_tool_tpu_torch.pipeline.chain import Chain, carry_to_numpy
+from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 
 
 @dataclasses.dataclass
@@ -65,6 +76,7 @@ class _Writer:
         self._q = queue_mod.Queue(maxsize=max(1, depth))
         self._summary = summary
         self.closed = False            # an OutputClosed arrived
+        self.dropped = False           # items discarded after close
         self.error: BaseException | None = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="iq-writer")
@@ -93,7 +105,9 @@ class _Writer:
                 return
             host, ready, emit = item
             try:
-                if not self.closed:
+                if self.closed:
+                    self.dropped = True
+                else:
                     if ready is not None:
                         ready.synchronize()
                     arr = host.numpy()
@@ -105,6 +119,7 @@ class _Writer:
                                                 * len(self._sinks))
             except OutputClosed:
                 self.closed = True
+                self.dropped = True
             except BaseException as e:      # surfaced on the main thread
                 self.error = e
                 self.closed = True
@@ -165,20 +180,18 @@ class StreamEngine:
     ``source``/``sink`` may each be a single module or a sequence of
     ``channels`` modules (one stream per channel, lockstep).
     ``initial_carry`` starts the stream from a given carry (the CLI's
-    pre-stream I/Q calibration).  Checkpoint and resume are not ported
-    yet (ROADMAP Queue 1 item 9)."""
+    pre-stream I/Q calibration); ``checkpoint_path``,
+    ``checkpoint_interval_sec`` and ``resume`` as in the module
+    docstring.  ``chain`` may be a ``Chain`` or a ``FoldedChain``."""
 
     def __init__(self, chain: Chain | None, source, sink,
                  raw_passthrough: bool = False,
                  progress=None, progress_total_frames: int | None = None,
                  checkpoint_path: str | None = None,
+                 checkpoint_interval_sec: float = 30.0,
                  resume: bool = False,
                  initial_carry: dict | None = None,
                  pipeline_depth: int = C.PIPELINE_DEPTH):
-        if checkpoint_path or resume:
-            raise NotImplementedError(
-                "checkpoint and resume are not ported to iq_tool_tpu_torch "
-                "yet (ROADMAP Queue 1 item 9)")
         if chain is None and not raw_passthrough:
             raise ValueError("need a chain unless raw_passthrough")
         self.chain = chain
@@ -191,6 +204,9 @@ class StreamEngine:
         self.raw_passthrough = raw_passthrough
         self.progress = progress
         self.total_frames = progress_total_frames
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_interval = checkpoint_interval_sec
+        self.resume = resume
         self.initial_carry = initial_carry
         self.pipeline_depth = max(1, pipeline_depth)
         n_ch = len(self.sources)
@@ -227,7 +243,7 @@ class StreamEngine:
 
     # ----------------------------------------------------- chunk assembly
 
-    def _gen_single(self, block_bytes: int, bpf: int):
+    def _gen_single(self, block_bytes: int, bpf: int, skip_bytes: int):
         """Single-channel chunk generator; drains the pre-gap remainder of
         a discontinuity as its own short block."""
         buf = bytearray()
@@ -249,20 +265,26 @@ class StreamEngine:
                         yield [bytes(buf[:valid * bpf])], valid, pending_reset
                     buf.clear()
                 pending_reset = True
-            buf.extend(block.payload)
+            payload = block.payload
+            if skip_bytes:              # resume on a non-seekable source
+                drop = min(skip_bytes, len(payload))
+                payload = payload[drop:]
+                skip_bytes -= drop
+            buf.extend(payload)
             while len(buf) >= block_bytes:
                 yield [bytes(buf[:block_bytes])], block_bytes // bpf, \
                     pending_reset
                 pending_reset = False
                 del buf[:block_bytes]
 
-    def _gen_multi(self, block_bytes: int, bpf: int):
+    def _gen_multi(self, block_bytes: int, bpf: int, skip_bytes: int):
         """Lockstep multi-channel chunk generator; ends at the shortest
         channel."""
         n = len(self.sources)
         bufs = [bytearray() for _ in range(n)]
         iters = [s.blocks(block_bytes // bpf) for s in self.sources]
         done = [False] * n
+        skips = [skip_bytes] * n
         pending_reset = False
         while True:
             for c in range(n):
@@ -273,7 +295,12 @@ class StreamEngine:
                         break
                     if block.discontinuity:
                         pending_reset = True
-                    bufs[c].extend(block.payload)
+                    payload = block.payload
+                    if skips[c]:
+                        drop = min(skips[c], len(payload))
+                        payload = payload[drop:]
+                        skips[c] -= drop
+                    bufs[c].extend(payload)
             if all(len(b) >= block_bytes for b in bufs):
                 yield ([bytes(b[:block_bytes]) for b in bufs],
                        block_bytes // bpf, pending_reset)
@@ -298,16 +325,47 @@ class StreamEngine:
         carry = (self.initial_carry if self.initial_carry is not None
                  else ch.init_carry(n_channels))
         s = StreamSummary()
+
+        skip_frames = 0
+        if self.resume and self.checkpoint_path and os.path.isfile(self.checkpoint_path):
+            carry, fin, fout, _ = load_checkpoint(self.checkpoint_path, carry)
+            s.frames_in, s.frames_out = fin, fout
+            skip_frames = fin
+            if all(hasattr(src, "seek_frames") for src in self.sources):
+                for src in self.sources:
+                    src.seek_frames(fin)
+                skip_frames = 0
+            # a crash between checkpoints leaves the sink ahead of the
+            # checkpointed cut: truncate, so the resume is sample-exact
+            for snk in self.sinks:
+                if hasattr(snk, "truncate_to_frames"):
+                    snk.truncate_to_frames(fout, ch.fmt_out.bytes_per_frame)
+
         t0 = time.monotonic()
         last_prog = t0
-        scheduled_out = 0
+        last_ckpt = t0
+        # frames the writer has been asked to emit (>= s.frames_out until
+        # it catches up; equal after a flush)
+        scheduled_out = s.frames_out
         gen_fn = self._gen_single if n_channels == 1 else self._gen_multi
-        reader = _Reader(gen_fn(block_bytes, bpf))
+        reader = _Reader(gen_fn(block_bytes, bpf, skip_frames * bpf))
         writer = _Writer(self.sinks, ch.fmt_out.items_per_frame, s,
                          self.pipeline_depth)
+        # the cut before a zero-padded partial block: (host carry, frames
+        # in), fetched before that block's step
+        pre_partial = None
 
         def process(chunks: list[bytes], valid_frames: int, reset: bool):
-            nonlocal carry, scheduled_out
+            nonlocal carry, scheduled_out, pre_partial
+            if valid_frames < ch.n_in and self.checkpoint_path:
+                # keep the oldest clean cut: on consecutive partials (a
+                # pre-gap drain, then the EOS tail) the live carry has
+                # already seen padding
+                if pre_partial is None:
+                    pre_partial = (carry_to_numpy(carry), s.frames_in)
+            else:
+                # a full block makes the live carry consistent again
+                pre_partial = None
             rows = []
             for chunk in chunks:
                 if len(chunk) < block_bytes:
@@ -334,6 +392,23 @@ class StreamEngine:
                 host_out = out
             writer.put(host_out, ready, emit)   # blocks when the pipe is full
 
+        def consistent_cut():
+            if pre_partial is not None:
+                c, fin = pre_partial
+                return c, fin, min(s.frames_out, ch.expected_out_frames(fin))
+            return carry, s.frames_in, s.frames_out
+
+        def maybe_checkpoint(now: float, last: float) -> float:
+            if self.checkpoint_path and now - last >= self.checkpoint_interval:
+                writer.flush()
+                # a failed sink write sets error without dropped, yet its
+                # block never landed: saving would put frames_in ahead of
+                # the bytes on disk
+                if not writer.dropped and writer.error is None:
+                    save_checkpoint(self.checkpoint_path, *consistent_cut())
+                return now
+            return last
+
         try:
             while True:
                 kind, payload, valid, reset = reader.get()
@@ -347,16 +422,24 @@ class StreamEngine:
                 if writer.closed:
                     break
                 last_prog = self._progress_tick(s, t0, last_prog)
+                last_ckpt = maybe_checkpoint(time.monotonic(), last_ckpt)
             writer.flush()
         except KeyboardInterrupt:
             s.interrupted = True
-            writer.flush()
+            try:
+                writer.flush()
+            except Exception:
+                pass                    # still return the summary
         finally:
             reader.stop()
             writer.stop()
         if writer.error is not None and not isinstance(writer.error,
                                                        OutputClosed):
             raise writer.error
+        # a closed consumer dropped computed blocks: (carry, frames_in) is
+        # ahead of frames_out, so keep the last periodic checkpoint
+        if self.checkpoint_path and not writer.dropped:
+            save_checkpoint(self.checkpoint_path, *consistent_cut())
         s.duration_sec = time.monotonic() - t0
         return s
 

@@ -1,12 +1,14 @@
 """The chains the port is measured on, and where a step's time goes on
 the card.
 
-    python -m iq_tool_tpu_torch.profile_steps [--configs flagship 4 5 3 4k32]
+    python -m iq_tool_tpu_torch.profile_steps [--configs flagship 4 5 3 4k32 c1 c1f8 4c1 4c1f8 gather]
 
-``config`` and ``tone_wire`` are the one definition of the measured
-chains and their seeded input; ``chip_smoke.py`` runs the same.  Run as
-a module, for each configuration at 128 channels x 262144 frames a step:
-3 warm-up steps, then 8 steps timed by the host clock (ending in a
+``config``, ``make_chain`` and ``tone_wire`` are the one definition of
+the measured chains and their seeded input; ``chip_smoke.py`` runs the
+same.  Run as a module, for each configuration (128 channels x 262144
+frames a step; "c1" and "4c1" the flagship and config #4 as one stream
+at the CLI's default 16384-frame block, "f8" with --time-fold 8;
+"gather" 128 x 254597 through the gather stage): 3 warm-up steps, then 8 steps timed by the host clock (ending in a
 synchronize), then 8 more under ``torch.profiler``.  Prints per
 configuration the wall ms per step, the device's busy ms per step and
 launches per step (kernels and copies, from the profiler's device
@@ -35,7 +37,10 @@ IN_RATE, OUT_RATE = 2_048_000.0, 1_488_375.0
 TONE_HZ = 37_000.0          # input tone; +100 kHz pre-shift -> 137 kHz out
 SHIFT_HZ = 100_000.0
 POST_SHIFT_HZ = -50_000.0   # config #4: 37 + 100 - 50 -> 87 kHz out
-CONFIGS = ("flagship", "4", "5", "3", "4k32")
+GATHER_RATE = 25_282.56     # 2469/200000 of 2.048 Msps -> 449/36371: the gather stage
+GATHER_TONE_HZ = 3_000.0
+STREAM_BLOCK = 16384        # the CLI's default --block-size
+CONFIGS = ("flagship", "4", "5", "3", "4k32", "c1", "c1f8", "4c1", "4c1f8", "gather")
 
 
 def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConfig:
@@ -60,7 +65,22 @@ def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConf
         return ChainConfig(input_format="cu8",
                            filters=(FilterRequest("pass-range", 0.0, 400e3),),
                            filter_method="fft", filter_stage="pre", **base)
+    if name == "gather":
+        return ChainConfig(input_format="cs16", agc_profile="local",
+                           **{**base, "target_rate": GATHER_RATE})
     raise ValueError(f"unknown configuration {name!r}")
+
+
+def make_chain(name: str, device="cuda"):
+    """The chain a profile name stands for: a CONFIGS name, "c1"/"4c1"
+    the flagship/config #4 as one stream at STREAM_BLOCK frames a row,
+    with "f<F>" a FoldedChain of F rows."""
+    from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+    base, _, fold = name.partition("f") if name.startswith(("c1", "4c1")) else (name, "", "")
+    if base in ("c1", "4c1"):
+        cfg = config("flagship" if base == "c1" else "4", 1, STREAM_BLOCK)
+        return FoldedChain(cfg, int(fold or 1), device=device)
+    return Chain(config(name), device=device)
 
 
 def tone_wire(channels: int, frames: int, gen: torch.Generator,
@@ -85,13 +105,14 @@ def to_cu8(wire16: torch.Tensor) -> torch.Tensor:
 
 def profile(name: str) -> dict:
     dev = torch.device("cuda")
-    cfg = config(name)
-    chain = Chain(cfg, device=dev)
+    chain = make_chain(name, dev)
+    cfg, n = chain.cfg, chain.n_in
     n_blocks = 3 + 2 * STEPS
-    wire = tone_wire(CHANNELS, n_blocks * BLOCK, torch.Generator(device=dev).manual_seed(SEED))
+    wire = tone_wire(cfg.channels, n_blocks * n, torch.Generator(device=dev).manual_seed(SEED),
+                     GATHER_TONE_HZ if name == "gather" else TONE_HZ)
     if cfg.input_format == "cu8":
         wire = to_cu8(wire)
-    blocks = iter([wire[:, k * 2 * BLOCK:(k + 1) * 2 * BLOCK].contiguous()
+    blocks = iter([wire[:, k * 2 * n:(k + 1) * 2 * n].contiguous()
                    for k in range(n_blocks)])
     del wire
     carry = chain.init_carry()

@@ -27,7 +27,7 @@ from iq_tool_tpu.pipeline.chain import ChainConfig as JaxConfig  # noqa: E402
 from iq_tool_tpu_torch.cli import main as port_main  # noqa: E402
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
 from iq_tool_tpu_torch.pipeline.chain import (Chain, ChainConfig,  # noqa: E402
-                                              carry_from_jax, carry_to_numpy)
+                                              carry_from_numpy, carry_to_numpy)
 from tests import ref_dsp  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -147,7 +147,7 @@ def test_mid_stream_handoff(rng):
     raw = _stream(rng, 2, 3 * jc.n_in)
     _, want = _run_jax(jc, raw, range(3))
     jcarry, first = _run_jax(jc, raw, range(1))
-    carry = carry_from_jax(jax.device_get(jcarry))
+    carry = carry_from_numpy(jax.device_get(jcarry))
     _, rest = _run_port(pc, raw, range(1, 3), carry)
     got = np.concatenate([first, rest], -1)
     assert _max_dcode(got, want) <= 4
@@ -257,21 +257,36 @@ def test_cli_multichannel_and_passthrough(rng, tmp_path):
                                   ["--checkpoint", "x.ckpt"], ["--mesh-channel", "2"],
                                   ["--resume"], ["--profile-dir", "p"]])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flag):
-    with pytest.raises(SystemExit) as e:
-        port_main([str(tmp_path / "a"), str(tmp_path / "b"), *FLAGSHIP_FLAGS,
-                   "--device", "cpu", *flag])
-    assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    """Only the mesh flags are still refused as not yet ported; the fold,
+    checkpoint, resume and profile flags pass the parser and reach the
+    run (which fails here on the missing input file)."""
+    argv = [str(tmp_path / "a"), str(tmp_path / "b"), *FLAGSHIP_FLAGS, "--device", "cpu",
+            *flag]
+    if flag[0].startswith("--mesh"):
+        with pytest.raises(SystemExit) as e:
+            port_main(argv)
+        assert e.value.code != 0
+        assert "not yet ported" in capsys.readouterr().err
+    else:
+        assert port_main(argv) == 1
+        err = capsys.readouterr().err
+        assert "not yet ported" not in err and "error:" in err
 
 
-def test_unported_chain_features_raise():
+def test_unported_chain_features_raise(rng):
     """The gather stage (a ratio with a prime factor above 512, here
-    521/512) is the chain feature still to port."""
+    521/512) raised NotImplementedError until it was ported: both chains
+    now build on it and match the JAX chain over carried blocks."""
     for kw in (dict(target_rate=2_084_000.0),
                dict(target_rate=2_084_000.0, iq_correction=True, agc_profile="local")):
-        _, pcfg = _configs(16384, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Chain(pcfg, device="cpu")
+        jcfg, pcfg = _configs(16384, **kw)
+        jc, pc = JaxChain(jcfg), Chain(pcfg, device="cpu")
+        assert pc.resampler.plan.fallback and jc.resampler.plan.fallback
+        assert (pc.n_in, pc.n_out) == (jc.n_in, jc.n_out)
+        raw = _stream(rng, 2, 2 * jc.n_in)
+        _, want = _run_jax(jc, raw, range(2))
+        _, got = _run_port(pc, raw, range(2))
+        assert _max_dcode(got, want) <= 4
 
 
 def test_port_imports_no_jax(tmp_path):
@@ -292,6 +307,7 @@ def test_port_imports_no_jax(tmp_path):
         sys.meta_path.insert(0, NoJax())
         import torch
         import iq_tool_tpu_torch.cli, iq_tool_tpu_torch.pipeline.runtime
+        import iq_tool_tpu_torch.pipeline.folded, iq_tool_tpu_torch.utils.watchdog
         from iq_tool_tpu_torch.ops.fir_design import FilterRequest
         from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
         ch = Chain(ChainConfig(input_format="cs16", output_format="cs16",

@@ -27,7 +27,7 @@ from iq_tool_tpu_torch import profile_steps  # noqa: E402
 from iq_tool_tpu_torch.ops import kernels, nco  # noqa: E402
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
 from iq_tool_tpu_torch.pipeline.chain import (Chain, ChainConfig,  # noqa: E402
-                                              carry_from_jax, carry_to_numpy)
+                                              carry_from_numpy, carry_to_numpy)
 from tests import ref_dsp  # noqa: E402
 
 IN_RATE, OUT_RATE = 2_048_000.0, 1_488_375.0
@@ -224,7 +224,7 @@ def test_general_carry_handover(rng):
     raw = _wire(rng, "cs16", 2, 3 * jc.n_in)
     jfull, want = _run_jax(jc, raw, range(3))
     jcarry, first = _run_jax(jc, raw, range(1))
-    carry = carry_from_jax(jax.device_get(jcarry))
+    carry = carry_from_numpy(jax.device_get(jcarry))
     assert {"iq", "agc", "post_f", "dc", "rs"} <= set(carry)
     pcarry, rest = _run_port(pc, raw, range(1, 3), carry)
     got = np.concatenate([first, rest], -1)

@@ -360,13 +360,15 @@ def test_k4_matches_twin(rng, case):
     assert _packed_codes_close(want, got, fmt)
 
 
+@pytest.mark.parametrize("rows", [1, 8])
 @pytest.mark.parametrize("target", [None, 0.3], ids=["default-target", "target-0.3"])
 @pytest.mark.parametrize("n", [200, 190512, 128 * 5000 + 77])
 @pytest.mark.parametrize("profile", ["local", "dx"])
-def test_agc_gains_matches_twin(rng, profile, n, target):
+def test_agc_gains_matches_twin(rng, profile, n, target, rows):
     """The fused AGC kernel (segment energies and the gain loop) against
-    rms_gains_ref: one segment of 200, config #4's 1488 segments and a
-    ragged 48, and 5000 segments (many shared-memory chunks), at the
+    rms_gains_ref: rows of one segment of 200, config #4's 1488 segments
+    and a ragged 48, and 5000 segments (many shared-memory chunks), one
+    row or 8 (a time fold: segments laid per row, one scan), at the
     default target (t2 a power of two: the chain's division is a
     multiplication) and at 0.3 (a division).  Bound: gains within 1e-4
     relative (the energies sum in another order; the loop's feedback
@@ -376,17 +378,17 @@ def test_agc_gains_matches_twin(rng, profile, n, target):
     cfg = agc.AgcConfig.make(profile, 1_488_375.0, target)
     n_seg, seg, beta = agc.rms_params(cfg, n)
     ch = 5
-    ramp = np.linspace(1e-2, 1.0, n)[None, :]
-    xr, xi = (_cuda((rng.standard_normal((ch, n)) * 0.3 * ramp).astype(np.float32))
+    ramp = np.linspace(1e-2, 1.0, rows * n)[None, :]
+    xr, xi = (_cuda((rng.standard_normal((ch, rows * n)) * 0.3 * ramp).astype(np.float32))
               for _ in range(2))
     g0 = _cuda(rng.uniform(0.5, 2.0, ch).astype(np.float32))
     e20 = _cuda(rng.uniform(0.0, 0.1, ch).astype(np.float32))
     before = kernels.rms_gains.launches
-    got = kernels.rms_gains(xr, xi, g0, e20, beta, cfg.target)
-    want = kernels.rms_gains_ref(xr, xi, g0, e20, beta, cfg.target)
+    got = kernels.rms_gains(xr, xi, g0, e20, beta, cfg.target, rows)
+    want = kernels.rms_gains_ref(xr, xi, g0, e20, beta, cfg.target, rows)
     torch.cuda.synchronize()
     assert kernels.rms_gains.launches == before + 1
-    assert got[0].shape == (ch, n_seg)
+    assert got[0].shape == (ch, rows * n_seg)
     for w, g in zip(want, got):
         assert float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()) <= 1e-4
 
@@ -536,3 +538,80 @@ def test_iq_descent_matches_twin(rng):
     assert kernels.iq_descent.launches == before + 1
     assert float((got - want).abs().max()) <= 2e-4 + 1e-7
     assert float(((gate - want_gate).abs() / want_gate.abs()).max()) <= 1e-4
+
+
+def test_folded_on_card_matches_cpu_chain(rng):
+    """FoldedChain at F = 4 on the card against the same fold on the CPU
+    (config #4 at 16384 frames a row, one stream, 3 folded blocks; the
+    AGC's gains one launch a step, segments laid per row): within 4
+    codes past the notch's ramp."""
+    _need_card()
+    from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+    cfg = _general_cfg(16384, channels=1)
+    gpu, cpu = FoldedChain(cfg, 4, device="cuda"), FoldedChain(cfg, 4, device="cpu")
+    raw = rng.integers(-2 ** 13, 2 ** 13, (1, 3 * gpu.in_wire_len)).astype(np.int16)
+    gc, cc = gpu.init_carry(), cpu.init_carry()
+    kernels.reset_launch_counts()
+    w = gpu.in_wire_len
+    ramp = 2 * (gpu.local.post_filter.num_taps // 2)
+    for b in range(3):
+        blk = torch.from_numpy(raw[:, b * w:(b + 1) * w])
+        gc, go = gpu.step(gc, blk.cuda())
+        cc, co = cpu.step(cc, blk)
+        d = (go.cpu().to(torch.int64) - co.to(torch.int64)).abs()
+        assert int(d[:, ramp if b == 0 else 0:].max()) <= 4
+    assert (kernels.dc_block_apply.launches, kernels.banded_apply.launches,
+            kernels.osfft_apply.launches, kernels.post_apply.launches,
+            kernels.rms_gains.launches) == (3, 6, 3, 3, 3)
+
+
+def test_gather_chain_on_card_matches_cpu_chain(rng):
+    """The gather stage (2469/200000) behind the DC kernel and in front
+    of K4 on the card, against the CPU chain: within 4 codes."""
+    _need_card()
+    cfg = ChainConfig(input_format="cs16", output_format="cs16", input_rate=2_048_000.0,
+                      target_rate=25_282.56, channels=2, dc_block=True,
+                      agc_profile="local", target_block=16384)
+    gpu, cpu = Chain(cfg, device="cuda"), Chain(cfg, device="cpu")
+    assert gpu.resampler.plan.fallback
+    raw = rng.integers(-2 ** 13, 2 ** 13, (2, 3 * gpu.in_wire_len)).astype(np.int16)
+    gc, cc = gpu.init_carry(), cpu.init_carry()
+    kernels.reset_launch_counts()
+    w = gpu.in_wire_len
+    for b in range(3):
+        blk = torch.from_numpy(raw[:, b * w:(b + 1) * w])
+        gc, go = gpu.step(gc, blk.cuda())
+        cc, co = cpu.step(cc, blk)
+        assert int((go.cpu().to(torch.int64) - co.to(torch.int64)).abs().max()) <= 4
+    assert (kernels.dc_block_apply.launches, kernels.post_apply.launches,
+            kernels.rms_gains.launches, kernels.banded_apply.launches) == (3, 3, 3, 0)
+
+
+@pytest.mark.parametrize("fold", ["1", "4"])
+def test_checkpoint_resume_on_card(tmp_path, fold):
+    """--checkpoint then --resume on the card, the input cut off a block
+    boundary: byte-identical to the uninterrupted run; the card's
+    checkpoint loads into a CPU chain's carry."""
+    _need_card()
+    from iq_tool_tpu_torch.cli import main
+    from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint
+    n = 16384 * 6
+    t = np.arange(n) / 2.048e6
+    x = 0.5 * np.exp(2j * np.pi * 80e3 * t)
+    pairs = np.stack([x.real, x.imag], -1).reshape(-1)
+    inp = tmp_path / "in.raw"
+    inp.write_bytes(np.round(pairs * 32767).astype(np.int16).tobytes())
+    base = ["-i", "raw-file", "-o", "raw", "--raw-file-input-rate", "2048000",
+            "--raw-file-input-sample-format", "cs16", "--output-rate", "1488375",
+            "--dc-block", "--freq-shift", "100000", "--lowpass", "400000",
+            "--device", "cuda", "--time-fold", fold]
+    full, half, part, ck = (tmp_path / f for f in ("full.raw", "half.raw", "part.raw",
+                                                   "s.ckpt"))
+    assert main(base + [str(inp), str(full)]) == 0
+    half.write_bytes(inp.read_bytes()[:4 * (16384 * 3 + 1003)])
+    assert main(base + [str(half), str(part), "--checkpoint", str(ck)]) == 0
+    assert main(base + [str(inp), str(part), "--checkpoint", str(ck), "--resume"]) == 0
+    assert part.read_bytes() == full.read_bytes()
+    cpu = Chain(_chain_cfg("flagship", 16384), device="cpu")
+    carry, fin, fout, _ = load_checkpoint(str(ck), cpu.init_carry())
+    assert carry["nco_pre"].device.type == "cpu" and fout == cpu.expected_out_frames(fin)

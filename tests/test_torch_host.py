@@ -29,7 +29,7 @@ COPIED = (
     "modules/input_wav.py", "modules/output_raw.py", "modules/output_stdout.py",
     "modules/output_wav.py", "modules/sdrplay_api.py", "io/__init__.py",
     "io/metadata.py", "io/wav.py", "io/packets.py", "utils/__init__.py",
-    "utils/log.py", "utils/ringbuffer.py", "native.py",
+    "utils/log.py", "utils/ringbuffer.py", "utils/watchdog.py", "native.py",
 )
 _IMPORT = re.compile(r"^(\s*)(from|import) iq_tool_tpu([ .])", re.M)
 
