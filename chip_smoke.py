@@ -44,6 +44,17 @@ first failure:
    block on the card, its launches per step; config #4's AGC gains and
    K4 against their twins at the fold's shapes; then ms per step and
    Msps at F = 1, 2, 4, 8, 16;
+8b. [shard]: the sharded chain on meshes that repeat cuda:0 (one card):
+   1x1 flagship byte-identical to Chain, its ms and host wall per step
+   beside Chain's; 1x4 flagship and config #4 and 2x2 flagship (each
+   shard a 128 x 262144 block) against Chain at the per-shard framing
+   (>= 60 dB, <= 32 codes) and against the same mesh on the CPU (the
+   twins, the first channel of each slab, <= 4 codes), ms per step and
+   exact launches per step (the DC kernel twice a shard, the AGC's
+   segment energies once a shard and its chain kernel once a step); the
+   AGC's two halves against their twins at the shapes the 1x4 config #4
+   step gave them (one shard's planes; the four shards' gathered
+   energies), timed; the first DC pass's cost a shard;
 9. the CLI on a 10 s, 2.048 Msps cs16 tone file: the flagship flags, then
    the general step's (I/Q correction, notch, post-shift, AGC);
 10. [ckpt]: the CLI (in this process, so the launch counters see it) on a
@@ -74,6 +85,7 @@ GENERAL_STEPS = 4           # configs #5 and #3, and #4 at nfft 32768
 GATHER_STEPS = 4
 FOLDS = (1, 2, 4, 8, 16)
 FOLD_STEPS = 20             # timed steps per fold factor
+SHARD_STEPS = 3             # sharded steps ([shard]); the first is not timed
 # NVIDIA's data sheet for the H100 SXM (dense): the bounds below divide by
 # these
 PEAK_BYTES_S = 3.35e12
@@ -529,8 +541,10 @@ def main() -> int:
     chain_rel = max(float(((g - w).abs() / w.abs()).max()) for w, g in zip(want_c, got_c))
     if chain_rel > 1e-4:
         fail(f"the AGC chain kernel disagrees with rms_scan_ref: {chain_rel:.3e} > 1e-4")
-    chain_ms, _ = time_pair(lambda: kernels.agc_chain(*chain_args),
-                            lambda: kernels.rms_scan_ref(e_seg.T, *chain_args[1:]), reps=2)
+    chain_err = max_abs(want_c, got_c)
+    chain_ms, chain_plain = time_pair(lambda: kernels.agc_chain(*chain_args),
+                                      lambda: kernels.rms_scan_ref(e_seg.T, *chain_args[1:]),
+                                      reps=2)
     # planes in, gains and the (C,) states out
     agc_bytes = CH * (8 * n_out + 4 * n_seg + 16)
     agc_b_ms = agc_bytes / PEAK_BYTES_S * 1e3
@@ -938,6 +952,204 @@ def main() -> int:
         say(f"[fold] {label} C=1 at {row.n_in} frames a row: " + "; ".join(rates))
         del wire, carry, outs, fc, row, twin, host
 
+    # ---------------------------------------------------------- 8b. shard
+    from iq_tool_tpu_torch.parallel import ShardedChain, make_mesh
+
+    def shard_counts(steps):
+        c = {**launch_counts(), "AGCenergy": kernels.segment_energies.launches,
+             "AGCchain": kernels.agc_chain.launches}
+        return {k: v / steps for k, v in c.items() if v}
+
+    def run_shard(name, c_, t_, steps, twin=False):
+        """ShardedChain over a c_ x t_ mesh of cuda:0 against Chain at the
+        per-shard framing over the same stream (t_ chain steps a sharded
+        step): (sharded ms, chain ms) per sharded step by CUDA events over
+        steps 2.., the host's wall ms of both, launches per step, the
+        outputs' max |dcode| and SNR.  With ``twin`` also the same sharded
+        chain on a mesh of the CPU (the kernels' twins) over the first
+        channel of each slab, held as the CPU twin chains are (<= 4
+        codes; past the notch's start-up ramp)."""
+        cfg = config(name)
+        sc = ShardedChain(cfg, make_mesh([dev] * (c_ * t_), c_, t_))
+        ch_ = Chain(cfg, device=dev)
+        stream = tone_wire(CH, steps * sc.n_in, gen)
+        w = ch_.in_wire_len
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        c1, want = ch_.init_carry(), []
+        torch.cuda.synchronize()
+        for k in range(steps * t_):
+            if k == t_:
+                ev[0].record()
+                t0 = time.perf_counter()
+            c1, o = ch_.step(c1, stream[:, k * w:(k + 1) * w])
+            want.append(o)
+        ev[1].record()
+        torch.cuda.synchronize()
+        chain_wall = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        cs, got = sc.init_carry(), []
+        kernels.reset_launch_counts()
+        for k in range(steps):
+            if k == 1:
+                ev[2].record()
+                t0 = time.perf_counter()
+            cs, o = sc.step(cs, stream[:, k * t_ * w:(k + 1) * t_ * w])
+            got.append(o)
+        ev[3].record()
+        torch.cuda.synchronize()
+        counts = shard_counts(steps)
+        shard_wall = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        got = torch.cat(got, -1)
+        a = got.view(torch.int16).to(torch.float64)
+        b = torch.cat(want, -1).view(torch.int16).to(torch.float64)
+        d = a - b
+        dmax = float(d.abs().max())
+        snr = (float("inf") if dmax == 0 else
+               10 * np.log10(float((b * b).mean()) / float((d * d).mean())))
+        d_twin = None
+        if twin:
+            rows = [ci * (CH // c_) for ci in range(c_)]
+            tsc = ShardedChain(config(name, c_), make_mesh(["cpu"] * (c_ * t_), c_, t_))
+            tc, outs, host = tsc.init_carry(), [], stream[rows].cpu()
+            for k in range(steps):
+                tc, o = tsc.step(tc, host[:, k * t_ * w:(k + 1) * t_ * w])
+                outs.append(o)
+            skip = 2 * (ch_.post_filter.num_taps // 2) if ch_.post_filter else 0
+            d_twin = int(np.abs(got[rows].cpu().numpy().astype(np.int64)
+                                - torch.cat(outs, -1).numpy())[:, skip:].max())
+        del stream, got, want, a, b, d
+        return (ev[2].elapsed_time(ev[3]) / (steps - 1),
+                ev[0].elapsed_time(ev[1]) / (steps - 1), shard_wall, chain_wall, counts,
+                dmax, snr, d_twin)
+
+    shard_report = {}
+    # 1 x 1: the position's step is Chain.step; byte-identical, and the
+    # sharded step's own cost (the split, the output's assembly) shows as
+    # the difference of two runs over one stream, twice in turns
+    runs = [run_shard("flagship", 1, 1, SHARD_STEPS) for _ in range(2)]
+    sh_ms, ch_ms, sh_wall, ch_wall, counts, dmax, _, _ = runs[0]
+    say(f"[shard] 1x1 flagship {CH} x {BLOCK}: {sh_ms:.3f}, {runs[1][0]:.3f} ms/step "
+        f"against Chain's {ch_ms:.3f}, {runs[1][1]:.3f} (host wall {sh_wall:.3f}, "
+        f"{runs[1][2]:.3f} against {ch_wall:.3f}, {runs[1][3]:.3f}); launches per step "
+        f"{counts}; max |dcode| vs Chain {dmax:g}")
+    if dmax != 0 or runs[1][5] != 0:
+        fail("[shard] a 1x1 mesh is not byte-identical to Chain")
+    if counts != {"K1": 1, "K2": 1, "K1pro": 1}:
+        fail(f"[shard] 1x1 flagship launches per step {counts}")
+    shard_report["1x1 flagship"] = counts
+    want_counts = {
+        ("flagship", 1, 4): {"K2": 8, "K3": 4, "K1pro": 4},
+        ("4", 1, 4): {"K2": 8, "K3": 8, "K4": 4, "K5": 4, "IQ": 1, "AGCenergy": 4,
+                      "AGCchain": 1},
+        ("flagship", 2, 2): {"K2": 8, "K3": 4, "K1pro": 4}}
+    for (name, c_, t_), want_c in want_counts.items():
+        sh_ms, ch_ms, sh_wall, ch_wall, counts, dmax, snr, d_twin = run_shard(
+            name, c_, t_, SHARD_STEPS, twin=True)
+        label = "flagship" if name == "flagship" else "config #4"
+        say(f"[shard] {c_}x{t_} {label} ({CH} x {t_} x {BLOCK} a step): {sh_ms:.3f} ms/step "
+            f"against Chain's {ch_ms:.3f} for its {t_} per-shard steps (host wall "
+            f"{sh_wall:.3f} against {ch_wall:.3f}); launches per step {counts}; vs Chain "
+            f"at the per-shard framing: max |dcode| {dmax:g}, SNR {snr:.1f} dB; vs the "
+            f"same mesh on the CPU (the first channel of each slab): max |dcode| {d_twin}")
+        if counts != want_c:
+            fail(f"[shard] {c_}x{t_} {label} launches per step {counts}, expected {want_c}")
+        if snr < 60.0 or dmax > 32:
+            fail(f"[shard] {c_}x{t_} {label}: {snr:.1f} dB, {dmax:g} codes from Chain")
+        if d_twin > 4:
+            fail(f"[shard] {c_}x{t_} {label} differs from its CPU twin mesh by {d_twin} "
+                 f"codes (> 4)")
+        shard_report[f"{c_}x{t_} {label}"] = counts
+
+    # the AGC's two halves at the shapes a 1x4 config #4 step gives them:
+    # one shard's segment energies, and the gain loop over the four
+    # shards' gathered energies (several shared-memory chunks).  Their
+    # inputs come from two more such steps, after the counted runs, whose
+    # calls to the two wrappers pass through stand-ins that keep the last
+    # call's arguments (nothing on the path writes them afterwards)
+    seen = {}
+
+    def seeing(name):
+        wrapper = getattr(kernels, name)
+
+        def call(*args):
+            seen[name] = args
+            return wrapper(*args)
+        call.launches = 0           # the wrapper counts under its module name
+        return wrapper, call
+
+    sc4 = ShardedChain(config("4"), make_mesh([dev] * 4, 1, 4))
+    stream = tone_wire(CH, 2 * sc4.n_in, gen)
+    stand_ins = [seeing(k) for k in ("segment_energies", "agc_chain")]
+    for wrapper, call in stand_ins:
+        setattr(kernels, wrapper.__name__, call)
+    try:
+        cs = sc4.init_carry()
+        for k in range(2):
+            cs, _ = sc4.step(cs, stream[:, k * sc4.in_wire_len:(k + 1) * sc4.in_wire_len])
+        torch.cuda.synchronize()
+    finally:
+        for wrapper, _ in stand_ins:
+            setattr(kernels, wrapper.__name__, wrapper)
+    del sc4, stream, cs
+    xr_s, xi_s = seen["segment_energies"][:2]
+    got_e = kernels.segment_energies(xr_s, xi_s)
+    want_e = kernels.segment_energies_ref(xr_s, xi_s)
+    torch.cuda.synchronize()
+    e_rel = float(((got_e - want_e).abs() / want_e.abs()).max())
+    if e_rel > 1e-5:
+        fail(f"[shard] the segment energies kernel disagrees with its twin: {e_rel:.3e} > 1e-5")
+    e_ms, e_plain = time_pair(lambda: kernels.segment_energies(xr_s, xi_s),
+                              lambda: kernels.segment_energies_ref(xr_s, xi_s))
+    c_s, n_s = xr_s.shape
+    n_seg_s = got_e.shape[1]
+    # planes in, energies out; 4 operations a sample
+    e_bound = bound(c_s * (8 * n_s + 4 * n_seg_s), 4 * c_s * n_s, PEAK_FP32_S)
+    say(f"[shard] segment energies of one shard ({c_s} x {n_s} -> {n_seg_s}): max "
+        f"relative error {e_rel:.3e}; kernel {e_ms:.4f} ms, twin {e_plain:.4f} ms; bound "
+        f"{e_bound[0]:.4f} ms ({e_bound[1]}) -> {100 * e_bound[0] / e_ms:.1f}%")
+    report["AGCenergy"] = dict(err=float((got_e - want_e).abs().max()), ms=e_ms,
+                               plain=e_plain, lib=None, bound=e_bound)
+    e_g, g_g, e2_g, beta_g, tgt_g = seen["agc_chain"]
+    got_c = kernels.agc_chain(e_g, g_g, e2_g, beta_g, tgt_g)
+    want_c = kernels.rms_scan_ref(e_g.T, g_g, e2_g, beta_g, tgt_g)
+    want_c = (want_c[0].T, *want_c[1:])
+    torch.cuda.synchronize()
+    chain_rel = max(float(((g - w).abs() / w.abs()).max()) for w, g in zip(want_c, got_c))
+    if chain_rel > 1e-4:
+        fail(f"[shard] the AGC chain kernel disagrees with rms_scan_ref on the gathered "
+             f"energies {tuple(e_g.shape)}: {chain_rel:.3e} > 1e-4")
+    chain_ms, chain_plain = time_pair(
+        lambda: kernels.agc_chain(e_g, g_g, e2_g, beta_g, tgt_g),
+        lambda: kernels.rms_scan_ref(e_g.T, g_g, e2_g, beta_g, tgt_g), reps=2)
+    c_g, n_seg_g = e_g.shape
+    # energies and gains in and out, ~12 float operations a segment on
+    # one thread's chain
+    chain_bound = bound(c_g * (8 * n_seg_g + 16), c_g * n_seg_g * 12, PEAK_FP32_S)
+    say(f"[shard] the AGC chain over the gathered energies ({c_g} x {n_seg_g}): max "
+        f"relative error {chain_rel:.3e} from rms_scan_ref; kernel {chain_ms:.4f} ms, twin "
+        f"{chain_plain:.3f} ms; bound {chain_bound[0]:.5f} ms ({chain_bound[1]})")
+    report["AGCchain"] = dict(err=max_abs(want_c, got_c), ms=chain_ms, plain=chain_plain,
+                              lib=None, bound=chain_bound)
+    del seen, xr_s, xi_s, got_e, want_e, e_g, got_c, want_c
+
+    # the extra DC launch a time shard pays: the DC kernel's first pass
+    # (zero start, no I/Q or NCO) over one shard's block
+    wire1 = tone_wire(CH, BLOCK, gen).view(torch.int32)
+    st1 = torch.zeros((CH, 4), device=dev)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fl = Chain(config("flagship", 1), device="cpu")
+    pass1 = lambda: kernels.dc_block_apply(None, None, st1, fl.dc_alpha, wire_i32=wire1,  # noqa: E731
+                                           wire_norm=fl.fmt_in.normalizer)
+    pass1()
+    torch.cuda._sleep(50_000_000)
+    e0.record()
+    for _ in range(5):
+        pass1()
+    e1.record()
+    torch.cuda.synchronize()
+    say(f"[shard] the first DC pass over one shard's {CH} x {BLOCK} block: "
+        f"{e0.elapsed_time(e1) / 5:.3f} ms a shard a step")
+    del wire1
+
     # -------------------------------------------------------------- 9. CLI
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -1029,7 +1241,7 @@ def main() -> int:
         with open(full, "rb") as a, open(part, "rb") as b:
             same, size = a.read() == b.read(), os.path.getsize(full)
         cpu_row = Chain(config("flagship", 1, 16384), device="cpu")
-        _, fin, fout, _ = load_checkpoint(ck, cpu_row.init_carry())
+        _, fin, fout, _ = load_checkpoint(ck, cpu_row)
         say(f"[ckpt] --time-fold {fold}: {frames} frames, cut at {cut}: resumed output "
             f"{'byte-identical' if same else 'DIFFERS'} ({size} bytes); the card's "
             f"checkpoint loads on the CPU at {fin} frames in, {fout} out; 3 runs "
@@ -1072,7 +1284,9 @@ def main() -> int:
            "K5": "iq_tool_tpu_torch/csrc/osfft.cu",
            "AGC": "iq_tool_tpu_torch/csrc/post.cu",
            "IQ": "iq_tool_tpu_torch/csrc/iq_est.cu",
-           "K1pro": "iq_tool_tpu_torch/csrc/banded_dc.cu"}
+           "K1pro": "iq_tool_tpu_torch/csrc/banded_dc.cu",
+           "AGCenergy": "iq_tool_tpu_torch/csrc/post.cu",
+           "AGCchain": "iq_tool_tpu_torch/csrc/post.cu"}
     rep = {"K1": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "K2": "iq_tool_tpu/ops/pallas_kernels.py:492",
            "K3": "iq_tool_tpu/ops/pallas_kernels.py:1121",
@@ -1080,11 +1294,15 @@ def main() -> int:
            "K5": "iq_tool_tpu/ops/pallas_kernels.py:1324",
            "AGC": "iq_tool_tpu/ops/agc.py:116",
            "IQ": "iq_tool_tpu/ops/iq_balance.py:147",
-           "K1pro": "iq_tool_tpu/ops/pallas_kernels.py:772"}
+           "K1pro": "iq_tool_tpu/ops/pallas_kernels.py:772",
+           "AGCenergy": "iq_tool_tpu/parallel/sharded.py:271",
+           "AGCchain": "iq_tool_tpu/ops/agc.py:78"}
     # K1/K1pro/K2 launches from the flagship slice, the rest from config
     # #4's run, K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
     # config #3's; and each phase's launches per step
-    counts = {**general_launches, **launches, "K5@32768": s4k["K5"], "K3@cu8": s3["K3"]}
+    counts = {**general_launches, **launches, "K5@32768": s4k["K5"], "K3@cu8": s3["K3"],
+              **{k: int(shard_report["1x4 config #4"][k] * SHARD_STEPS)
+                 for k in ("AGCenergy", "AGCchain")}}
     src["K5@32768"], rep["K5@32768"] = src["K5"], rep["K5"]
     src["K3@cu8"], rep["K3@cu8"] = src["K3"], rep["K3"]
     phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQ=0), STEPS),
@@ -1092,14 +1310,16 @@ def main() -> int:
               "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS),
               "gather": (g_counts, GATHER_STEPS),
               "fold flagship C=1 F=8": (fold_counts["flagship"], 3),
-              "fold #4 C=1 F=8": (fold_counts["config #4"], 3)}
+              "fold #4 C=1 F=8": (fold_counts["config #4"], 3),
+              **{f"shard {k}": (v, 1) for k, v in shard_report.items()}}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k], "replaces": rep[k],
          "launches": counts[k], "max_abs_err": report[k]["err"],
          "ms": report[k]["ms"], "plain_ms": report[k]["plain"],
          "bound_ms": report[k]["bound"][0], "bound_by": report[k]["bound"][1],
          "library_ms": report[k]["lib"],
-         "launches_per_step": {ph: c[k.split("@")[0]] / n for ph, (c, n) in phases.items()}}
+         "launches_per_step": {ph: c.get(k.split("@")[0], 0) / n
+                               for ph, (c, n) in phases.items()}}
         for k in src]}))
     say(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

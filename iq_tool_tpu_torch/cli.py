@@ -9,8 +9,9 @@
 The flags are the reference parser's, plus ``--device`` (the
 counterpart of the reference's JAX_PLATFORMS).  ``--device cuda``
 without a card is an error; nothing falls back to the CPU.  The mesh
-flags, whose sharded execution is not ported yet, are accepted by the
-parser and refused with a "not yet ported" error.  ``--profile-dir``
+flags shard the chain over the visible cards (``parallel/sharded.py``);
+with ``--device cpu`` the CPU stands in for CPU_MESH_DEVICES devices, as
+the reference's tests give JAX eight virtual CPU devices.  ``--profile-dir``
 writes a torch.profiler trace (CPU activity, plus the card's kernels on
 CUDA) that Perfetto or chrome://tracing opens.
 """
@@ -34,8 +35,8 @@ from iq_tool_tpu_torch.config import (AppConfig, apply_preset,
                                       collect_filter_requests, resolve_rates,
                                       validate)
 
-# flag dest -> the ROADMAP item that ports it
-_NOT_PORTED = {"mesh_channel": "Queue 1 item 11", "mesh_time": "Queue 1 item 11"}
+# the devices --device cpu offers the mesh flags
+CPU_MESH_DEVICES = 8
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -134,7 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     g = p.add_argument_group("Performance Options")
     g.add_argument("--block-size", type=int, default=C.DEFAULT_BLOCK_SIZE,
-                   metavar="N", help="Device block size in frames")
+                   metavar="N", help="Device block size in frames "
+                   "(per time shard when --mesh-time > 1)")
     g.add_argument("--pipeline-depth", type=int, default=C.PIPELINE_DEPTH,
                    metavar="N", help="Device steps kept in flight before a "
                    "readback")
@@ -142,8 +144,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Process N independent streams as one batch. File "
                         "paths then take a {ch} placeholder (in_{ch}.raw) "
                         "or N comma-separated paths")
-    g.add_argument("--mesh-channel", type=int, help=argparse.SUPPRESS)
-    g.add_argument("--mesh-time", type=int, help=argparse.SUPPRESS)
+    g.add_argument("--mesh-channel", type=int, metavar="N",
+                   help="Shard the channel axis over N devices (default: "
+                        "the largest divisor of --channels that fits the "
+                        "device budget left by --mesh-time)")
+    g.add_argument("--mesh-time", type=int, metavar="N",
+                   help="Shard each block over N devices along time "
+                        "(halo-exchange sequence parallelism; default: "
+                        "remaining devices / --mesh-channel)")
     g.add_argument("--time-fold", type=int, metavar="F",
                    help="Run each channel's block as F consecutive row blocks in "
                         "one step (default 1)")
@@ -219,12 +227,36 @@ def expand_channel_paths(path: str | None, n: int, what: str) -> list:
     return parts
 
 
+def build_mesh(device: str, channels: int, mesh_channel: int | None,
+               mesh_time: int | None):
+    """The (channel, time) mesh the mesh flags ask for, over distinct
+    devices (the visible cards, or the CPU's CPU_MESH_DEVICES): an
+    unspecified axis takes what the stream supports (the channel axis
+    divides --channels) over a subset of them, as the reference CLI's."""
+    from iq_tool_tpu_torch.parallel.sharded import make_mesh, visible_devices
+    devices = visible_devices() if device == "cuda" else ["cpu"] * CPU_MESH_DEVICES
+    n_dev = len(devices)
+    mc, mt = mesh_channel, mesh_time
+    if (mc or 1) * (mt or 1) > n_dev or (mc or 1) < 1 or (mt or 1) < 1:
+        raise ValueError(f"mesh {mc or 1}x{mt or 1} needs {(mc or 1) * (mt or 1)} "
+                         f"devices, have {n_dev}")
+    if mc is None:
+        cap = n_dev // mt
+        mc = max(d for d in range(1, max(min(channels, cap), 1) + 1) if channels % d == 0)
+    if mt is None:
+        mt = n_dev // mc
+    return make_mesh(devices[:mc * mt], mc, mt)
+
+
 def build_chain(cfg: AppConfig, block_size: int, channels: int, device,
-                time_fold: int | None = None):
-    """The Chain, or with ``time_fold`` > 1 the FoldedChain, the flags
-    ask for (an explicit fold the configuration cannot take raises; no
-    fold is taken unasked: the reference's automatic fold is for the
-    TPU's sublanes, see pipeline/folded.py)."""
+                time_fold: int | None = None, mesh_channel: int | None = None,
+                mesh_time: int | None = None):
+    """The Chain the flags ask for: a ShardedChain with a mesh flag, a
+    FoldedChain with ``time_fold`` > 1 (an explicit fold the
+    configuration cannot take raises; no fold is taken unasked: the
+    reference's automatic fold is for the TPU's sublanes, see
+    pipeline/folded.py)."""
+    from iq_tool_tpu_torch.parallel.sharded import ShardedChain
     from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
     from iq_tool_tpu_torch.pipeline.folded import FoldedChain
     if cfg.raw_passthrough:
@@ -235,6 +267,12 @@ def build_chain(cfg: AppConfig, block_size: int, channels: int, device,
     fold = time_fold or 1
     make = ((lambda c, device: FoldedChain(c, fold, device=device)) if fold > 1
             else Chain)
+    if mesh_channel or mesh_time:
+        if fold > 1:
+            raise ValueError("--time-fold does not combine with --mesh-channel/--mesh-time "
+                             "(the sharded path has its own per-shard batching)")
+        mesh = build_mesh(device, channels, mesh_channel, mesh_time)
+        make = lambda c, device: ShardedChain(c, mesh)      # noqa: E731
     return make(ChainConfig(
         channels=channels,
         input_format=cfg.input_format,
@@ -272,10 +310,10 @@ def calibrate_carry(chain, sources, gain: float):
     wire = torch.from_numpy(np.stack([np.frombuffer(c, chain.in_wire_dtype)
                                       for c in cals], axis=0)).to(chain.device)
     xr, xi = convert.to_planar(wire, chain.fmt_in, gain)
-    carry = chain.init_carry(len(sources))
-    carry["iq"] = dataclasses.replace(
-        carry["iq"], factors=iq_balance.calibrate(torch.complex(xr, xi)))
-    return carry
+    factors = iq_balance.calibrate(torch.complex(xr, xi))
+    tree = chain.carry_to_numpy(chain.init_carry(len(sources)))
+    tree["iq"] = (factors.cpu().numpy(), tree["iq"][1])
+    return chain.carry_from_numpy(tree)
 
 
 def _print_summary_table(title: str, items: dict, file=sys.stderr) -> None:
@@ -368,11 +406,6 @@ def main(argv=None) -> int:
     if (args.mesh_channel or args.mesh_time) and (args.time_fold or 1) > 1:
         parser.error("--time-fold does not combine with --mesh-channel/--mesh-time "
                      "(the sharded path has its own per-shard batching)")
-    for dest, item in _NOT_PORTED.items():
-        if getattr(args, dest, None):
-            flag = "--" + dest.replace("_", "-")
-            parser.error(f"{flag} is not yet ported to iq_tool_tpu_torch "
-                         f"(ROADMAP {item})")
 
     if args.list_presets:
         presets, path = load_presets()
@@ -421,7 +454,8 @@ def main(argv=None) -> int:
         cfg.nco_shift_hz = info.nco_shift_hz
         resolve_rates(cfg, info.sample_rate, info.sample_format)
         validate(cfg)
-        chain = build_chain(cfg, args.block_size, n_ch, args.device, args.time_fold)
+        chain = build_chain(cfg, args.block_size, n_ch, args.device, args.time_fold,
+                            args.mesh_channel, args.mesh_time)
         for c in range(n_ch):
             snk = get_output(cfg.output_type)
             snk_cfg = (cfg if n_ch == 1

@@ -13,9 +13,13 @@
 //   rms_scan, which XLA ran as a reduction and a loop.  A channel's block
 //   may be `rows` consecutive rows (a time fold): the segments are laid
 //   per row and the one chain runs over all of them in time order.
+// * iq_agc_energies runs that kernel's producer warps alone: the
+//   segment energies of a block, which the sharded chain's time shards
+//   each compute and all-gather.
 // * iq_agc_chain runs that kernel's gain loop alone, one thread a
-//   channel over given energies in shared memory: the timed floor of
-//   iq_agc_rms_gains (chip_smoke.py's AGC bound); Chain.step never runs it.
+//   channel over given energies in shared memory: the sharded chain's
+//   gain loop over the gathered energies, and the timed floor of
+//   iq_agc_rms_gains (chip_smoke.py's AGC bound).
 //
 // What bounds K4 on the card: bytes.  Per sample it reads two float32
 // planes and writes one packed element (12 B for 16-bit wires); the
@@ -193,6 +197,19 @@ __global__ void __launch_bounds__(kAgcThreads)
   }
 }
 
+// The energies alone: channel c's (rows * row_seg) segment energies by
+// the fused kernel's producer warps, written straight to global memory.
+__global__ void __launch_bounds__(kAgcThreads)
+    agc_energies_kernel(const float* __restrict__ x_r,
+                        const float* __restrict__ x_i, int n, int n_row,
+                        int seg, int row_seg, int n_seg,
+                        float* __restrict__ energies) {
+  const long long c = blockIdx.x;
+  if (!agc_producer(threadIdx.x >> 5)) return;
+  agc_energies(x_r + c * n, x_i + c * n, seg, row_seg, n_row, 0, n_seg,
+               energies + c * n_seg);
+}
+
 constexpr int kChainThreads = 128;
 constexpr int kChainChunk = 2048;    // energies staged at a time
 
@@ -285,6 +302,22 @@ extern "C" int iq_agc_rms_gains(const float* x_r, const float* x_i, int n,
         x_r, x_i, n, n_row, seg, row_seg, n_seg, gain0, e2_0, kc, gains,
         gain_out, e2_out);
   }
+  return cudaGetLastError();
+}
+
+// The AGC's segment energies of a block, as iq_agc_rms_gains computes
+// them: x_r/x_i (C, n), each channel's block `rows` rows -> energies (C,
+// rows * row_seg), laid out as that kernel's gains.
+extern "C" int iq_agc_energies(const float* x_r, const float* x_i, int n,
+                               int rows, int seg, int row_seg, int channels,
+                               float* energies, void* stream) {
+  if (channels <= 0 || n <= 0 || rows <= 0 || n % rows || seg <= 0 ||
+      row_seg <= 0 || static_cast<long long>(seg) * row_seg > n / rows) {
+    return cudaErrorInvalidValue;
+  }
+  iqk::agc_energies_kernel<<<channels, iqk::kAgcThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      x_r, x_i, n, n / rows, seg, row_seg, rows * row_seg, energies);
   return cudaGetLastError();
 }
 

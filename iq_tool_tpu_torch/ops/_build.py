@@ -47,6 +47,7 @@ _SIGNATURES = {
                       _F, _F, _P],
     "iq_agc_rms_gains": [_P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I,
                          _P, _P, _P, _P],
+    "iq_agc_energies": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "iq_agc_chain": [_P, _I, _P, _P, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     "iq_osfft_apply": [_P, _P, _I, _P, _P, ctypes.c_longlong, _I, _P, _P, _I,
                        _P, _P, _P, _I, _I, _I, _I, _P, _P, ctypes.c_longlong, _P],

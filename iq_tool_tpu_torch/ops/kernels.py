@@ -12,7 +12,9 @@
   or planes.
 * K4 ``post_apply`` (``csrc/post.cu``): post-NCO + AGC gains + quantize
   and pack; beside it ``rms_gains``, the AGC's segment energies and
-  sequential gain loop (a helper kernel, not a TPU kernel).
+  sequential gain loop in one launch, and its two halves alone:
+  ``segment_energies`` and ``agc_chain``, the loop over given energies
+  (helper kernels, not TPU kernels).
 * K5 ``osfft_apply`` (``csrc/osfft.cu``): the overlap-save FFT filter.
 * ``iq_descent`` (``csrc/iq_est.cu``): the I/Q estimator's greedy
   descent and power gate (a helper kernel, not a TPU kernel).
@@ -590,14 +592,50 @@ def agc_segments(n: int) -> tuple[int, int]:
     return n_seg, n // n_seg
 
 
-def rms_gains_ref(xr, xi, gain, e2, beta: float, target: float, rows: int = 1):
-    """Plain twin of rms_gains: the segment energies by torch.mean, then
-    the per-segment loop (rms_scan_ref)."""
+def segment_energies_ref(xr, xi, rows: int = 1):
+    """Plain twin of segment_energies: torch.mean over each segment."""
     c, n = xr.shape
     n_seg, seg = agc_segments(n // rows)
     xsr = xr.reshape(c * rows, n // rows)[:, :n_seg * seg].reshape(c, rows * n_seg, seg)
     xsi = xi.reshape(c * rows, n // rows)[:, :n_seg * seg].reshape(c, rows * n_seg, seg)
-    e_in = torch.mean(xsr * xsr + xsi * xsi, dim=-1).T.contiguous()   # (rows n_seg, C)
+    return torch.mean(xsr * xsr + xsi * xsi, dim=-1)
+
+
+def segment_energies(xr, xi, rows: int = 1):
+    """The AGC's segment energies of a block, mean(xr^2 + xi^2) over each
+    of the agc_segments(n // rows) segments of each of ``rows`` rows, as
+    rms_gains computes them (its producer warps alone, csrc/post.cu
+    iq_agc_energies): (C, n) float32 planes -> (C, rows * n_seg).  The
+    sharded chain's time shards each compute theirs for the gain loop
+    over the gathered sequence (agc_chain)."""
+    if xr.device.type == "cpu":
+        return segment_energies_ref(xr, xi, rows)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    _require_cuda(xr, xi)
+    _require_dtypes(None, 0, None, xr, xi)
+    ch, n = xr.shape
+    if xi.shape != (ch, n):
+        raise ValueError(f"planes must both be ({ch}, {n})")
+    if n % rows:
+        raise ValueError(f"a block of {n} samples is not {rows} rows")
+    n_seg, seg = agc_segments(n // rows)
+    energies = torch.empty((ch, rows * n_seg), dtype=torch.float32, device=xr.device)
+    with torch.cuda.device(xr.device):
+        rc = lib.iq_agc_energies(_ptr(xr), _ptr(xi), n, rows, seg, n_seg, ch,
+                                 _ptr(energies), _stream())
+    _check(rc, "agc energies kernel")
+    segment_energies.launches += 1
+    return energies
+
+
+segment_energies.launches = 0
+
+
+def rms_gains_ref(xr, xi, gain, e2, beta: float, target: float, rows: int = 1):
+    """Plain twin of rms_gains: the segment energies by torch.mean, then
+    the per-segment loop (rms_scan_ref)."""
+    e_in = segment_energies_ref(xr, xi, rows).T.contiguous()   # (rows n_seg, C)
     gains, g_fin, e2_fin = rms_scan_ref(e_in, gain, e2, beta, target)
     return gains.T.contiguous(), g_fin, e2_fin
 
@@ -639,10 +677,11 @@ rms_gains.launches = 0
 
 def agc_chain(e_in, gain, e2, beta: float, target: float):
     """The AGC's gain loop alone over given energies e_in (C, n_seg), one
-    thread a channel (csrc/post.cu iq_agc_chain): the dependency chain of
-    rms_gains, timed by chip_smoke.py as that kernel's floor; Chain.step
-    never calls it.  Returns (gains (C, n_seg), final gain, final e2); a CPU
-    tensor runs rms_scan_ref."""
+    thread a channel (csrc/post.cu iq_agc_chain): the sharded chain's
+    gain loop over the segment energies gathered from its time shards
+    (``parallel/sharded.py``), and the dependency chain of rms_gains,
+    timed by chip_smoke.py as that kernel's floor.  Returns (gains (C,
+    n_seg), final gain, final e2); a CPU tensor runs rms_scan_ref."""
     if e_in.device.type == "cpu":
         gains, g_fin, e2_fin = rms_scan_ref(e_in.T, gain, e2, beta, target)
         return gains.T.contiguous(), g_fin, e2_fin
@@ -661,7 +700,11 @@ def agc_chain(e_in, gain, e2, beta: float, target: float):
                               *_chain_consts(beta, target), ch, _ptr(gains),
                               _ptr(g_fin), _ptr(e2_fin), _stream())
     _check(rc, "agc chain kernel")
+    agc_chain.launches += 1
     return gains, g_fin, e2_fin
+
+
+agc_chain.launches = 0
 
 
 # ------------------------------ K5 --------------------------------------------
@@ -891,5 +934,6 @@ iq_descent.launches = 0
 
 def reset_launch_counts() -> None:
     for fn in (banded_apply, banded_apply_dc, dc_prologue, dc_block_apply,
-               post_apply, rms_gains, osfft_apply, iq_descent):
+               post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
+               iq_descent):
         fn.launches = 0

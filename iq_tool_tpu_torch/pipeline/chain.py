@@ -143,6 +143,7 @@ class Chain:
                                 cfg.filter_attenuation_db, cfg.filter_taps,
                                 cfg.filter_transition_hz) if cfg.filters else None
         self.filter_stage = stage
+        self.designed_filter = designed
         filt = (StreamingFilter(designed.taps, cfg.filter_method, cfg.filter_fft_size)
                 if designed is not None else None)
         self.pre_filter = filt if stage == "pre" else None
@@ -211,8 +212,17 @@ class Chain:
         self.in_wire_len = self.n_in * self.fmt_in.items_per_frame
         self.out_wire_len = self.n_out * self.fmt_out.items_per_frame
         self.in_wire_dtype = convert.wire_dtype(self.fmt_in)
+        self.out_wire_dtype = convert.wire_dtype(self.fmt_out)
 
     # ------------------------------ carry ------------------------------------
+
+    def carry_to_numpy(self, carry: dict) -> dict:
+        """This chain's carry in the reference's layout (numpy)."""
+        return carry_to_numpy(carry)
+
+    def carry_from_numpy(self, tree: dict) -> dict:
+        """A carry in the reference's layout, on this chain's device."""
+        return carry_from_numpy(tree, self.device)
 
     def init_carry(self, channels: int | None = None) -> dict:
         ch = channels or self.cfg.channels

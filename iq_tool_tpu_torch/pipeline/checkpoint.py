@@ -4,8 +4,8 @@
 All stream memory lives in the chain's carry, so the carry plus the
 input and output frame counts is enough to resume a job sample-exactly.
 The file holds the carry in the reference's layout
-(``chain.carry_to_numpy``: plain numpy leaves, uint32 NCO phases and
-counters), so a checkpoint written on the card loads on the CPU and the
+(the chain's ``carry_to_numpy``: plain numpy leaves, uint32 NCO phases
+and counters), so a checkpoint written on the card loads on the CPU and the
 other way round.
 """
 
@@ -16,8 +16,6 @@ import os
 import tempfile
 
 import numpy as np
-
-from iq_tool_tpu_torch.pipeline.chain import carry_from_numpy, carry_to_numpy
 
 
 def _flatten(tree) -> list:
@@ -46,12 +44,12 @@ def _structure(tree) -> str:
     return "*"
 
 
-def save_checkpoint(path: str, carry: dict, frames_in: int, frames_out: int,
+def save_checkpoint(path: str, host: dict, frames_in: int, frames_out: int,
                     meta: dict | None = None) -> None:
     """Atomically write carry + stream position to ``path`` (.npz): a
-    temporary file, fsync, rename, fsync of the directory.  ``carry`` is
-    the chain's carry or its ``carry_to_numpy`` form."""
-    host = carry if isinstance(carry["nco_pre"], np.ndarray) else carry_to_numpy(carry)
+    temporary file, fsync, rename, fsync of the directory.  ``host`` is
+    the carry in the reference's layout (the chain's
+    ``carry_to_numpy``)."""
     leaves = _flatten(host)
     payload = {f"leaf_{i}": leaf for i, leaf in enumerate(leaves)}
     payload["__meta__"] = np.frombuffer(json.dumps({
@@ -82,14 +80,17 @@ def save_checkpoint(path: str, carry: dict, frames_in: int, frames_out: int,
         raise
 
 
-def load_checkpoint(path: str, example_carry: dict):
-    """(carry, frames_in, frames_out, extra_meta), the carry on the device
-    of ``example_carry`` (``chain.init_carry()``), whose leaves' shapes
-    and dtypes the file's must match."""
+def load_checkpoint(path: str, chain, example_carry: dict | None = None):
+    """(carry, frames_in, frames_out, extra_meta): the carry of ``chain``
+    (a Chain, FoldedChain or ShardedChain), whose leaves' shapes and
+    dtypes must match those of ``example_carry`` (default
+    ``chain.init_carry()``)."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         leaves = [z[f"leaf_{i}"] for i in range(len(z.files) - 1)]
-    example = carry_to_numpy(example_carry)
+    if example_carry is None:
+        example_carry = chain.init_carry()
+    example = chain.carry_to_numpy(example_carry)
     want = _flatten(example)
     if meta["treedef"] != _structure(example) or len(leaves) != len(want):
         raise ValueError(
@@ -102,6 +103,5 @@ def load_checkpoint(path: str, example_carry: dict):
                 f"checkpoint leaf mismatch: {a.shape}/{a.dtype} vs "
                 f"{b.shape}/{b.dtype} — chain config differs from the "
                 "checkpointed one")
-    device = example_carry["nco_pre"].device
-    carry = carry_from_numpy(_unflatten(example, list(leaves)), device)
+    carry = chain.carry_from_numpy(_unflatten(example, list(leaves)))
     return carry, meta["frames_in"], meta["frames_out"], meta["extra"]

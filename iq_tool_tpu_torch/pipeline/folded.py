@@ -38,6 +38,26 @@ def auto_fold(channels: int) -> int:
     return max(1, 8 // max(1, channels))
 
 
+def widest_tail(chain: Chain) -> str | None:
+    """The first stage of ``chain`` whose carried tail is wider than the
+    block it runs on, described, or None.  A fold or a time shard takes
+    that tail from its neighbour's block alone, so it must fit."""
+    tails = []
+    if chain.pre_filter is not None:
+        tails.append(("pre-filter", chain.pre_filter.block, chain.n_in))
+    if chain.resampler is not None:
+        n = chain.n_in
+        for i, st in enumerate(chain.resampler.stages):
+            tails.append((f"resampler stage {i}", st.hist, n))
+            n = n * st.p // st.q
+    if chain.post_filter is not None:
+        tails.append(("post-filter", chain.post_filter.block, chain.n_out))
+    for name, width, row in tails:
+        if width > row:
+            return f"{name} carries {width} samples, its block holds {row}"
+    return None
+
+
 class FoldedChain:
     """Chain-compatible step over blocks of ``fold`` row blocks: the same
     surface as Chain (step, init_carry, n_in, n_out, expected_out_frames,
@@ -59,32 +79,16 @@ class FoldedChain:
         self.in_wire_len = self.n_in * self.fmt_in.items_per_frame
         self.out_wire_len = self.n_out * self.fmt_out.items_per_frame
         self.in_wire_dtype = self.local.in_wire_dtype
+        self.out_wire_dtype = self.local.out_wire_dtype
         # the reference's fold carries every stage's tail from one row to
         # the next, so a tail wider than the row (valid unfolded) is
         # refused with the reference's error
-        wide = self._widest_tail()
+        wide = widest_tail(self.local)
         if fold > 1 and wide is not None:
             raise ValueError(
                 f"configuration incompatible with --time-fold {fold} (a stage's "
                 f"carried state exceeds the {self.local.n_in}-frame row block); "
                 f"use --time-fold 1: {wide}")
-
-    def _widest_tail(self) -> str | None:
-        lc = self.local
-        tails = []
-        if lc.pre_filter is not None:
-            tails.append(("pre-filter", lc.pre_filter.block, lc.n_in))
-        if lc.resampler is not None:
-            n = lc.n_in
-            for i, st in enumerate(lc.resampler.stages):
-                tails.append((f"resampler stage {i}", st.hist, n))
-                n = n * st.p // st.q
-        if lc.post_filter is not None:
-            tails.append(("post-filter", lc.post_filter.block, lc.n_out))
-        for name, width, row in tails:
-            if width > row:
-                return f"{name} carries {width} samples, its row holds {row}"
-        return None
 
     @property
     def fmt_in(self):
@@ -103,6 +107,12 @@ class FoldedChain:
 
     def init_carry(self, channels: int | None = None) -> dict:
         return self.local.init_carry(channels)
+
+    def carry_to_numpy(self, carry: dict) -> dict:
+        return self.local.carry_to_numpy(carry)
+
+    def carry_from_numpy(self, tree: dict) -> dict:
+        return self.local.carry_from_numpy(tree)
 
     def step(self, carry: dict, raw, reset: bool = False):
         """raw: (C, n_in * items) wire tensor -> (new carry, (C, n_out *

@@ -44,7 +44,7 @@ import torch
 
 from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.modules.base import OutputClosed
-from iq_tool_tpu_torch.pipeline.chain import Chain, carry_to_numpy
+from iq_tool_tpu_torch.pipeline.chain import Chain
 from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -182,7 +182,7 @@ class StreamEngine:
     ``initial_carry`` starts the stream from a given carry (the CLI's
     pre-stream I/Q calibration); ``checkpoint_path``,
     ``checkpoint_interval_sec`` and ``resume`` as in the module
-    docstring.  ``chain`` may be a ``Chain`` or a ``FoldedChain``."""
+    docstring.  ``chain`` may be a ``Chain``, a ``FoldedChain`` or a ``ShardedChain``."""
 
     def __init__(self, chain: Chain | None, source, sink,
                  raw_passthrough: bool = False,
@@ -328,7 +328,7 @@ class StreamEngine:
 
         skip_frames = 0
         if self.resume and self.checkpoint_path and os.path.isfile(self.checkpoint_path):
-            carry, fin, fout, _ = load_checkpoint(self.checkpoint_path, carry)
+            carry, fin, fout, _ = load_checkpoint(self.checkpoint_path, ch, carry)
             s.frames_in, s.frames_out = fin, fout
             skip_frames = fin
             if all(hasattr(src, "seek_frames") for src in self.sources):
@@ -362,7 +362,7 @@ class StreamEngine:
                 # pre-gap drain, then the EOS tail) the live carry has
                 # already seen padding
                 if pre_partial is None:
-                    pre_partial = (carry_to_numpy(carry), s.frames_in)
+                    pre_partial = (ch.carry_to_numpy(carry), s.frames_in)
             else:
                 # a full block makes the live carry consistent again
                 pre_partial = None
@@ -396,7 +396,7 @@ class StreamEngine:
             if pre_partial is not None:
                 c, fin = pre_partial
                 return c, fin, min(s.frames_out, ch.expected_out_frames(fin))
-            return carry, s.frames_in, s.frames_out
+            return ch.carry_to_numpy(carry), s.frames_in, s.frames_out
 
         def maybe_checkpoint(now: float, last: float) -> float:
             if self.checkpoint_path and now - last >= self.checkpoint_interval:

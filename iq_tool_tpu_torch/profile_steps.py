@@ -1,14 +1,17 @@
 """The chains the port is measured on, and where a step's time goes on
 the card.
 
-    python -m iq_tool_tpu_torch.profile_steps [--configs flagship 4 5 3 4k32 c1 c1f8 4c1 4c1f8 gather]
+    python -m iq_tool_tpu_torch.profile_steps [--configs flagship 4 5 3 4k32 c1 c1f8 4c1 4c1f8 gather
+                                                         flagship@1x4 4@1x4 flagship@2x2]
 
 ``config``, ``make_chain`` and ``tone_wire`` are the one definition of
 the measured chains and their seeded input; ``chip_smoke.py`` runs the
 same.  Run as a module, for each configuration (128 channels x 262144
 frames a step; "c1" and "4c1" the flagship and config #4 as one stream
 at the CLI's default 16384-frame block, "f8" with --time-fold 8;
-"gather" 128 x 254597 through the gather stage): 3 warm-up steps, then 8 steps timed by the host clock (ending in a
+"gather" 128 x 254597 through the gather stage; "<name>@<C>x<T>" the
+ShardedChain of <name> on a C x T mesh repeating the card, each shard a
+128 / C x 262144 block): 3 warm-up steps, then 8 steps timed by the host clock (ending in a
 synchronize), then 8 more under ``torch.profiler``.  Prints per
 configuration the wall ms per step, the device's busy ms per step and
 launches per step (kernels and copies, from the profiler's device
@@ -40,7 +43,8 @@ POST_SHIFT_HZ = -50_000.0   # config #4: 37 + 100 - 50 -> 87 kHz out
 GATHER_RATE = 25_282.56     # 2469/200000 of 2.048 Msps -> 449/36371: the gather stage
 GATHER_TONE_HZ = 3_000.0
 STREAM_BLOCK = 16384        # the CLI's default --block-size
-CONFIGS = ("flagship", "4", "5", "3", "4k32", "c1", "c1f8", "4c1", "4c1f8", "gather")
+CONFIGS = ("flagship", "4", "5", "3", "4k32", "c1", "c1f8", "4c1", "4c1f8", "gather",
+           "flagship@1x4", "4@1x4", "flagship@2x2")
 
 
 def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConfig:
@@ -74,8 +78,14 @@ def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConf
 def make_chain(name: str, device="cuda"):
     """The chain a profile name stands for: a CONFIGS name, "c1"/"4c1"
     the flagship/config #4 as one stream at STREAM_BLOCK frames a row,
-    with "f<F>" a FoldedChain of F rows."""
+    with "f<F>" a FoldedChain of F rows, "<name>@<C>x<T>" a ShardedChain
+    on a C x T mesh that repeats ``device``."""
+    from iq_tool_tpu_torch.parallel.sharded import ShardedChain, make_mesh
     from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+    if "@" in name:
+        base, mesh = name.split("@")
+        c, t = map(int, mesh.split("x"))
+        return ShardedChain(config(base), make_mesh([device] * (c * t), c, t))
     base, _, fold = name.partition("f") if name.startswith(("c1", "4c1")) else (name, "", "")
     if base in ("c1", "4c1"):
         cfg = config("flagship" if base == "c1" else "4", 1, STREAM_BLOCK)
@@ -108,12 +118,15 @@ def profile(name: str) -> dict:
     chain = make_chain(name, dev)
     cfg, n = chain.cfg, chain.n_in
     n_blocks = 3 + 2 * STEPS
-    wire = tone_wire(cfg.channels, n_blocks * n, torch.Generator(device=dev).manual_seed(SEED),
+    # a sharded step's block is T times a chain's: its stream repeats 4
+    # blocks, so the input stays as large as the unsharded chains'
+    distinct = n_blocks if cfg.channels * n <= CHANNELS * BLOCK else 4
+    wire = tone_wire(cfg.channels, distinct * n, torch.Generator(device=dev).manual_seed(SEED),
                      GATHER_TONE_HZ if name == "gather" else TONE_HZ)
     if cfg.input_format == "cu8":
         wire = to_cu8(wire)
-    blocks = iter([wire[:, k * 2 * n:(k + 1) * 2 * n].contiguous()
-                   for k in range(n_blocks)])
+    parts = [wire[:, k * 2 * n:(k + 1) * 2 * n].contiguous() for k in range(distinct)]
+    blocks = iter([parts[k % distinct] for k in range(n_blocks)])
     del wire
     carry = chain.init_carry()
 

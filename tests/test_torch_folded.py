@@ -294,3 +294,36 @@ def test_cli_time_fold_vs_jax(tmp_path, rng):
     b = np.frombuffer(out_j.read_bytes(), np.int16)
     assert len(a) == len(b) == 2 * (n * 11907 // 16384)
     assert int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) <= 4
+
+
+def test_folded_out_wire_dtype():
+    """FoldedChain's out_wire_dtype is the reference fold's (and its row
+    chain's)."""
+    for fmt in ("cs16", "cu8", "cf32"):
+        jcfg, pcfg = _cfgs(output_format=fmt)
+        pf = FoldedChain(pcfg, 2, device="cpu")
+        assert pf.out_wire_dtype == JaxFolded(jcfg, 2).out_wire_dtype == pf.local.out_wire_dtype
+
+
+@pytest.mark.parametrize("seed", range(25))
+def test_fuzz_folded_vs_chain(seed):
+    """tests/test_chain_fuzz.py:238: a random chain folded F times (the
+    same draws), against the port's row chain fed each folded block in F
+    slices (at the global block for the digital AGC, one update a folded
+    step)."""
+    from tests.test_chain_fuzz import _assert_parity, _draw_cfg, _fuzz_raw
+    rs = np.random.default_rng(1000 + seed)
+    jcfg = _draw_cfg(rs, channels=1)
+    cfg = ChainConfig(**{**jcfg.__dict__, "filters": tuple(
+        FilterRequest(f.type, f.freq1_hz, f.freq2_hz) for f in jcfg.filters)})
+    fold = int(rs.choice([2, 4, 8]))
+    fc = FoldedChain(cfg, fold, device="cpu")
+    raws = [_fuzz_raw(cfg, fc.in_wire_len, 1, rs) for _ in range(2)]
+    got = _run_port(fc, raws)
+    if cfg.agc_profile == "digital":
+        big = Chain(ChainConfig(**{**cfg.__dict__, "target_block": fc.n_in}), device="cpu")
+        assert big.n_in == fc.n_in
+        want = _sequential(big.cfg, raws, 1)
+    else:
+        want = _sequential(cfg, raws, fold)
+    _assert_parity(got, want, (seed, cfg, fold))

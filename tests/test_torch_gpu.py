@@ -393,6 +393,28 @@ def test_agc_gains_matches_twin(rng, profile, n, target, rows):
         assert float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()) <= 1e-4
 
 
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("n", [200, 190512, 128 * 5000 + 77])
+def test_segment_energies_matches_twin(rng, n, rows):
+    """The AGC's segment energies alone (the fused kernel's producer
+    warps, the sharded chain's energies) against segment_energies_ref:
+    one segment of 200, config #4's 1488 and a ragged 5000, one row or 8.
+    Bound: 1e-5 relative (a warp's sum against torch.mean's order over
+    at most 131 products)."""
+    _need_card()
+    ch = 5
+    ramp = np.linspace(1e-2, 1.0, rows * n)[None, :]
+    xr, xi = (_cuda((rng.standard_normal((ch, rows * n)) * 0.3 * ramp).astype(np.float32))
+              for _ in range(2))
+    before = kernels.segment_energies.launches
+    got = kernels.segment_energies(xr, xi, rows)
+    want = kernels.segment_energies_ref(xr, xi, rows)
+    torch.cuda.synchronize()
+    assert kernels.segment_energies.launches == before + 1
+    assert got.shape == want.shape == (ch, rows * kernels.agc_segments(n)[0])
+    assert float(((got - want).abs() / want.abs()).max()) <= 1e-5
+
+
 @pytest.mark.parametrize("target", [None, 0.3], ids=["default-target", "target-0.3"])
 @pytest.mark.parametrize("n_seg", [1, 1488, 5000])
 def test_agc_chain_matches_scan_twin(rng, n_seg, target):
@@ -613,5 +635,49 @@ def test_checkpoint_resume_on_card(tmp_path, fold):
     assert main(base + [str(inp), str(part), "--checkpoint", str(ck), "--resume"]) == 0
     assert part.read_bytes() == full.read_bytes()
     cpu = Chain(_chain_cfg("flagship", 16384), device="cpu")
-    carry, fin, fout, _ = load_checkpoint(str(ck), cpu.init_carry())
+    carry, fin, fout, _ = load_checkpoint(str(ck), cpu)
     assert carry["nco_pre"].device.type == "cpu" and fout == cpu.expected_out_frames(fin)
+
+
+@pytest.mark.parametrize("name,mesh", [("flagship", (1, 1)), ("flagship", (1, 4)),
+                                       ("flagship", (2, 2)), ("general", (1, 2))])
+def test_sharded_on_card_matches_chain(rng, name, mesh):
+    """The sharded chain on a mesh repeating cuda:0, 2 channels of 8192
+    frames a shard, 3 steps, against Chain on the card at the per-shard
+    framing: a 1 x 1 mesh byte-identical, the rest >= 60 dB and <= 32
+    codes; each shard runs the DC kernel twice, and the general step's
+    AGC its segment energies once a shard and its gain loop in the chain
+    kernel once a step and slab."""
+    _need_card()
+    from iq_tool_tpu_torch.parallel import ShardedChain, make_mesh
+    c_, t_ = mesh
+    cfg = (_chain_cfg("flagship", 8192, channels=2) if name == "flagship"
+           else _general_cfg(8192, channels=2))
+    sc = ShardedChain(cfg, make_mesh(["cuda:0"] * (c_ * t_), c_, t_))
+    ch = Chain(cfg, device="cuda")
+    raw = _cuda(rng.integers(-2 ** 14, 2 ** 14, (2, 3 * sc.in_wire_len)).astype(np.int16))
+    w = ch.in_wire_len
+    c1, want = ch.init_carry(), []
+    for k in range(3 * t_):
+        c1, o = ch.step(c1, raw[:, k * w:(k + 1) * w])
+        want.append(o)
+    kernels.reset_launch_counts()
+    cs, got = sc.init_carry(), []
+    for k in range(3):
+        cs, o = sc.step(cs, raw[:, k * t_ * w:(k + 1) * t_ * w])
+        got.append(o)
+    got, want = torch.cat(got, -1).cpu().numpy(), torch.cat(want, -1).cpu().numpy()
+    if mesh == (1, 1):
+        np.testing.assert_array_equal(got, want)
+        return
+    d = got.astype(np.float64) - want.astype(np.float64)
+    assert np.abs(d).max() <= 32
+    assert 10 * np.log10((want.astype(np.float64) ** 2).mean()
+                         / max((d ** 2).mean(), 1e-300)) >= 60.0
+    # the first DC pass is K3's entry on both paths; the second the
+    # flagship's prologue (K1's) or the general step's K3
+    shards = 3 * c_ * t_
+    assert (kernels.dc_block_apply.launches, kernels.dc_prologue.launches) == (
+        (2 * shards, 0) if name == "general" else (shards, shards))
+    assert kernels.agc_chain.launches == (3 * c_ if name == "general" else 0)
+    assert kernels.segment_energies.launches == (shards if name == "general" else 0)

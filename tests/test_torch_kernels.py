@@ -501,6 +501,30 @@ def test_agc_gains_twin_matches_jax(rng, profile, n):
             assert np.abs(gt.numpy() - w).max() <= 8 * np.spacing(np.abs(w)).max()
 
 
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("n", [190512, 128 * 40 + 100, 200])
+def test_segment_energies_twin(rng, n, rows):
+    """segment_energies' twin (the CPU path of the sharded chain's AGC)
+    against the reference's definition, mean(xr^2 + xi^2) over each
+    segment of each row in float64, within 1e-6 relative; and the gain
+    loop over it is rms_gains_ref, bit for bit."""
+    n_seg, seg = kernels.agc_segments(n)
+    xr, xi = ((rng.standard_normal((CH, rows * n)) * 0.3).astype(np.float32)
+              for _ in range(2))
+    got = kernels.segment_energies(_t(xr), _t(xi), rows)
+    assert got.shape == (CH, rows * n_seg) and got.dtype == torch.float32
+    cut = lambda x: x.reshape(CH, rows, n)[..., :n_seg * seg].reshape(CH, rows * n_seg, seg)
+    want = (cut(xr).astype(np.float64) ** 2 + cut(xi).astype(np.float64) ** 2).mean(-1)
+    assert np.abs(got.numpy() / want - 1.0).max() <= 1e-6
+    cfg = agc.AgcConfig.make("local", 1_488_375.0)
+    _, _, beta = agc.rms_params(cfg, n)
+    g0, e20 = torch.ones(CH), torch.zeros(CH)
+    loop = kernels.agc_chain(got, g0, e20, beta, cfg.target)
+    fused = kernels.rms_gains(_t(xr), _t(xi), g0, e20, beta, cfg.target, rows)
+    for a, b in zip(loop, fused):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("rows", [2, 8])
 def test_agc_gains_twin_rows_match_jax(rng, rows):
     """rms_gains_ref over a block of ``rows`` rows (a time fold) against

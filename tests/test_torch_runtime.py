@@ -84,9 +84,9 @@ def test_checkpoint_resume_exact(tmp_path, rng):
     for raw in raws[:2]:
         carry, _ = ch.step(carry, raw)
     path = str(tmp_path / "state.ckpt")
-    save_checkpoint(path, carry, frames_in=2 * ch.n_in, frames_out=2 * ch.n_out,
-                    meta={"cfg": "test"})
-    carry2, fin, fout, extra = load_checkpoint(path, ch.init_carry())
+    save_checkpoint(path, ch.carry_to_numpy(carry), frames_in=2 * ch.n_in,
+                    frames_out=2 * ch.n_out, meta={"cfg": "test"})
+    carry2, fin, fout, extra = load_checkpoint(path, ch)
     assert (fin, fout, extra) == (2 * ch.n_in, 2 * ch.n_out, {"cfg": "test"})
     assert carry2["nco_pre"].dtype == torch.int64
     for k, v in carry.items():
@@ -112,7 +112,7 @@ def test_checkpoint_layout_is_the_references(tmp_path, rng):
     carry, _ = ch.step(ch.init_carry(), torch.from_numpy(
         rng.integers(-2 ** 14, 2 ** 14, (1, ch.in_wire_len)).astype(np.int16)))
     path = str(tmp_path / "s.ckpt")
-    save_checkpoint(path, carry, ch.n_in, ch.n_out)
+    save_checkpoint(path, ch.carry_to_numpy(carry), ch.n_in, ch.n_out)
     jcarry, fin, fout, _ = jax_load(path, JaxChain(JaxConfig(**kw)).init_carry())
     assert (fin, fout) == (ch.n_in, ch.n_out)
     mine = carry_to_numpy(carry)
@@ -129,13 +129,14 @@ def test_checkpoint_rejects_mismatched_chain(tmp_path):
                                         input_rate=1_000_000.0, target_rate=rate,
                                         target_block=4096), device="cpu")
     path = str(tmp_path / "s.ckpt")
-    save_checkpoint(path, mk(500_000.0).init_carry(), 0, 0)
+    a, b = mk(500_000.0), mk(250_000.0)
+    save_checkpoint(path, a.carry_to_numpy(a.init_carry()), 0, 0)
     with pytest.raises(ValueError, match="mismatch"):
-        load_checkpoint(path, mk(250_000.0).init_carry())
+        load_checkpoint(path, b)
     # same structure, another width: the leaf check
-    save_checkpoint(path, mk(500_000.0).init_carry(2), 0, 0)
+    save_checkpoint(path, a.carry_to_numpy(a.init_carry(2)), 0, 0)
     with pytest.raises(ValueError, match="checkpoint leaf mismatch"):
-        load_checkpoint(path, mk(500_000.0).init_carry(1))
+        load_checkpoint(path, a, a.init_carry(1))
 
 
 def _engine_chain():
@@ -167,7 +168,7 @@ def test_no_checkpoint_after_sink_write_failure(tmp_path, rng):
                        pipeline_depth=1)
     with pytest.raises(IOError, match="disk full"):
         eng.run()
-    _, fin, fout, _ = load_checkpoint(ckpt, chain.init_carry())
+    _, fin, fout, _ = load_checkpoint(ckpt, chain)
     assert fout == chain.expected_out_frames(fin)
     assert fout * 4 == len(sink.data)
 
@@ -189,7 +190,7 @@ def test_engine_resume_skips_a_non_seekable_source(tmp_path, rng):
     second = FakeSink()
     s2 = StreamEngine(chain, FakeSource(payload, [333, 9000, 70_000]), second,
                       checkpoint_path=ckpt, resume=True).run()
-    _, fin, fout, _ = load_checkpoint(ckpt, chain.init_carry())
+    _, fin, fout, _ = load_checkpoint(ckpt, chain)
     assert s1.frames_in == cut // 4 and s2.frames_in == n
     # each run's last checkpoint is its cut before the zero-padded tail
     assert fin == (n // chain.n_in) * chain.n_in and fout == chain.expected_out_frames(fin)
