@@ -10,12 +10,18 @@ first failure:
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: nvcc compiles the kernels from csrc/ (registers, spills);
 3. kernels vs their plain twins on the card, at the flagship shapes
-   (K1 stage 0, its DC prologue alone with a bit-for-bit repeat, K2
-   stage 1 packed) and at the strides 224, 400 and 144 (planar and
-   packed), each timed twin, kernel, kernel, twin with CUDA events (K2
-   beside one float32 matmul of the unfolded windows);
+   (K1 stage 0, the carry pass then the banded kernel with the DC-wire
+   loader, with a bit-for-bit repeat, and at nrsc5's stage 0; its carry
+   pass alone; the two-launch route it replaced, the DC prologue then K2
+   over its planes, timed in turns with it; K2 decoding the wire and NCO
+   in its loader against K2 over planes at stage 0; the DC prologue
+   alone with a bit-for-bit repeat, K2 stage 1 packed) and at the strides
+   224, 400 and 144 (planar and packed), each timed twin, kernel,
+   kernel, twin with CUDA events (K2 beside one float32 matmul of the
+   unfolded windows);
 4. the slice: the flagship Chain (128 channels x 262144 frames) for 6
-   steps; both launch counters must read 6; output against the CPU twin
+   steps; K1, its carry pass and K2 must each count 6, the DC prologue
+   0; output against the CPU twin
    chain on 2 channels and a tone SNR check; steady-state Msps and peak
    device memory;
 5. the general step's kernels vs their twins at BASELINE config #4's
@@ -61,8 +67,9 @@ first failure:
    2 s tone file with the flagship flags: an uninterrupted run, a run on
    the file cut off a block boundary with --checkpoint, a --resume run
    against the whole file: byte-identical; again with --time-fold 4;
-11. [profile]: the CLI with --profile-dir: the trace names the DC and
-   banded kernels;
+11. [profile]: the CLI with --profile-dir: the trace names K1's two
+   kernels, the DC kernel's carry pass and the banded kernel with the
+   DC-wire loader;
 
 then one JSON line per the kernels (each with its bound, the bytes or
 operations that set it, the library call's time where there is one, and
@@ -173,7 +180,7 @@ def main() -> int:
         fail(f"the port is not importable next to this script: {e}")
     if not os.path.abspath(iq_tool_tpu_torch.__file__).startswith(HERE + os.sep):
         fail("iq_tool_tpu_torch was not imported from this checkout")
-    from iq_tool_tpu_torch.ops import _build, kernels
+    from iq_tool_tpu_torch.ops import _build, convert, kernels
     from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
     # the measured chains and their seeded tone, shared with the profiler
     from iq_tool_tpu_torch.profile_steps import (
@@ -250,7 +257,8 @@ def main() -> int:
                 "K5": kernels.osfft_apply.launches,
                 "AGC": kernels.rms_gains.launches,
                 "IQ": kernels.iq_descent.launches,
-                "K1pro": kernels.dc_prologue.launches}
+                "K1pro": kernels.dc_prologue.launches,
+                "K1carry": kernels.dc_carry.launches}
 
     def codes(packed):
         p = packed.to(torch.int64) & 0xFFFFFFFF
@@ -272,33 +280,115 @@ def main() -> int:
                st0.hist, wire, norm, 1.0, big.dtheta_pre, phase0)
     got = kernels.banded_apply_dc(*k1_args)
     want = kernels.banded_apply_dc_ref(*k1_args)
+    again = kernels.banded_apply_dc(*k1_args)
     torch.cuda.synchronize()
     snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in
             zip((*want[0], want[1], want[2], want[3]), (*got[0], got[1], got[2], got[3]))]
     k1_err = max_abs((*want[0], *want[1:]), (*got[0], *got[1:]))
+    same = all(torch.equal(x, y) for x, y in zip((*got[0], *got[1:]), (*again[0], *again[1:])))
     say(f"[k1] C={CH} n={BLOCK} s={st0.stride} hist={st0.hist} G={st0.band.g} "
         f"K={st0.band.k}: SNR planar {snrs[0]:.1f}/{snrs[1]:.1f} dB, tail "
         f"{snrs[2]:.1f}/{snrs[3]:.1f} dB, dc state {snrs[4]:.1f} dB, "
-        f"max |err| {k1_err:.3e}")
+        f"max |err| {k1_err:.3e}; two launches {'bit-identical' if same else 'DIFFER'}")
     if min(snrs) < 100.0:
         fail(f"K1 disagrees with its twin: min SNR {min(snrs):.1f} dB < 100 dB")
+    if not same:
+        fail("two launches of K1 on the same input differ")
+    del again
+    # nrsc5's stage 0 (cu8, stride 400: window groups of 6400 samples cut
+    # the DC kernel's 4096-sample tiles) on a block of 40 strides and a
+    # ragged 77 samples, with the NCO
+    ch_n = Chain(nrsc5(16384), device=dev)
+    st_n = ch_n.resampler.stages[0]
+    n_n = 40 * st_n.stride + 77
+    wire_n, kind_n = convert.wire_pack(to_cu8(tone_wire(CH, n_n, gen)), "cu8")
+    sn_r, sn_i = (0.1 * torch.randn((CH, st_n.hist), generator=gen, device=dev)
+                  for _ in range(2))
+    n_args = (sn_r, sn_i, dc_st, ch_n.dc_alpha, st_n.band, None, st_n.stride, st_n.hist,
+              wire_n, ch_n.fmt_in.normalizer, 1.0, big.dtheta_pre, phase0)
+    got_n = kernels.banded_apply_dc(*n_args, wire_kind=kind_n)
+    want_n = kernels.banded_apply_dc_ref(*n_args, wire_kind=kind_n)
+    torch.cuda.synchronize()
+    snrs_n = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in
+              zip((*want_n[0], *want_n[1:]), (*got_n[0], *got_n[1:]))]
+    say(f"[k1] nrsc5 stage 0 (cu8) n={n_n} s={st_n.stride} G={st_n.band.g}: SNR planar "
+        f"{snrs_n[0]:.1f}/{snrs_n[1]:.1f} dB, tail {snrs_n[2]:.1f}/{snrs_n[3]:.1f} dB, "
+        f"dc state {snrs_n[4]:.1f} dB")
+    if min(snrs_n) < 100.0:
+        fail(f"K1 disagrees with its twin at nrsc5's stage 0: {min(snrs_n):.1f} dB")
+    del got_n, want_n, wire_n
     k1_ms, k1_plain = time_pair(lambda: kernels.banded_apply_dc(*k1_args),
                                 lambda: kernels.banded_apply_dc_ref(*k1_args))
+    pro_args = (wire, dc_st, big.dc_alpha, st0.hist, norm, 1.0, big.dtheta_pre, phase0)
+
+    def old_route():
+        """The two-launch route K1 replaced: the DC prologue writes the
+        processed planes, K2 reads them back."""
+        yr, yi, _, _, _ = kernels.dc_prologue(*pro_args)
+        return kernels.banded_apply(s0r, s0i, yr, yi, st0.band, None, st0.stride,
+                                    st0.hist)
+    k1_again, old_ms = time_pair(lambda: kernels.banded_apply_dc(*k1_args), old_route)
     nb0 = BLOCK // st0.stride
     fl0 = 4 * CH * nb0 * st0.band.g * st0.band.k
     # wire, states and DC state in; planes, tails and DC state out
     k1_bytes = CH * (4 * BLOCK + 2 * (16 + 8 * st0.hist)) + CH * nb0 * st0.band.g * 8
     k1_bound = bound(k1_bytes, tf32x3_ops(st0.band, CH, nb0), PEAK_TF32_S)
-    say(f"[k1] kernel {k1_ms:.3f} ms, twin {k1_plain:.3f} ms; band product "
+    # the design's own floor: the carry pass reads the wire too
+    k1_floor = (k1_bytes + CH * 4 * BLOCK) / PEAK_BYTES_S * 1e3
+    say(f"[k1] kernel {k1_ms:.3f} ms ({k1_again:.3f} in turns with the two-launch "
+        f"route's {old_ms:.3f}), twin {k1_plain:.3f} ms; band product "
         f"{fl0 / 1e9:.2f} GFLOP -> {fl0 / k1_ms / 1e9:.2f} TFLOP/s; bound "
         f"{k1_bound[0]:.4f} ms ({k1_bound[1]}: {k1_bytes / 1e6:.1f} MB, "
         f"{tf32x3_ops(st0.band, CH, nb0) / 1e9:.2f} GFLOP of 3xTF32) -> "
-        f"{100 * k1_bound[0] / k1_ms:.1f}% of bound")
+        f"{100 * k1_bound[0] / k1_ms:.1f}% of bound; the design's floor (the wire "
+        f"read twice) {k1_floor:.4f} ms")
     report["K1"] = dict(err=k1_err, ms=k1_ms, plain=k1_plain, lib=None, bound=k1_bound)
 
-    # K1's DC prologue alone (the DC kernel's grid of (tiles, C) CTAs),
-    # and two launches on the same input compared bit for bit
-    pro_args = (wire, dc_st, big.dc_alpha, st0.hist, norm, 1.0, big.dtheta_pre, phase0)
+    # the carry pass alone (the DC kernel over the wire, no planes)
+    carry_args = (wire, dc_st, big.dc_alpha, st0.stride, st0.hist, norm, 1.0,
+                  big.dtheta_pre, phase0)
+    got_c = kernels.dc_carry(*carry_args)
+    want_c = kernels.dc_carry_ref(*carry_args)
+    torch.cuda.synchronize()
+    c_scale = float(want_c[0].abs().max())
+    c_bound_err = float((got_c[0] - want_c[0]).abs().max())
+    snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(want_c[1:], got_c[1:])]
+    carry_err = max(c_bound_err, max_abs(want_c[1:], got_c[1:]))
+    say(f"[k1carry] {want_c[0].shape[1]} window groups a channel: group states max "
+        f"|err| {c_bound_err:.3e} (of {c_scale:.3e}), SNR halo {snrs[0]:.1f}/{snrs[1]:.1f} "
+        f"dB, tail {snrs[2]:.1f}/{snrs[3]:.1f} dB, dc state {snrs[4]:.1f} dB")
+    if c_bound_err > 1e-9 * c_scale or min(snrs) < 100.0:
+        fail("K1's carry pass disagrees with its twin")
+    carry_ms, carry_plain = time_pair(lambda: kernels.dc_carry(*carry_args),
+                                      lambda: kernels.dc_carry_ref(*carry_args))
+    # wire, DC state and phases in; group states, halos, tails and DC state
+    # out; ~20 float32 operations a sample (decode, the DC recurrence twice)
+    carry_bytes = CH * (4 * BLOCK + 24 + want_c[0][0].numel() * 8
+                        + want_c[1][0].numel() * 8 + 8 * st0.hist + 16)
+    carry_bound = bound(carry_bytes, 20 * CH * BLOCK, PEAK_FP32_S)
+    say(f"[k1carry] kernel {carry_ms:.3f} ms, twin {carry_plain:.3f} ms; bound "
+        f"{carry_bound[0]:.4f} ms ({carry_bound[1]}: {carry_bytes / 1e6:.1f} MB) -> "
+        f"{100 * carry_bound[0] / carry_ms:.1f}% of bound")
+    report["K1carry"] = dict(err=carry_err, ms=carry_ms, plain=carry_plain, lib=None,
+                             bound=carry_bound)
+    del got_c, want_c
+
+    # what decoding in the loader costs: K2 at stage 0 over the packed wire
+    # with the NCO, against K2 over the prologue's planes, in turns
+    yr0, yi0, _, _, _ = kernels.dc_prologue(*pro_args)
+    wire_ms, planes_ms = time_pair(
+        lambda: kernels.banded_apply(s0r, s0i, None, None, st0.band, None, st0.stride,
+                                     st0.hist, wire_i32=wire, wire_norm=norm,
+                                     nco_dtheta=big.dtheta_pre, nco_phase=phase0),
+        lambda: kernels.banded_apply(s0r, s0i, yr0, yi0, st0.band, None, st0.stride,
+                                     st0.hist))
+    say(f"[k1] K2 at stage 0 decoding the wire and NCO in its loader {wire_ms:.3f} ms, "
+        f"over the prologue's planes {planes_ms:.3f} ms")
+    del yr0, yi0
+
+    # the DC prologue alone (the DC kernel's grid of (tiles, C) CTAs; the
+    # sharded chain's stage 0), and two launches on the same input compared
+    # bit for bit
     got_p = kernels.dc_prologue(*pro_args)
     want_p = kernels.dc_prologue_ref(*pro_args)
     again = kernels.dc_prologue(*pro_args)
@@ -426,15 +516,17 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"K1": kernels.banded_apply_dc.launches,
                 "K2": kernels.banded_apply.launches,
-                "K1pro": kernels.dc_prologue.launches}
+                "K1pro": kernels.dc_prologue.launches,
+                "K1carry": kernels.dc_carry.launches}
     step_ms = ev[0].elapsed_time(ev[1]) / (STEPS - 2)
     peak = torch.cuda.max_memory_allocated()
     msps = CH * BLOCK / (step_ms / 1e3) / 1e6
     say(f"[slice] {STEPS} steps of {CH} x {BLOCK}: launches {launches}, "
         f"{step_ms:.3f} ms/step over steps 3-{STEPS} -> {msps:.1f} Msps in, "
         f"peak device memory {peak / 2 ** 20:.1f} MiB")
-    if launches != {"K1": STEPS, "K2": STEPS, "K1pro": STEPS}:
-        fail(f"launch counters {launches}, expected {STEPS} each")
+    if launches != {"K1": STEPS, "K2": STEPS, "K1pro": 0, "K1carry": STEPS}:
+        fail(f"launch counters {launches}, expected {STEPS} each of K1, its carry "
+             f"pass and K2, the DC prologue none")
     got_wire = torch.cat(outs, dim=-1).cpu().numpy()
     if got_wire.shape != (2, STEPS * 2 * big.n_out) or got_wire.dtype != np.int16:
         fail(f"chain output {got_wire.shape} {got_wire.dtype}")
@@ -755,22 +847,22 @@ def main() -> int:
     step_ms_of = {"[slice]": step_ms}
     general_launches = run_general("4", STEPS)
     want_counts = {"K1": 0, "K2": 2 * STEPS, "K3": STEPS, "K4": STEPS,
-                   "K5": STEPS, "AGC": STEPS, "IQ": STEPS, "K1pro": 0}
+                   "K5": STEPS, "AGC": STEPS, "IQ": STEPS, "K1pro": 0, "K1carry": 0}
     if general_launches != want_counts:
         fail(f"config #4 launch counters {general_launches}, expected {want_counts}")
     s5 = run_general("5", GENERAL_STEPS)
     if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
               "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQ": 0,
-              "K1pro": 0}:
+              "K1pro": 0, "K1carry": 0}:
         fail(f"config #5 launch counters {s5}")
     s3 = run_general("3", GENERAL_STEPS)
     if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K3": GENERAL_STEPS,
-              "K4": 0, "K5": 0, "AGC": 0, "IQ": 0, "K1pro": 0}:
+              "K4": 0, "K5": 0, "AGC": 0, "IQ": 0, "K1pro": 0, "K1carry": 0}:
         fail(f"config #3 launch counters {s3}")
     s4k = run_general("4k32", GENERAL_STEPS)
     if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
                "K4": GENERAL_STEPS, "K5": GENERAL_STEPS, "AGC": GENERAL_STEPS,
-               "IQ": GENERAL_STEPS, "K1pro": 0}:
+               "IQ": GENERAL_STEPS, "K1pro": 0, "K1carry": 0}:
         fail(f"config #4 at nfft 32768 launch counters {s4k}")
     say(f"[steps] ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms_of.items()))
 
@@ -892,7 +984,7 @@ def main() -> int:
                  f"{d_twin} codes (> 4)")
         if snr_f < 60.0 or np.abs(diff).max() > 32:
             fail(f"[fold] {label}: the fold leaves its contract (>= 60 dB, <= 32 codes)")
-        if any(fc_counts[k] == 0 for k in (("K1", "K1pro", "K2") if cname == "c1"
+        if any(fc_counts[k] == 0 for k in (("K1", "K1carry", "K2") if cname == "c1"
                                             else ("K2", "K3", "K4", "K5", "AGC", "IQ"))):
             fail(f"[fold] {label}: a kernel of the path did not launch: {fc_counts}")
         if cname == "4c1":
@@ -1033,7 +1125,7 @@ def main() -> int:
         f"{counts}; max |dcode| vs Chain {dmax:g}")
     if dmax != 0 or runs[1][5] != 0:
         fail("[shard] a 1x1 mesh is not byte-identical to Chain")
-    if counts != {"K1": 1, "K2": 1, "K1pro": 1}:
+    if counts != {"K1": 1, "K2": 1, "K1carry": 1}:
         fail(f"[shard] 1x1 flagship launches per step {counts}")
     shard_report["1x1 flagship"] = counts
     want_counts = {
@@ -1250,7 +1342,7 @@ def main() -> int:
             fail(f"[ckpt] --time-fold {fold}: resume is not byte-identical")
     ck_counts = launch_counts()
     say(f"[ckpt] launches over the 6 runs: {ck_counts}")
-    if not all(ck_counts[k] for k in ("K1", "K1pro", "K2")):
+    if not all(ck_counts[k] for k in ("K1", "K1carry", "K2")) or ck_counts["K1pro"]:
         fail(f"[ckpt] the CLI runs did not launch the flagship's kernels: {ck_counts}")
 
     # ------------------------------------------------------------ 11. profile
@@ -1268,16 +1360,20 @@ def main() -> int:
     kern = sorted({e["name"].split("(")[0] for e in events
                    if e.get("cat") == "kernel" and ("dc_kernel" in e.get("name", "")
                                                     or "banded_kernel" in e.get("name", ""))})
+    # K1's two kernels by their template flags: the DC kernel's carry pass
+    # (dc_kernel<planar in, I/Q, carry>) and the banded kernel with the
+    # DC-wire loader (banded_kernel<complex, pair, dc, ...>)
+    k1_names = ("dc_kernel<false, false, true>", "banded_kernel<false, true, true,")
     n_k = sum(1 for e in events if e.get("cat") == "kernel")
     say(f"[profile] {os.path.basename(traces[0])}: {os.path.getsize(traces[0]) / 2 ** 20:.1f} "
         f"MiB, {len(events)} events, {n_k} kernel launches; the chain's kernels in it: {kern}")
-    if not (any("dc_kernel" in k for k in kern) and any("banded_kernel" in k for k in kern)):
-        fail("[profile] the trace does not name the DC and banded kernels")
+    if not all(any(name in k for k in kern) for name in k1_names):
+        fail(f"[profile] the trace does not name K1's kernels {k1_names}")
     for p_ in (inp, half, full, part, ck, traces[0]):
         os.remove(p_)
 
     # ------------------------------------------------------------ result
-    src = {"K1": "iq_tool_tpu_torch/csrc/banded_dc.cu",
+    src = {"K1": "iq_tool_tpu_torch/csrc/banded.cu",
            "K2": "iq_tool_tpu_torch/csrc/banded.cu",
            "K3": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "K4": "iq_tool_tpu_torch/csrc/post.cu",
@@ -1285,6 +1381,7 @@ def main() -> int:
            "AGC": "iq_tool_tpu_torch/csrc/post.cu",
            "IQ": "iq_tool_tpu_torch/csrc/iq_est.cu",
            "K1pro": "iq_tool_tpu_torch/csrc/banded_dc.cu",
+           "K1carry": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "AGCenergy": "iq_tool_tpu_torch/csrc/post.cu",
            "AGCchain": "iq_tool_tpu_torch/csrc/post.cu"}
     rep = {"K1": "iq_tool_tpu/ops/pallas_kernels.py:772",
@@ -1295,14 +1392,17 @@ def main() -> int:
            "AGC": "iq_tool_tpu/ops/agc.py:116",
            "IQ": "iq_tool_tpu/ops/iq_balance.py:147",
            "K1pro": "iq_tool_tpu/ops/pallas_kernels.py:772",
+           "K1carry": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "AGCenergy": "iq_tool_tpu/parallel/sharded.py:271",
            "AGCchain": "iq_tool_tpu/ops/agc.py:78"}
-    # K1/K1pro/K2 launches from the flagship slice, the rest from config
+    # K1/K1carry/K2 launches from the flagship slice, the rest from config
     # #4's run, K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
-    # config #3's; and each phase's launches per step
+    # config #3's, the DC prologue from the 1x4 flagship's sharded run; and
+    # each phase's launches per step
     counts = {**general_launches, **launches, "K5@32768": s4k["K5"], "K3@cu8": s3["K3"],
               **{k: int(shard_report["1x4 config #4"][k] * SHARD_STEPS)
-                 for k in ("AGCenergy", "AGCchain")}}
+                 for k in ("AGCenergy", "AGCchain")},
+              "K1pro": int(shard_report["1x4 flagship"]["K1pro"] * SHARD_STEPS)}
     src["K5@32768"], rep["K5@32768"] = src["K5"], rep["K5"]
     src["K3@cu8"], rep["K3@cu8"] = src["K3"], rep["K3"]
     phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQ=0), STEPS),

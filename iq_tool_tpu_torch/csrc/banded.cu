@@ -6,7 +6,11 @@
 // _shift_kernel_complex bodies): planar or packed-wire input with an
 // optional NCO mix at each sample's global index, planar float32 or
 // quantized packed-wire output, real or complex taps, any stride and
-// history.
+// history.  With the DC-wire loader (kDc, iq_banded_dc_apply) it is K1's
+// second launch, behind the DC kernel's carry pass (csrc/banded_dc.cu):
+// with it, iq_tool_tpu/ops/pallas_kernels.py:banded_apply_dc
+// (_banded_dc_kernel), stage 0 with the wire decode, DC block and NCO in
+// front, one read of the wire and no processed planes in device memory.
 //
 // What bounds it on the card: a polyphase column has K non-zero taps (32
 // at flagship stage 0, 96 at stage 1 with the lowpass composed in) out of
@@ -53,6 +57,7 @@
 //   is decoded and NCO-mixed once per staged sample (load_ext), not per
 //   product.  Both buffers are zeroed once, so a span's read-ahead past
 //   the group's samples (multiplied by B's zeros) reads finite values.
+//   K1's DC-wire loader stages into one buffer (below).
 // * Bank conflicts.  The rows of an A fragment are windows s apart; at the
 //   flagship strides 256 and 512 (multiples of 32 words) they would all
 //   land in one bank.  The span is staged as rows of s samples at a pitch
@@ -65,7 +70,7 @@
 //   Three CTAs of 256 threads share an SM where their staging buffers fit
 //   (strides 224, 256 and 144: registers capped to fit three, a few spill, and
 //   the third CTA still gains), else two, else one CTA of 512 threads
-//   (stride 512).
+//   (stride 512; K1 at stride 512 runs two CTAs of 256).
 
 #include <cuda_runtime.h>
 
@@ -102,6 +107,14 @@ struct BandedArgs {
   float* out_i;
   void* out_packed;  // (C, nb*G) packed wire output when q.bits != 0
   PackParams q;
+  // K1's DC-wire loader (kDc): the carry pass's state before each group
+  // and the processed samples before it (csrc/banded_dc.cu iq_dc_carry)
+  const double* bound;  // (C, groups, 4) [yr, yi, xr, xi]
+  const float* halo_r;  // (C, groups, hist)
+  const float* halo_i;
+  double pole;   // the DC pole 1 - alpha
+  int per;       // new samples a thread scans: odd, per * threads >= 16 s
+  int raw_vec;   // wire rows 16-byte aligned: the raw span by 16-byte cp.async
 };
 
 // Sample e of one channel's extended input state ++ x with x the packed
@@ -138,6 +151,16 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Stage windows [b0, b0 + nw) of channel c: ext[b0*s + e] for e < nw*s +
 // hist at row e / s, column e % s of the padded planes.
 __device__ void stage(const BandedArgs& a, int c, int b0, int nw, float* seg_r,
@@ -164,6 +187,178 @@ __device__ void stage(const BandedArgs& a, int c, int b0, int nw, float* seg_r,
         seg_r[o] = vr;
         seg_i[o] = vi;
       }
+    }
+  }
+}
+
+// ---- K1's DC-wire loader ----------------------------------------------
+//
+// A group's span is its `hist` samples before the group (the carried
+// history for group 0, the carry pass's halo after) and its nw * s new
+// samples x[p, p + nw s), p = 16 s g.  Group i + 1's raw wire is copied
+// into shared memory (`raw`, cp.async) while group i multiplies; then
+// each thread decodes its row of `per` consecutive new samples from `raw`
+// into their staged places and runs them from y = 0;
+// a warp-shuffle scan plus a Horner pass over the warp totals (the DC
+// kernel's scheme, float64) gives each row its incoming y from the carry
+// pass's y[p - 1]; the thread reruns its row from there, rounds each
+// sample to float32 once, NCO-mixes it at its index in the block and
+// overwrites its staged place.  `per` is odd, so a warp's rows start in
+// distinct banks.  The CTA stages into the one buffer it multiplies from,
+// so at stride 512 two CTAs of 256 threads fit an SM and one stages while
+// the other multiplies.  (On an H100, one CTA of 16 warps double
+// buffering, and 2-4 loader warps beside 12-14 multiplying ones, were
+// slower: the loader warps could not stage a group while the others
+// multiplied one.)
+
+struct DcScan {
+  double level[6];    // a^(per 2^k); level[5] = a^(32 per), a warp's samples
+  double lane_pow[32];  // a^(per lane)
+  double warp_r[16];  // warp totals from y = 0 at the group start
+  double warp_i[16];
+};
+
+// Bytes of the raw buffer: a group's new samples, rounded up to 16.
+inline int dc_raw_bytes(int s, int elem) { return (kWin * s * elem + 15) / 16 * 16; }
+
+__device__ __forceinline__ int wire_elem(int kind) {
+  return kind == kCs16 || kind == kCu16 ? 4 : 2;
+}
+
+// Copy group (c, g)'s new samples' raw wire into `raw` (cp.async, 16
+// bytes a copy, where the rows allow it; else plain loads).
+__device__ __forceinline__ void prefetch_raw(const BandedArgs& a, int c, int g, int nw,
+                                             char* raw) {
+  const int elem = wire_elem(a.kind);
+  const long long first = static_cast<long long>(c) * a.n + static_cast<long long>(g) * kWin * a.s;
+  const char* src = static_cast<const char*>(a.wire) + first * elem;
+  const int len = nw * a.s;
+  if (a.raw_vec) {
+    const int chunks = (len * elem + 15) / 16;
+    for (int i = threadIdx.x; i < chunks; i += blockDim.x) cp_async16(raw + 16 * i, src + 16 * i);
+  } else if (elem == 4) {
+    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+      reinterpret_cast<int*>(raw)[i] = reinterpret_cast<const int*>(src)[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+      reinterpret_cast<short*>(raw)[i] = reinterpret_cast<const short*>(src)[i];
+    }
+  }
+}
+
+// Stage group (c, g) of nw windows from the halo and the raw buffer, as
+// stage() stages ext[b0 s + e] for e < nw s + hist.  Every thread calls
+// it (it holds a barrier).  my_pow = a^(per threadIdx.x).
+__device__ __forceinline__ void stage_dc(const BandedArgs& a, int c, int g, int nw,
+                                         const char* raw, DcScan& sc, double my_pow,
+                                         float* seg_r, float* seg_i) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long p = static_cast<long long>(g) * kWin * a.s;  // x index of the group
+  for (int j = tid; j < a.hist; j += blockDim.x) {
+    const long long e = p + j;  // ext index
+    float vr, vi;
+    if (e < a.hist) {
+      vr = a.st_r[static_cast<long long>(c) * a.hist + e];
+      vi = a.st_i[static_cast<long long>(c) * a.hist + e];
+    } else {
+      const long long h = (static_cast<long long>(c) * a.groups + g) * a.hist + j;
+      vr = a.halo_r[h];
+      vi = a.halo_i[h];
+    }
+    const int o = (j / a.s) * a.pitch + j % a.s;
+    seg_r[o] = vr;
+    seg_i[o] = vi;
+  }
+
+  const double pa = a.pole;
+  const int len = nw * a.s;
+  const int first = tid * a.per;
+  const int m = len - first <= 0 ? 0 : (len - first >= a.per ? a.per : len - first);
+  const double* rec = a.bound + (static_cast<long long>(c) * a.groups + g) * 4;
+  // x of the sample before this thread's row
+  float px_r = 0.0f, px_i = 0.0f;
+  if (tid == 0) {
+    px_r = static_cast<float>(rec[2]);
+    px_i = static_cast<float>(rec[3]);
+  } else if (m > 0) {
+    wire_decode(raw, a.kind, first - 1, a.norm, a.gain, &px_r, &px_i);
+  }
+  // staged place of this row's first sample: e = hist + first
+  const int q0 = (a.hist + first) / a.s, r0 = a.hist + first - q0 * a.s;
+  double er = 0.0, ei = 0.0;
+  {
+    double pr = px_r, pi = px_i;
+    int q = q0, r = r0;
+    // unrolled, so that the decodes (and below, the NCO's sincos) of
+    // several samples overlap the recurrence's dependent chain
+#pragma unroll 8
+    for (int k = 0; k < m; ++k) {
+      float xr, xi;
+      wire_decode(raw, a.kind, first + k, a.norm, a.gain, &xr, &xi);
+      seg_r[q * a.pitch + r] = xr;
+      seg_i[q * a.pitch + r] = xi;
+      er = fma(pa, er, static_cast<double>(xr) - pr);
+      ei = fma(pa, ei, static_cast<double>(xi) - pi);
+      pr = xr;
+      pi = xi;
+      if (++r == a.s) {
+        r = 0;
+        ++q;
+      }
+    }
+  }
+  // warp scan of the row ends: every row before the last valid one holds
+  // per samples, so each level's coefficient is one constant
+  double sr = er, si = ei;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const double ur = __shfl_up_sync(0xffffffffu, sr, 1 << k);
+    const double ui = __shfl_up_sync(0xffffffffu, si, 1 << k);
+    if (lane >= (1 << k)) {
+      sr = fma(sc.level[k], ur, sr);
+      si = fma(sc.level[k], ui, si);
+    }
+  }
+  double zr = __shfl_up_sync(0xffffffffu, sr, 1);
+  double zi = __shfl_up_sync(0xffffffffu, si, 1);
+  if (lane == 0) zr = zi = 0.0;
+  if (lane == 31) {
+    sc.warp_r[warp] = sr;
+    sc.warp_i[warp] = si;
+  }
+  __syncthreads();
+  if (m == 0) return;
+  {
+    double wr = 0.0, wi = 0.0;
+    for (int v = 0; v < warp; ++v) {
+      wr = fma(sc.level[5], wr, sc.warp_r[v]);
+      wi = fma(sc.level[5], wi, sc.warp_i[v]);
+    }
+    zr = fma(sc.lane_pow[lane], wr, zr);
+    zi = fma(sc.lane_pow[lane], wi, zi);
+  }
+  double yr = fma(my_pow, rec[0], zr);
+  double yi = fma(my_pow, rec[1], zi);
+  double pr = px_r, pi = px_i;
+  const unsigned ph0 = a.dtheta ? static_cast<unsigned>(a.phase[c]) : 0u;
+  int q = q0, r = r0;
+#pragma unroll 8
+  for (int k = 0; k < m; ++k) {
+    const int o = q * a.pitch + r;
+    const float xr = seg_r[o], xi = seg_i[o];
+    yr = fma(pa, yr, static_cast<double>(xr) - pr);
+    yi = fma(pa, yi, static_cast<double>(xi) - pi);
+    pr = xr;
+    pi = xi;
+    float vr = static_cast<float>(yr);
+    float vi = static_cast<float>(yi);
+    if (a.dtheta) nco_rotate(ph0, a.dtheta, p + first + k, &vr, &vi);
+    seg_r[o] = vr;
+    seg_i[o] = vi;
+    if (++r == a.s) {
+      r = 0;
+      ++q;
     }
   }
 }
@@ -249,7 +444,7 @@ __device__ __forceinline__ void load_a(const float* seg, int o, int o_next, int 
   split(v3, h[3], l[3]);
 }
 
-template <bool kComplex, bool kPair, int kThreads, int kMinCtas>
+template <bool kComplex, bool kPair, bool kDc, int kThreads, int kMinCtas>
 __global__ void __launch_bounds__(kThreads, kMinCtas) banded_kernel(const BandedArgs a) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
@@ -260,30 +455,69 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) banded_kernel(const Banded
   const int p8 = 8 * a.pitch;
   const int gp = gid * a.pitch;
 
-  for (int i = threadIdx.x; i < 4 * a.buf_len; i += blockDim.x) smem[i] = 0.0f;
-  __syncthreads();
-  if (i_begin < i_end) {
-    const int c = static_cast<int>(i_begin / a.groups);
-    const int b0 = static_cast<int>(i_begin % a.groups) * kWin;
-    stage(a, c, b0, min(kWin, a.nb - b0), smem, smem + a.buf_len);
+  // kDc stages one group at a time (two CTAs share an SM instead, one
+  // staging while the other multiplies); the others double buffer
+  constexpr int kBufs = kDc ? 1 : 2;
+  for (int i = threadIdx.x; i < 2 * kBufs * a.buf_len; i += blockDim.x) smem[i] = 0.0f;
+  // kDc: the scan's constants and scratch, then the raw buffer, behind
+  // the staged planes
+  DcScan* sc = reinterpret_cast<DcScan*>(smem + 2 * kBufs * a.buf_len);
+  char* raw = reinterpret_cast<char*>(sc + 1);
+  double my_pow = 0.0;
+  // (channel, group, windows) of an item
+  auto item_at = [&](long long i, int& c, int& g, int& nw) {
+    c = static_cast<int>(i / a.groups);
+    g = static_cast<int>(i % a.groups);
+    nw = min(kWin, a.nb - g * kWin);
+  };
+  if constexpr (kDc) {
+    my_pow = ipow(a.pole, static_cast<unsigned>(a.per * threadIdx.x));
+    if (threadIdx.x < 32) sc->lane_pow[threadIdx.x] = ipow(a.pole, a.per * threadIdx.x);
+    if (threadIdx.x >= 32 && threadIdx.x < 38) {
+      sc->level[threadIdx.x - 32] = ipow(a.pole, a.per << (threadIdx.x - 32));
+    }
+    if (i_begin < i_end) {
+      int c, g, nw;
+      item_at(i_begin, c, g, nw);
+      prefetch_raw(a, c, g, nw, raw);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();  // the buffers are zeroed, the constants and raw wire in
+      stage_dc(a, c, g, nw, raw, *sc, my_pow, smem, smem + a.buf_len);
+      __syncthreads();  // the raw buffer is free
+      if (i_begin + 1 < i_end) {
+        item_at(i_begin + 1, c, g, nw);
+        prefetch_raw(a, c, g, nw, raw);
+        cp_async_commit();
+      }
+    }
+  } else {
+    __syncthreads();
+    if (i_begin < i_end) {
+      const int c = static_cast<int>(i_begin / a.groups);
+      const int b0 = static_cast<int>(i_begin % a.groups) * kWin;
+      stage(a, c, b0, min(kWin, a.nb - b0), smem, smem + a.buf_len);
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 
   int buf = 0;
   for (long long item = i_begin; item < i_end; ++item, buf ^= 1) {
     const int c = static_cast<int>(item / a.groups);
     const int b0 = static_cast<int>(item % a.groups) * kWin;
     const int b_end = min(b0 + kWin, a.nb);
-    if (item + 1 < i_end) {
-      const int cn = static_cast<int>((item + 1) / a.groups);
-      const int bn = static_cast<int>((item + 1) % a.groups) * kWin;
-      float* nxt = smem + (buf ^ 1) * 2 * a.buf_len;
-      stage(a, cn, bn, min(kWin, a.nb - bn), nxt, nxt + a.buf_len);
+    if constexpr (!kDc) {
+      if (item + 1 < i_end) {
+        const int cn = static_cast<int>((item + 1) / a.groups);
+        const int bn = static_cast<int>((item + 1) % a.groups) * kWin;
+        float* nxt = smem + (buf ^ 1) * 2 * a.buf_len;
+        stage(a, cn, bn, min(kWin, a.nb - bn), nxt, nxt + a.buf_len);
+      }
+      cp_async_commit();
+      cp_async_wait_prior();
+      __syncthreads();
     }
-    cp_async_commit();
-    cp_async_wait_prior();
-    __syncthreads();
-    const float* seg_r = smem + buf * 2 * a.buf_len;
+    const float* seg_r = smem + (kDc ? 0 : buf * 2 * a.buf_len);
     const float* seg_i = seg_r + a.buf_len;
 
     for (int t = warp; t < a.n_tiles; t += nwarps) {
@@ -379,7 +613,23 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) banded_kernel(const Banded
         }
       }
     }
+    if constexpr (kDc) cp_async_wait_all();  // the next group's raw wire
     __syncthreads();  // this buffer is restaged next
+    if constexpr (kDc) {
+      // stage the next group, its raw wire copied during this group's
+      // products, and copy the one after it during the next group's
+      if (item + 1 < i_end) {
+        int cn, gn, nwn;
+        item_at(item + 1, cn, gn, nwn);
+        stage_dc(a, cn, gn, nwn, raw, *sc, my_pow, smem, smem + a.buf_len);
+        __syncthreads();  // staged; the raw buffer is free
+        if (item + 2 < i_end) {
+          item_at(item + 2, cn, gn, nwn);
+          prefetch_raw(a, cn, gn, nwn, raw);
+          cp_async_commit();
+        }
+      }
+    }
   }
 }
 
@@ -389,15 +639,16 @@ inline int banded_buf_len(int s, int hist, int span, int pitch) {
   return static_cast<int>(rows * pitch);
 }
 
-template <bool kComplex, bool kPair>
+template <bool kComplex, bool kPair, bool kDc>
 cudaError_t launch_t(BandedArgs a, int sms, int smem_max, cudaStream_t stream) {
-  const size_t smem = 4 * sizeof(float) * static_cast<size_t>(a.buf_len);
+  size_t smem = (kDc ? 2 : 4) * sizeof(float) * static_cast<size_t>(a.buf_len);
+  if (kDc) smem += sizeof(DcScan) + dc_raw_bytes(a.s, a.kind == kCs16 || a.kind == kCu16 ? 4 : 2);
   if (smem > static_cast<size_t>(smem_max)) return cudaErrorInvalidConfiguration;
   // Three CTAs of 256 threads where their shared memory fits an SM (the
   // registers capped to fit them too: a few spill, and it still gains),
   // else two of 256 under the looser cap, else one of 512.
-  auto small = banded_kernel<kComplex, kPair, 256, 3>;
-  auto large = banded_kernel<kComplex, kPair, 512, 1>;
+  auto small = banded_kernel<kComplex, kPair, kDc, 256, 3>;
+  auto large = banded_kernel<kComplex, kPair, kDc, 512, 1>;
   int per_sm = 0, threads = 256;
   cudaError_t err = cudaFuncSetAttribute(
       small, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -420,33 +671,53 @@ cudaError_t launch_t(BandedArgs a, int sms, int smem_max, cudaStream_t stream) {
   }
   const long long slots = static_cast<long long>(per_sm < 1 ? 1 : per_sm) * sms;
   const int grid = static_cast<int>(a.items < slots ? a.items : slots);
+  if (kDc) {
+    // the smallest odd row length that covers a group's 16 s samples
+    a.per = (kWin * a.s + threads - 1) / threads;
+    a.per |= 1;
+  }
   kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Launch on `stream`; returns the launch's cudaError_t (0 on success).
-int launch_banded(BandedArgs a, int channels, cudaStream_t stream) {
+int launch_banded(BandedArgs a, int channels, bool dc, cudaStream_t stream) {
   if (channels <= 0 || a.s <= 0 || a.hist < 0 || a.g <= 0 || a.n_tiles <= 0 ||
-      a.n_tiles * 8 * kNb < a.g || a.span <= 0 || a.span % 8 != 0) {
+      a.n_tiles * 8 * kNb < a.g || a.span <= 0 || a.span % 8 != 0 ||
+      (dc && (a.kind == kPlanar || !a.wire || !a.bound || !a.halo_r || !a.halo_i ||
+              (a.dtheta && !a.phase)))) {
     return cudaErrorInvalidValue;
   }
   a.nb = a.n / a.s;
   if (a.nb <= 0) return cudaErrorInvalidValue;
   a.pitch = a.s + ((8 - a.s % 16) + 16) % 16;
   a.buf_len = banded_buf_len(a.s, a.hist, a.span, a.pitch);
-  a.groups = (a.nb + kWin - 1) / kWin;
+  const int groups = (a.nb + kWin - 1) / kWin;
+  if (dc && a.groups != groups) return cudaErrorInvalidValue;  // the carry pass's
+  a.groups = groups;
   a.items = static_cast<long long>(a.groups) * channels;
   int dev = 0, sms = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const bool pair = a.s % 2 == 0;
-  if (a.taps_i != nullptr) {
-    return pair ? launch_t<true, true>(a, sms, smem_max, stream)
-                : launch_t<true, false>(a, sms, smem_max, stream);
+  if (dc) {
+    const int elem = a.kind == kCs16 || a.kind == kCu16 ? 4 : 2;
+    a.raw_vec = (reinterpret_cast<unsigned long long>(a.wire) & 15u) == 0 &&
+                (static_cast<long long>(a.n) * elem) % 16 == 0;
+    if (a.taps_i != nullptr) {
+      return pair ? launch_t<true, true, true>(a, sms, smem_max, stream)
+                  : launch_t<true, false, true>(a, sms, smem_max, stream);
+    }
+    return pair ? launch_t<false, true, true>(a, sms, smem_max, stream)
+                : launch_t<false, false, true>(a, sms, smem_max, stream);
   }
-  return pair ? launch_t<false, true>(a, sms, smem_max, stream)
-              : launch_t<false, false>(a, sms, smem_max, stream);
+  if (a.taps_i != nullptr) {
+    return pair ? launch_t<true, true, false>(a, sms, smem_max, stream)
+                : launch_t<true, false, false>(a, sms, smem_max, stream);
+  }
+  return pair ? launch_t<false, true, false>(a, sms, smem_max, stream)
+              : launch_t<false, false, false>(a, sms, smem_max, stream);
 }
 
 }  // namespace iqk
@@ -482,5 +753,46 @@ extern "C" int iq_banded_apply(
   a.out_i = out_i;
   a.out_packed = out_packed;
   a.q = iqk::PackParams{q_bits, q_signed, q_scale, q_offset, q_lo, q_hi};
-  return iqk::launch_banded(a, channels, static_cast<cudaStream_t>(stream));
+  return iqk::launch_banded(a, channels, false, static_cast<cudaStream_t>(stream));
+}
+
+// K1's banded kernel: stage 0 over the packed wire, decoded, DC-blocked
+// from the carry pass's group states and halos (iq_dc_carry, `groups`
+// its group count: ceil((n / s) / 16)) and NCO-mixed in the loader.
+extern "C" int iq_banded_dc_apply(
+    const void* wire, int kind, float norm, float gain, const long long* phase,
+    unsigned dtheta, double pole, const double* bound, const float* halo_r,
+    const float* halo_i, int groups, const float* st_r, const float* st_i,
+    const void* taps_r, const void* taps_i, const int* tile_first, int n_tiles,
+    int span, int channels, int n, int s, int hist, int g, float* out_r,
+    float* out_i, void* out_packed, int q_bits, int q_signed, float q_scale,
+    float q_offset, float q_lo, float q_hi, void* stream) {
+  iqk::BandedArgs a{};
+  a.wire = wire;
+  a.kind = kind;
+  a.norm = norm;
+  a.gain = gain;
+  a.phase = phase;
+  a.dtheta = dtheta;
+  a.pole = pole;
+  a.bound = bound;
+  a.halo_r = halo_r;
+  a.halo_i = halo_i;
+  a.groups = groups;
+  a.st_r = st_r;
+  a.st_i = st_i;
+  a.taps_r = static_cast<const float4*>(taps_r);
+  a.taps_i = static_cast<const float4*>(taps_i);
+  a.tile_first = tile_first;
+  a.n_tiles = n_tiles;
+  a.span = span;
+  a.n = n;
+  a.s = s;
+  a.hist = hist;
+  a.g = g;
+  a.out_r = out_r;
+  a.out_i = out_i;
+  a.out_packed = out_packed;
+  a.q = iqk::PackParams{q_bits, q_signed, q_scale, q_offset, q_lo, q_hi};
+  return iqk::launch_banded(a, channels, true, static_cast<cudaStream_t>(stream));
 }

@@ -1,27 +1,34 @@
-// The DC-block pre-stage: one templated kernel serves two entry points.
+// The DC-block pre-stage: one templated kernel serves three entry points.
 //
-// * K1 prologue (iq_dc_prologue): packed-wire decode -> DC block -> NCO
-//   mix over whole channels, writing the processed planes, their last
-//   `hist` samples (the resampler stage's next carried history) and the
-//   new DC state.  The port's K1 is this launch followed by the K2 banded
-//   kernel over the processed planes (ops/kernels.py banded_apply_dc).
-//   Replaces iq_tool_tpu/ops/pallas_kernels.py:banded_apply_dc
+// * K1's carry pass (iq_dc_carry): packed-wire decode -> DC block over
+//   whole channels, writing no planes: the state before each of the
+//   banded kernel's window groups, the `hist` processed (NCO-mixed)
+//   samples before each group, the block's last `hist` processed samples
+//   (the resampler stage's next carried history) and the new DC state.
+//   The port's K1 is this launch followed by the banded kernel, which
+//   decodes, DC-blocks and NCO-mixes the wire in its loader from those
+//   states (csrc/banded.cu, ops/kernels.py banded_apply_dc).  Replaces,
+//   with it, iq_tool_tpu/ops/pallas_kernels.py:banded_apply_dc
 //   (_banded_dc_kernel with _wire_decode, _dc_plane_tile and
 //   _nco_mix_base).
+// * The prologue (iq_dc_prologue): the same over whole channels, writing
+//   the processed planes, their last `hist` samples and the new DC state
+//   (the sharded chain's stage 0, parallel/sharded.py).
 // * K3 (iq_dc_block_apply): packed wire or float32 planes in -> DC block
 //   -> I/Q apply I' = (1+g)I, Q' = Q + phi*I -> NCO mix, writing the
 //   planes and the new DC state, no tail.  Replaces
 //   iq_tool_tpu/ops/pallas_kernels.py:dc_block_apply (_dc_kernel).  It
 //   takes any N: the TPU's N % 128 gate (dc_geometry) is not copied.
 //
-// Both are the same recurrence with a different front and back, so they
-// share one __global__ with template flags (planar input, I/Q apply) and
-// a runtime tail pointer.  The DC state written is the pre-I/Q, pre-NCO
-// state, as _dc_kernel writes it.
+// All are the same recurrence with a different front and back, so they
+// share one __global__ with template flags (planar input, I/Q apply,
+// carry pass) and a runtime tail pointer.  The DC state written is the
+// pre-I/Q, pre-NCO state, as _dc_kernel writes it.
 //
 // What bounds it on the card: bytes.  Per sample it reads one packed
 // wire element (4 B for 16-bit wires, 2 B for 8-bit) or two float32
-// planes (8 B) and writes two float32 planes (8 B).
+// planes (8 B) and writes two float32 planes (8 B); the carry pass writes
+// ~0.8 % of that (33 floats a group of 16 s samples).
 //
 // The TPU kernels carry the DC state from one time tile to the next in
 // scratch memory, which relies on the TPU walking tiles in order.  Here
@@ -132,6 +139,13 @@ struct DcArgs {
   void* look;     // scratch of iq_dc_scratch_bytes(C, n) bytes
   unsigned seq;   // this launch's sequence number, never 0
   int vec;        // rows 16-byte aligned and n % 8 == 0: vector loads/stores
+  // the carry pass only: the fused banded kernel's window groups, each bw
+  // = 16 s samples wide, `groups` a channel
+  int bw;
+  int groups;
+  double* bound;  // (C, groups, 4) [yr, yi, xr, xi] before each group
+  float* halo_r;  // (C, groups, hist) processed samples before each group
+  float* halo_i;
 };
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
@@ -150,19 +164,6 @@ __device__ __forceinline__ void wait_flag(const unsigned* p, unsigned seq) {
     __nanosleep(ns);
     if (ns < kDcSleepMax) ns <<= 1;
   }
-}
-
-// a^e by squaring: ~2 log2(e) dependent multiplies, where pow() takes a
-// long float64 log and exp (its rounding differs by a few ulps, far
-// below what the float32 outputs keep)
-__device__ __forceinline__ double ipow(double a, unsigned e) {
-  double r = 1.0;
-  while (e) {
-    if (e & 1u) r *= a;
-    a *= a;
-    e >>= 1;
-  }
-  return r;
 }
 
 // Publish a value, then its status word.
@@ -277,7 +278,7 @@ __device__ __forceinline__ void load_tile(const DcArgs& a, const char* row,
   }
 }
 
-template <bool kPlanarIn, bool kIq>
+template <bool kPlanarIn, bool kIq, bool kCarry>
 __global__ void __launch_bounds__(kDcThreads, kDcMinBlocks) dc_kernel(const DcArgs a) {
   __shared__ float stage_r[kDcThreads * kDcPad];
   __shared__ float stage_i[kDcThreads * kDcPad];
@@ -312,6 +313,23 @@ __global__ void __launch_bounds__(kDcThreads, kDcMinBlocks) dc_kernel(const DcAr
   const double my_pow = ipow(pa, kDcPer * tid);  // a^(kDcPer tid)
   if (tid < 32) lane_pow[tid] = my_pow;
   if (tid >= 32 && tid < 32 + kDcLevels) level[tid - 32] = ipow(pa, kDcPer << (tid - 32));
+  if constexpr (kCarry) {
+    if (tile == 0) {
+      // group 0 starts from the carried state; halo entries before the
+      // block (the banded kernel takes those from its carried history)
+      // are zeroed
+      if (tid < 4) {
+        a.bound[static_cast<long long>(c) * a.groups * 4 + tid] = a.dc_in[c * 4 + (tid + 2) % 4];
+      }
+      for (long long g = 0; g < a.groups && g * a.bw < a.hist; ++g) {
+        const long long h0 = (static_cast<long long>(c) * a.groups + g) * a.hist;
+        for (long long j = tid; j < a.hist - g * a.bw; j += kDcThreads) {
+          a.halo_r[h0 + j] = 0.0f;
+          a.halo_i[h0 + j] = 0.0f;
+        }
+      }
+    }
+  }
   if (tid == 0) {
     if (tile == 0) {
       x_before[0] = a.dc_in[c * 4];
@@ -375,6 +393,18 @@ __global__ void __launch_bounds__(kDcThreads, kDcMinBlocks) dc_kernel(const DcAr
     zi = fma(lane_pow[lane], wi, zi);
   }
 
+  // The carry pass keeps nothing of a tile that holds no sample before a
+  // group boundary, no halo or tail sample and not the block's last, and
+  // that publishes no inclusive y: the tile publishes its aggregate and
+  // stops, with no look-back.
+  bool keeps = true;
+  if constexpr (kCarry) {
+    const long long g1 = s0 / a.bw + 1;  // the first boundary after s0
+    keeps = s0 + len > n - max(a.hist, 1) ||
+            (g1 < a.groups && g1 * a.bw - max(a.hist, 1) < s0 + len) ||
+            ((tile & (kDcGroup - 1)) == kDcGroup - 1 && tile + 1 < tiles);
+  }
+  if (!keeps && warp != 0) return;
   if (warp == 0) {
     double agg_r = 0.0, agg_i = 0.0;
     if (lane == 0) {
@@ -386,6 +416,7 @@ __global__ void __launch_bounds__(kDcThreads, kDcMinBlocks) dc_kernel(const DcAr
         publish(look.agg + slot, look.agg_flag + slot, agg_r, agg_i, a.seq);
       }
     }
+    if (!keeps) return;
     // look-back: lane l < na takes tile - 1 - l's aggregate, lane na the
     // inclusive y of the previous group's last tile (or the carried
     // state), each times a^(T l)
@@ -424,6 +455,29 @@ __global__ void __launch_bounds__(kDcThreads, kDcMinBlocks) dc_kernel(const DcAr
   }
   __syncthreads();
 
+  // the carry pass keeps, of this thread's row, the sample before a group
+  // boundary (row position rec_j) and the samples (bits of `keep`) in the
+  // halos before the boundaries and in the tail
+  int rec_j = -1;
+  unsigned keep = 0;
+  if constexpr (kCarry) {
+    const int f = static_cast<int>(s0) + first;
+    const int g_lo = f / a.bw + 1;
+    if (g_lo < a.groups && g_lo * a.bw <= f + kDcPer) rec_j = g_lo * a.bw - 1 - f;
+    const int g_hi = min(a.groups - 1, (f + kDcPer - 1 + a.hist) / a.bw);
+    // bits [lo - f, hi - f) of the row
+    auto span = [f](int lo, int hi) {
+      lo = max(lo - f, 0);
+      hi = min(hi - f, kDcPer);
+      return lo < hi ? ((1u << hi) - 1u) & ~((1u << lo) - 1u) : 0u;
+    };
+    if (g_lo <= g_hi) keep = span(g_lo * a.bw - a.hist, g_hi * a.bw);
+    keep |= span(n - a.hist, n);
+    // only rows that hold a group state, a halo or tail sample or the
+    // block's last sample are rerun
+    if (rec_j < 0 && keep == 0 && !(m > 0 && f + m == n)) return;
+  }
+
   // rerun this thread's samples from its true incoming y
   const unsigned ph0 = a.dtheta ? static_cast<unsigned>(a.phase[c]) : 0u;
   float g1 = 1.0f, phi = 0.0f;
@@ -450,6 +504,32 @@ __global__ void __launch_bounds__(kDcThreads, kDcMinBlocks) dc_kernel(const DcAr
           a.dc_out[c * 4 + 2] = static_cast<float>(yr);
           a.dc_out[c * 4 + 3] = static_cast<float>(yi);
         }
+        if constexpr (kCarry) {
+          if (j == rec_j) {
+            double* b = a.bound + (static_cast<long long>(c) * a.groups + (idx + 1) / a.bw) * 4;
+            b[0] = yr;
+            b[1] = yi;
+            b[2] = xr;
+            b[3] = xi;
+          }
+          if ((keep >> j) & 1u) {
+            float vr = static_cast<float>(yr);
+            float vi = static_cast<float>(yi);
+            if (a.dtheta) nco_rotate(ph0, a.dtheta, idx, &vr, &vi);
+            const int at = static_cast<int>(idx);
+            if (at >= n - a.hist) {
+              a.tail_r[static_cast<long long>(c) * a.hist + (at - (n - a.hist))] = vr;
+              a.tail_i[static_cast<long long>(c) * a.hist + (at - (n - a.hist))] = vi;
+            }
+            for (int g = at / a.bw + 1; g < a.groups && g * a.bw - a.hist <= at; ++g) {
+              const long long h = (static_cast<long long>(c) * a.groups + g) * a.hist +
+                                  (at - (g * a.bw - a.hist));
+              a.halo_r[h] = vr;
+              a.halo_i[h] = vi;
+            }
+          }
+          continue;
+        }
         float vr = static_cast<float>(yr);
         float vi = static_cast<float>(yi);
         if constexpr (kIq) {
@@ -464,6 +544,7 @@ __global__ void __launch_bounds__(kDcThreads, kDcMinBlocks) dc_kernel(const DcAr
       }
     }
   }
+  if constexpr (kCarry) return;  // no planes
   __syncthreads();
 
   const long long tail0 = n - a.hist;
@@ -510,30 +591,36 @@ bool aligned16(const void* p) {
 }
 
 
-int launch_dc(DcArgs a, int channels, bool planar_in, bool iq,
+int launch_dc(DcArgs a, int channels, bool planar_in, bool iq, bool carry,
               cudaStream_t stream) {
   if (channels <= 0 || channels > 65535 || a.n <= 0 ||
       (planar_in && (!a.x_r || !a.x_i)) ||
       (!planar_in && (!a.wire || a.kind == kPlanar)) || (iq && !a.iq) ||
       (a.dtheta && !a.phase) || !a.look || a.seq == 0 ||
-      (a.tail_r && (a.hist < 0 || a.hist > a.n))) {
+      (a.tail_r && (a.hist < 0 || a.hist > a.n)) ||
+      (carry && (planar_in || iq || !a.tail_r || !a.tail_i || !a.bound ||
+                 !a.halo_r || !a.halo_i || a.bw <= 0 || a.groups <= 0 ||
+                 static_cast<long long>(a.groups - 1) * a.bw >= a.n)) ||
+      (!carry && (!a.y_r || !a.y_i))) {
     return cudaErrorInvalidValue;
   }
   const bool in_aligned = planar_in ? aligned16(a.x_r) && aligned16(a.x_i)
                                     : aligned16(a.wire);
   a.vec = a.n % 8 == 0 && in_aligned && aligned16(a.y_r) && aligned16(a.y_i);
   const dim3 grid(static_cast<unsigned>(dc_tiles(a.n)), channels);
-  if (planar_in) {
+  if (carry) {
+    dc_kernel<false, false, true><<<grid, kDcThreads, 0, stream>>>(a);
+  } else if (planar_in) {
     if (iq) {
-      dc_kernel<true, true><<<grid, kDcThreads, 0, stream>>>(a);
+      dc_kernel<true, true, false><<<grid, kDcThreads, 0, stream>>>(a);
     } else {
-      dc_kernel<true, false><<<grid, kDcThreads, 0, stream>>>(a);
+      dc_kernel<true, false, false><<<grid, kDcThreads, 0, stream>>>(a);
     }
   } else {
     if (iq) {
-      dc_kernel<false, true><<<grid, kDcThreads, 0, stream>>>(a);
+      dc_kernel<false, true, false><<<grid, kDcThreads, 0, stream>>>(a);
     } else {
-      dc_kernel<false, false><<<grid, kDcThreads, 0, stream>>>(a);
+      dc_kernel<false, false, false><<<grid, kDcThreads, 0, stream>>>(a);
     }
   }
   return cudaGetLastError();
@@ -569,7 +656,27 @@ extern "C" int iq_dc_prologue(const void* wire, int kind, float norm,
   iqk::DcArgs args{wire, kind, norm, gain, nullptr, nullptr, dc_in, a,
                    nullptr, phase, dtheta, n, hist, y_r, y_i, tail_r, tail_i,
                    dc_out, look, seq, 0};
-  return iqk::launch_dc(args, channels, false, false,
+  return iqk::launch_dc(args, channels, false, false, false,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K1's carry pass: the prologue's recurrence over the packed wire, writing
+// no planes.  For the fused banded kernel's window groups (group g starts
+// at sample g * bw, bw = 16 s; groups = ceil((n / s) / 16)) it writes the
+// state just before each group (bound, float64 [yr, yi, xr, xi]; group 0's
+// is dc_in's) and the `hist` processed samples before it (halo; entries
+// before the block are zeroed), and, as the prologue, the block's last
+// `hist` processed samples and the new DC state.
+extern "C" int iq_dc_carry(const void* wire, int kind, float norm, float gain,
+                           const float* dc_in, double a, const long long* phase,
+                           unsigned dtheta, int channels, int n, int hist, int bw,
+                           int groups, double* bound, float* halo_r, float* halo_i,
+                           float* tail_r, float* tail_i, float* dc_out, void* look,
+                           unsigned seq, void* stream) {
+  iqk::DcArgs args{wire, kind, norm, gain, nullptr, nullptr, dc_in, a,
+                   nullptr, phase, dtheta, n, hist, nullptr, nullptr, tail_r, tail_i,
+                   dc_out, look, seq, 0, bw, groups, bound, halo_r, halo_i};
+  return iqk::launch_dc(args, channels, false, false, true,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -586,6 +693,6 @@ extern "C" int iq_dc_block_apply(const void* wire, int kind, float norm,
   iqk::DcArgs args{wire, kind, norm, gain, x_r, x_i, dc_in, a, iq, phase,
                    dtheta, n, 0, y_r, y_i, nullptr, nullptr, dc_out, look,
                    seq, 0};
-  return iqk::launch_dc(args, channels, kind == iqk::kPlanar, iq != nullptr,
+  return iqk::launch_dc(args, channels, kind == iqk::kPlanar, iq != nullptr, false,
                         static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,6 @@
-// Device helpers shared by the banded kernels: packed-wire decode, the NCO
-// mix at a global sample index, and the quantize-and-pack epilogue.
+// Device helpers shared by the banded and DC kernels: packed-wire decode,
+// the NCO mix at a global sample index, the DC pole's powers and the
+// quantize-and-pack epilogue.
 //
 // Each helper is the CUDA twin of a plain-PyTorch function in the port
 // (ops/convert.py decode_packed / quantize, ops/nco.py mix) and keeps its
@@ -91,6 +92,19 @@ __device__ __forceinline__ void nco_rotate(unsigned phase0, unsigned dtheta,
   const float i = __fadd_rn(__fmul_rn(*xr, s), __fmul_rn(*xi, c));
   *xr = r;
   *xi = i;
+}
+
+// a^e by squaring: ~2 log2(e) dependent multiplies, where pow() takes a
+// long float64 log and exp (its rounding differs by a few ulps, far
+// below what the float32 outputs keep)
+__device__ __forceinline__ double ipow(double a, unsigned e) {
+  double r = 1.0;
+  while (e) {
+    if (e & 1u) r *= a;
+    a *= a;
+    e >>= 1;
+  }
+  return r;
 }
 
 // Output quantizer of one packable format (ops/convert.py quantize).

@@ -41,6 +41,11 @@ _SIGNATURES = {
     "iq_dc_geometry": [_P],
     "iq_dc_prologue": [_P, _I, _F, _F, _P, ctypes.c_double, _P, _U, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _U, _P],
+    "iq_dc_carry": [_P, _I, _F, _F, _P, ctypes.c_double, _P, _U, _I, _I, _I, _I,
+                    _I, _P, _P, _P, _P, _P, _P, _P, _U, _P],
+    "iq_banded_dc_apply": [_P, _I, _F, _F, _P, _U, ctypes.c_double, _P, _P, _P, _I,
+                           _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P, _I, _I, _F, _F, _F, _F, _P],
     "iq_dc_block_apply": [_P, _I, _F, _F, _P, _P, _P, ctypes.c_double, _P, _P,
                           _U, _I, _I, _P, _P, _P, _P, _U, _P],
     "iq_post_apply": [_P, _P, _P, _I, _I, _P, _U, _I, _I, _P, _I, _I, _F, _F,

@@ -68,10 +68,10 @@ def _scan(coef: float, b: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def apply_plane(x: torch.Tensor, x_prev: torch.Tensor, y_prev: torch.Tensor,
-                alpha: float):
-    """One real plane: x (C, N) f32, carries (C,) f32 -> (y, x_last, y_last),
-    y rounded to float32 from the float64 scan."""
+def scan_plane(x: torch.Tensor, x_prev: torch.Tensor, y_prev: torch.Tensor,
+               alpha: float) -> torch.Tensor:
+    """One real plane's y in float64, before the rounding to float32:
+    x (C, N) f32, carries (C,)."""
     a = float(1.0 - alpha)
     x64 = x.double()
     xm1 = torch.cat([x_prev.double()[:, None], x64[:, :-1]], dim=-1)
@@ -81,8 +81,7 @@ def apply_plane(x: torch.Tensor, x_prev: torch.Tensor, y_prev: torch.Tensor,
     c, n = x.shape
     t = _tile_size(n)
     if t == 0 or n <= t:
-        y = _scan(a, b).float()
-        return y, x[:, -1], y[:, -1]
+        return _scan(a, b)
     nb = n // t
     m, decay = _tile_consts(a, t, str(x.device))
     y_local = torch.matmul(b.reshape(c, nb, t), m.T)
@@ -90,7 +89,14 @@ def apply_plane(x: torch.Tensor, x_prev: torch.Tensor, y_prev: torch.Tensor,
     carry = _scan(a ** t, ends)
     prev = torch.cat([torch.zeros((c, 1), dtype=b.dtype, device=x.device),
                       carry[:, :-1]], dim=-1)
-    y = (y_local + prev[:, :, None] * decay).reshape(c, n).float()
+    return (y_local + prev[:, :, None] * decay).reshape(c, n)
+
+
+def apply_plane(x: torch.Tensor, x_prev: torch.Tensor, y_prev: torch.Tensor,
+                alpha: float):
+    """One real plane: x (C, N) f32, carries (C,) f32 -> (y, x_last, y_last),
+    y rounded to float32 from the float64 scan."""
+    y = scan_plane(x, x_prev, y_prev, alpha).float()
     return y, x[:, -1], y[:, -1]
 
 

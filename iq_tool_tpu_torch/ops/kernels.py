@@ -5,8 +5,12 @@
   strided-window banded map, with optional packed-wire + NCO prologue and
   quantize-and-pack epilogue.
 * K1 ``banded_apply_dc``: stage 0 with the wire decode, DC block and NCO
-  mix in front, as two launches: ``dc_prologue`` (``csrc/banded_dc.cu``)
-  then the K2 kernel (``csrc/banded.cu``).
+  mix in front, as two launches that write no processed planes: the DC
+  kernel's carry pass ``dc_carry`` (``csrc/banded_dc.cu``: each window
+  group's DC state and halo, the tail, the new DC state), then the banded
+  kernel (``csrc/banded.cu``) decoding, DC-blocking and NCO-mixing the
+  wire in its loader.  ``dc_prologue``, the DC kernel writing the
+  processed planes, serves the sharded chain's stage 0.
 * K3 ``dc_block_apply`` (``csrc/banded_dc.cu``, the prologue's kernel):
   the chain's pre-stage, DC block + I/Q apply + NCO mix over packed wire
   or planes.
@@ -214,7 +218,9 @@ def banded_apply_ref(state_r, state_i, xr, xi, a_r, a_i, stride: int, hist: int,
 
 def _launch_banded(lib, band: Band, state_r, state_i, xr, xi, wire, kind: int,
                    wire_norm, wire_gain, nco_dtheta, nco_phase, stride, hist,
-                   pack_fmt):
+                   pack_fmt, dc=None):
+    """K2's launch, or with ``dc`` = (pole, bound, halo_r, halo_i), the
+    carry pass's outputs, K1's banded kernel with the DC-wire loader."""
     x0 = wire if wire is not None else xr
     ch, n = x0.shape
     nb = n // stride
@@ -235,14 +241,21 @@ def _launch_banded(lib, band: Band, state_r, state_i, xr, xi, wire, kind: int,
         packed = None
         out_r = torch.empty((ch, out_len), dtype=torch.float32, device=dev)
         out_i = torch.empty_like(out_r)
+    geo = (_ptr(state_r), _ptr(state_i), _ptr(band.taps_r), _ptr(band.taps_i),
+           _ptr(band.tile_first), band.n_tiles, band.span, ch, n, stride, hist,
+           band.g, _ptr(out_r), _ptr(out_i), _ptr(packed), *_pack_args(pack_fmt),
+           _stream())
+    norm, gain = convert._f32(wire_norm), convert._f32(wire_gain)
+    dth = int(nco_dtheta) & 0xFFFFFFFF
     with torch.cuda.device(dev):
-        rc = lib.iq_banded_apply(
-            _ptr(xr), _ptr(xi), _ptr(wire), kind, convert._f32(wire_norm),
-            convert._f32(wire_gain), _ptr(nco_phase), int(nco_dtheta) & 0xFFFFFFFF,
-            _ptr(state_r), _ptr(state_i), _ptr(band.taps_r), _ptr(band.taps_i),
-            _ptr(band.tile_first), band.n_tiles, band.span, ch, n, stride, hist,
-            band.g, _ptr(out_r), _ptr(out_i), _ptr(packed), *_pack_args(pack_fmt),
-            _stream())
+        if dc:
+            pole, bound, halo_r, halo_i = dc
+            rc = lib.iq_banded_dc_apply(
+                _ptr(wire), kind, norm, gain, _ptr(nco_phase), dth, float(pole),
+                _ptr(bound), _ptr(halo_r), _ptr(halo_i), bound.shape[1], *geo)
+        else:
+            rc = lib.iq_banded_apply(_ptr(xr), _ptr(xi), _ptr(wire), kind, norm, gain,
+                                     _ptr(nco_phase), dth, *geo)
     _check(rc, "banded kernel")
     return packed if pack_fmt else (out_r, out_i)
 
@@ -286,8 +299,8 @@ def banded_apply_dc_ref(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
                         stride: int, hist: int, wire_i32, wire_norm: float,
                         wire_gain: float = 1.0, nco_dtheta: int = 0,
                         nco_phase=None, pack_fmt=None, wire_kind: str = "cs16"):
-    """Plain twin of banded_apply_dc: the prologue's twin, then the plain
-    banded map, as the kernels compose."""
+    """Plain twin of banded_apply_dc: decode, DC block and NCO over the
+    whole block (the prologue's twin), then the plain banded map."""
     yr, yi, _, _, new_dc = dc_prologue_ref(wire_i32, dc_state, dc_alpha, hist,
                                            wire_norm, wire_gain, nco_dtheta,
                                            nco_phase, wire_kind)
@@ -384,6 +397,96 @@ def dc_prologue(wire_i32, dc_state, dc_alpha: float, hist: int,
 dc_prologue.launches = 0
 
 
+# csrc/banded.cu's window group: a CTA stages and multiplies 16 windows of
+# one channel at a time (the mma's M), so K1's carry pass cuts the block
+# at every 16 strides
+BAND_WIN = 16
+
+
+def dc_groups(n: int, stride: int) -> int:
+    """Window groups of a channel's block of n samples at this stride."""
+    return -(-(n // stride) // BAND_WIN)
+
+
+def dc_carry_ref(wire_i32, dc_state, dc_alpha: float, stride: int, hist: int,
+                 wire_norm: float, wire_gain: float = 1.0, nco_dtheta: int = 0,
+                 nco_phase=None, wire_kind: str = "cs16"):
+    """Plain twin of dc_carry: the float64 DC scan of the whole block
+    (ops/dc_block.py), read at the group boundaries, then rounded and
+    NCO-mixed for the halos and the tail."""
+    xr, xi = convert.decode_packed(wire_i32, wire_kind, wire_norm, wire_gain)
+    yr64 = dc_block.scan_plane(xr, dc_state[:, 0], dc_state[:, 2], dc_alpha)
+    yi64 = dc_block.scan_plane(xi, dc_state[:, 1], dc_state[:, 3], dc_alpha)
+    ch, n = xr.shape
+    groups, bw = dc_groups(n, stride), BAND_WIN * stride
+    yr, yi = yr64.float(), yi64.float()
+    new_dc = torch.stack([xr[:, -1], xi[:, -1], yr[:, -1], yi[:, -1]], dim=-1)
+    if nco_dtheta:
+        yr, yi = nco.mix(yr, yi, nco_phase, nco_dtheta)
+    before = bw * torch.arange(1, groups, device=xr.device) - 1
+    bound = torch.cat([dc_state[:, None, [2, 3, 0, 1]].double(),
+                       torch.stack([yr64[:, before], yi64[:, before],
+                                    xr[:, before].double(), xi[:, before].double()],
+                                   dim=-1)], dim=1)
+    pos = (bw * torch.arange(groups, device=xr.device)[:, None] - hist
+           + torch.arange(hist, device=xr.device)[None, :])
+    halo_r, halo_i = (torch.where(pos >= 0, y[:, pos.clamp(min=0)], 0.0)
+                      for y in (yr, yi))
+    return (bound, halo_r, halo_i, yr[:, n - hist:].contiguous(),
+            yi[:, n - hist:].contiguous(), new_dc)
+
+
+def dc_carry(wire_i32, dc_state, dc_alpha: float, stride: int, hist: int,
+             wire_norm: float, wire_gain: float = 1.0, nco_dtheta: int = 0,
+             nco_phase=None, wire_kind: str = "cs16"):
+    """K1's carry pass: the DC kernel over the packed wire (C, n), writing
+    no planes.  Returns (bound, halo_r, halo_i, tail_r, tail_i, new_dc):
+    for each window group g of ``dc_groups(n, stride)`` (its first sample
+    at 16 * stride * g) the float64 state [yr, yi, xr, xi] just before it
+    (C, groups, 4) and the ``hist`` processed samples before it (C,
+    groups, hist; zeros before the block), the block's last ``hist``
+    processed samples and the new (C, 4) DC state."""
+    if not wire_norm:
+        raise ValueError("dc_carry requires wire input")
+    _check_args(wire_i32, wire_norm, nco_dtheta, nco_phase, None)
+    ch, n = wire_i32.shape
+    if stride <= 0 or n < stride:
+        raise ValueError(f"block of {n} samples is shorter than the stride {stride}")
+    if not 0 <= hist <= n:
+        raise ValueError(f"block of {n} samples is shorter than the history {hist}")
+    if wire_i32.device.type == "cpu":
+        return dc_carry_ref(wire_i32, dc_state, dc_alpha, stride, hist, wire_norm,
+                            wire_gain, nco_dtheta, nco_phase, wire_kind)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    _require_cuda(wire_i32, dc_state, nco_phase)
+    _require_dtypes(wire_i32, _WIRE_KINDS[wire_kind], nco_phase, dc_state)
+    if dc_state.shape != (ch, 4):
+        raise ValueError(f"dc_state must be ({ch}, 4)")
+    dev = wire_i32.device
+    groups = dc_groups(n, stride)
+    bound = torch.empty((ch, groups, 4), dtype=torch.float64, device=dev)
+    halo_r = torch.empty((ch, groups, hist), dtype=torch.float32, device=dev)
+    halo_i = torch.empty_like(halo_r)
+    tail_r = torch.empty((ch, hist), dtype=torch.float32, device=dev)
+    tail_i = torch.empty_like(tail_r)
+    new_dc = torch.empty((ch, 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        look, seq = _dc_look(lib, dev, ch, n)
+        rc = lib.iq_dc_carry(
+            _ptr(wire_i32), _WIRE_KINDS[wire_kind], convert._f32(wire_norm),
+            convert._f32(wire_gain), _ptr(dc_state), float(1.0 - dc_alpha),
+            _ptr(nco_phase), int(nco_dtheta) & 0xFFFFFFFF, ch, n, hist,
+            BAND_WIN * stride, groups, _ptr(bound), _ptr(halo_r), _ptr(halo_i),
+            _ptr(tail_r), _ptr(tail_i), _ptr(new_dc), _ptr(look), seq, _stream())
+    _check(rc, "dc carry kernel")
+    dc_carry.launches += 1
+    return bound, halo_r, halo_i, tail_r, tail_i, new_dc
+
+
+dc_carry.launches = 0
+
+
 def banded_apply_dc(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
                     stride: int, hist: int, wire_i32, wire_norm: float,
                     wire_gain: float = 1.0, nco_dtheta: int = 0,
@@ -393,9 +496,11 @@ def banded_apply_dc(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
     state_*: (C, hist) PROCESSED stage history (post-DC, pre-rotated);
     dc_state: (C, 4) [xr, xi, yr, yi] prevs.  Returns (y | packed wire,
     tail_r, tail_i, new_dc_state), tail_* the processed (C, hist)
-    history for the next block.  On CUDA this is two launches: the
-    prologue kernel (``dc_prologue``) writes the processed planes, then
-    the K2 banded kernel runs over them."""
+    history for the next block.  On CUDA this is two launches and no
+    processed planes: the carry pass (``dc_carry``), then the banded
+    kernel, which decodes, DC-blocks (from the carry pass's group states)
+    and NCO-mixes the wire in its loader.  A geometry it cannot take
+    raises."""
     if not wire_norm:
         raise ValueError("banded_apply_dc requires wire input")
     _check_args(wire_i32, wire_norm, nco_dtheta, nco_phase, pack_fmt)
@@ -404,13 +509,14 @@ def banded_apply_dc(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
                                    stride, hist, wire_i32, wire_norm, wire_gain,
                                    nco_dtheta, nco_phase, pack_fmt, wire_kind)
     from iq_tool_tpu_torch.ops import _build
-    yr, yi, tail_r, tail_i, new_dc = dc_prologue(
-        wire_i32, dc_state, dc_alpha, hist, wire_norm, wire_gain, nco_dtheta,
-        nco_phase, wire_kind)
+    bound, halo_r, halo_i, tail_r, tail_i, new_dc = dc_carry(
+        wire_i32, dc_state, dc_alpha, stride, hist, wire_norm, wire_gain,
+        nco_dtheta, nco_phase, wire_kind)
     dev = wire_i32.device
     out = _launch_banded(_build.library(), _band(a_r, a_i, dev), state_r, state_i,
-                         yr, yi, None, _PLANAR, 0.0, 1.0, 0, None, stride, hist,
-                         pack_fmt)
+                         None, None, wire_i32, _WIRE_KINDS[wire_kind], wire_norm,
+                         wire_gain, nco_dtheta, nco_phase, stride, hist, pack_fmt,
+                         dc=(1.0 - dc_alpha, bound, halo_r, halo_i))
     banded_apply_dc.launches += 1
     return out, tail_r, tail_i, new_dc
 
@@ -933,7 +1039,7 @@ iq_descent.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for fn in (banded_apply, banded_apply_dc, dc_prologue, dc_block_apply,
+    for fn in (banded_apply, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
                post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
                iq_descent):
         fn.launches = 0

@@ -171,26 +171,113 @@ def test_k2_complex_taps(rng):
         assert _snr(w, g) >= 100.0
 
 
-@pytest.mark.parametrize("case", [("flagship", "cs16", DTHETA), ("nrsc5", "cu8", 0)])
+@pytest.mark.parametrize("case", [
+    ("flagship", "cs16", DTHETA, 3 * 4096 + 7 * 512),
+    ("nrsc5", "cu8", 0, 3 * 4096 + 7 * 400),
+    ("flagship", "cs16", DTHETA, 40 * 512 + 77),   # 2.5 window groups, ragged
+    ("nrsc5", "cu8", DTHETA, 37 * 400 + 123),      # boundaries inside DC tiles
+], ids=["flagship", "nrsc5", "flagship-ragged", "nrsc5-ragged"])
 def test_k1_matches_twin(rng, case):
+    """K1 on the card, the carry pass then the banded kernel with the
+    DC-wire loader, over 3 carried blocks (each path carrying its own
+    stage history and DC state) against the twin at >= 100 dB; n is not
+    a multiple of the 16-window group and, at nrsc5's stride 400, the
+    group boundaries (every 6400 samples) fall inside the DC kernel's
+    4096-sample tiles."""
     _need_card()
-    name, fmt, dth = case
+    name, fmt, dth, n = case
     st = _stage(name, 131072, 0)
-    ch, n = 4, 3 * 4096 + 7 * st.stride       # whole and partial prologue chunks
-    wire, kind = _random_wire(rng, fmt, ch, n)
+    ch = 4
     sr, si = _planes(rng, ch, st.hist, 0.05)
     dc = _cuda((rng.standard_normal((ch, 4)) * 0.05).astype(np.float32))
     ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64)) if dth else None
+    got_c = want_c = (sr, si, dc)
+    before = (kernels.banded_apply_dc.launches, kernels.dc_carry.launches,
+              kernels.dc_prologue.launches)
+    for _ in range(3):
+        wire, kind = _random_wire(rng, fmt, ch, n)
+        tail = (st.band, None, st.stride, st.hist, wire, get_format(fmt).normalizer,
+                1.0, dth, ph)
+        got = kernels.banded_apply_dc(*got_c[:2], got_c[2], DC_ALPHA, *tail,
+                                      wire_kind=kind)
+        want = kernels.banded_apply_dc_ref(*want_c[:2], want_c[2], DC_ALPHA, *tail,
+                                           wire_kind=kind)
+        torch.cuda.synchronize()
+        for w, g in zip((*want[0], *want[1:]), (*got[0], *got[1:])):
+            assert _snr(w, g) >= 100.0
+        got_c, want_c = got[1:], want[1:]
+    assert (kernels.banded_apply_dc.launches, kernels.dc_carry.launches,
+            kernels.dc_prologue.launches) == (before[0] + 3, before[1] + 3, before[2])
+
+
+def test_k1_is_deterministic(rng):
+    """Two launches of the fused K1 on the same input give the same bits
+    (planes, packed output, tails, DC state)."""
+    _need_card()
+    st = _stage("flagship", 131072, 0)
+    ch, n = 16, 262144 + 5 * 512
+    wire, kind = _dc_wire(rng, "cs16", ch, n)
+    sr, si = _planes(rng, ch, st.hist, 0.05)
+    dc = _cuda((rng.standard_normal((ch, 4)) * 0.05).astype(np.float32))
+    ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64))
     args = (sr, si, dc, DC_ALPHA, st.band, None, st.stride, st.hist, wire,
-            get_format(fmt).normalizer, 1.0, dth, ph)
-    before = kernels.banded_apply_dc.launches, kernels.dc_prologue.launches
-    got = kernels.banded_apply_dc(*args, wire_kind=kind)
-    want = kernels.banded_apply_dc_ref(*args, wire_kind=kind)
+            get_format("cs16").normalizer, 1.0, DTHETA, ph)
+    for pack in (None, "cs16"):
+        a = kernels.banded_apply_dc(*args, pack_fmt=pack, wire_kind=kind)
+        b = kernels.banded_apply_dc(*args, pack_fmt=pack, wire_kind=kind)
+        torch.cuda.synchronize()
+        for x, y in zip((*a[0], *a[1:]) if pack is None else a,
+                        (*b[0], *b[1:]) if pack is None else b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", [("cs16", DTHETA, 512, 262144 + 77),
+                                  ("cu8", 0, 400, 37 * 400 + 123),
+                                  ("cs16", DTHETA, 1, 200)],
+                         ids=["flagship", "nrsc5", "stride-1"])
+def test_dc_carry_matches_twin(rng, case):
+    """K1's carry pass alone against its twin: the float64 states before
+    each window group within 1e-9 of the states' scale, the halos, tail
+    and new DC state at >= 100 dB; at stride 1 the halos (31 samples)
+    are wider than a group (16) and overlap."""
+    _need_card()
+    fmt, dth, stride, n = case
+    ch, hist = 3, 31
+    wire, kind = _dc_wire(rng, fmt, ch, n)
+    dc = _cuda((rng.standard_normal((ch, 4)) * 0.05).astype(np.float32))
+    ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64)) if dth else None
+    args = (wire, dc, DC_ALPHA, stride, hist, get_format(fmt).normalizer, 1.0, dth, ph)
+    before = kernels.dc_carry.launches
+    got = kernels.dc_carry(*args, wire_kind=kind)
+    want = kernels.dc_carry_ref(*args, wire_kind=kind)
     torch.cuda.synchronize()
-    assert (kernels.banded_apply_dc.launches, kernels.dc_prologue.launches) == (
-        before[0] + 1, before[1] + 1)
-    for w, g in zip((*want[0], *want[1:]), (*got[0], *got[1:])):
+    assert kernels.dc_carry.launches == before + 1
+    assert got[0].shape == (ch, kernels.dc_groups(n, stride), 4)
+    scale = float(want[0].abs().max())
+    assert float((got[0] - want[0]).abs().max()) <= 1e-9 * scale
+    for w, g in zip(want[1:], got[1:]):
         assert _snr(w, g) >= 100.0
+
+
+def test_k1_refuses_what_it_cannot_stage(rng):
+    """A stride whose window group does not fit one CTA's shared memory
+    raises: nothing falls back to the prologue's planes or the CPU."""
+    _need_card()
+    from iq_tool_tpu_torch.ops.kernels import Band
+    s, hist, g = 2048, 31, 64
+    a = np.zeros((s + hist, g), np.float32)
+    for j in range(g):
+        a[16 * j:16 * j + 32, j] = 1.0 / 32
+    band = Band.build(a, None, "cuda")
+    ch, n = 2, 40 * s
+    wire, kind = _random_wire(rng, "cs16", ch, n)
+    sr, si = _planes(rng, ch, hist)
+    dc = _cuda(np.zeros((ch, 4), np.float32))
+    before = kernels.dc_prologue.launches, kernels.banded_apply_dc.launches
+    with pytest.raises(RuntimeError):
+        kernels.banded_apply_dc(sr, si, dc, DC_ALPHA, band, None, s, hist, wire,
+                                get_format("cs16").normalizer, wire_kind=kind)
+    assert (kernels.dc_prologue.launches, kernels.banded_apply_dc.launches) == before
 
 
 def test_chain_on_card_matches_cpu_chain(rng):
@@ -203,6 +290,7 @@ def test_chain_on_card_matches_cpu_chain(rng):
     raw = np.repeat(np.round(pairs * 32767).astype(np.int16), 2, axis=0)
     gc, cc = gpu.init_carry(), cpu.init_carry()
     k1, k2 = kernels.banded_apply_dc.launches, kernels.banded_apply.launches
+    carry, pro = kernels.dc_carry.launches, kernels.dc_prologue.launches
     w = gpu.in_wire_len
     for b in range(3):
         blk = torch.from_numpy(raw[:, b * w:(b + 1) * w])
@@ -212,6 +300,7 @@ def test_chain_on_card_matches_cpu_chain(rng):
         assert int(d) <= 4
     assert kernels.banded_apply_dc.launches == k1 + 3
     assert kernels.banded_apply.launches == k2 + 3
+    assert (kernels.dc_carry.launches, kernels.dc_prologue.launches) == (carry + 3, pro)
 
 
 def test_wrappers_refuse_mixed_devices(rng):
