@@ -31,13 +31,19 @@ first failure:
    the twin's torch.fft core) and two helper kernels, the AGC's gains
    (segment energies and gain loop; its bound the larger of its bytes
    and its dependency chain, the chain alone timed over the same
-   energies) and the I/Q estimator's descent, timed the same way;
+   energies) and the I/Q estimator ([iq]: the whole estimator of a step
+   in one launch, on config #4's cs16 wire with the DC prefix, on a due
+   step, factors within 2 moves, gate within 1e-3 dB and the counter
+   equal, and on one that is not, factors bit-identical and the counter
+   exact), timed the same way;
 6. the general step: config #4 (DC + I/Q + pre-shift, resampler,
    2175-tap overlap-save notch, post-shift, local AGC) at 128 x 262144
-   for 6 steps with exact launch counters, against the CPU twin chain on
-   2 channels, tone SNR, ms per step, Msps and peak memory, and the
-   masked I/Q estimator's cost per step; then configs #5 and #3, and #4
-   with --filter-fft-size 32768 ([full32k]), the same way at 4 steps;
+   for 6 steps with exact launch counters (the estimator one launch a
+   step), against the CPU twin chain on 2 channels, tone SNR, ms per
+   step, Msps, peak memory, all device launches a step (torch.profiler)
+   and the estimator's call as the step makes it, due and not; then
+   configs #5 and #3, and #4 with --filter-fft-size 32768 ([full32k]),
+   the same way at 4 steps;
 7. [gather]: the gather resampler stage (2.048 Msps -> 25282.56 sps,
    449/36371) behind the DC kernel and in front of K4 (local AGC), 128 x
    254597 frames for 4 steps with exact launch counters, against the CPU
@@ -185,7 +191,8 @@ def main() -> int:
     # the measured chains and their seeded tone, shared with the profiler
     from iq_tool_tpu_torch.profile_steps import (
         BLOCK, CHANNELS as CH, GATHER_RATE, GATHER_TONE_HZ, IN_RATE, OUT_RATE,
-        POST_SHIFT_HZ, SEED, SHIFT_HZ, TONE_HZ, config, make_chain, to_cu8, tone_wire)
+        POST_SHIFT_HZ, SEED, SHIFT_HZ, TONE_HZ, config, device_events, make_chain, to_cu8,
+        tone_wire)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -256,7 +263,7 @@ def main() -> int:
                 "K4": kernels.post_apply.launches,
                 "K5": kernels.osfft_apply.launches,
                 "AGC": kernels.rms_gains.launches,
-                "IQ": kernels.iq_descent.launches,
+                "IQest": kernels.iq_estimate.launches,
                 "K1pro": kernels.dc_prologue.launches,
                 "K1carry": kernels.dc_carry.launches}
 
@@ -734,35 +741,77 @@ def main() -> int:
              "K5@32768")
     del got, want, wire, pr, pi, g4k
 
-    # the I/Q estimator's descent on the spectra of config #4's tap: the
-    # block's first 1024 DC-blocked samples, here a tone behind a 1 % / 0.01
-    # rad imbalance in the estimator's band
-    m = 1024
-    kk = torch.arange(m, device=dev, dtype=torch.float64)
+    # the I/Q estimator, whole, at config #4's step: the cs16 wire (C,
+    # 262144) of an in-band tone behind a 1 % / 0.01 rad imbalance, its
+    # first 1024 frames decoded and DC-blocked from a carried state; a due
+    # step (the fire-at-once counter) and one that is not
+    kk = torch.arange(BLOCK, device=dev, dtype=torch.float64)
     ph = 2 * np.pi * 0.07 * kk[None, :] + torch.arange(CH, device=dev)[:, None]
     xr_, xi_ = 0.4 * torch.cos(ph), 0.4 * torch.sin(ph)
-    seg_ = torch.complex((xr_ * 1.01).float(), (xi_ + 0.01 * xr_).float())
-    base, image = iq_balance._spectra(seg_)
-    f0 = torch.zeros((CH, 2), device=dev)
-    got = kernels.iq_descent(base, image, f0)
-    want = kernels.iq_descent_ref(base, image, f0)
-    torch.cuda.synchronize()
-    iq_err = max_abs(want, got)
-    moves = float((got[0] - want[0]).abs().max()) / 1e-4
-    say(f"[iq] C={CH} nfft {m}, 25 passes: factors within {moves:.2f} moves of the "
-        f"twin, max |err| {iq_err:.3e} (factors and gate dB)")
-    if moves > 2.001:
-        fail(f"I/Q descent kernel parts from its twin by {moves:.2f} moves (> 2)")
-    iq_ms, iq_plain = time_pair(lambda: kernels.iq_descent(base, image, f0),
-                                lambda: kernels.iq_descent_ref(base, image, f0), reps=3)
-    # spectra in, factors and gate out; 25 passes x 4 moves x both sides of
-    # the band, ~24 operations a bin (complex product, hypot, log10)
-    lo, hi = iq_balance.band_edges(m)
-    iq_bound = bound(CH * (2 * m * 8 + 8 + 12), CH * 25 * 4 * 2 * (hi - lo) * 24,
+    pairs = torch.stack([xr_ * 1.01, xi_ + 0.01 * xr_], dim=-1)
+    pairs = pairs + 1e-4 * torch.randn(pairs.shape, generator=gen, device=dev,
+                                       dtype=torch.float64)
+    iq_wire = torch.round(pairs * 32767).to(torch.int16).reshape(CH, -1).view(torch.int32)
+    del kk, ph, xr_, xi_, pairs
+    f0 = (1e-3 * torch.randn((CH, 2), generator=gen, device=dev)).float()
+    iq_kw = dict(dc_state=dc_st, dc_alpha=g4.dc_alpha, wire_i32=iq_wire,
+                 wire_norm=g4.fmt_in.normalizer, wire_gain=1.0, wire_kind="cs16")
+    iq_results = {}
+    for label, c0 in (("due", 0xFFFFFFFF), ("not due", 0)):
+        cnt = torch.tensor(c0, dtype=torch.int64, device=dev)
+        args = (None, None, f0, cnt, g4.iq_interval, BLOCK)
+        got = kernels.iq_estimate(*args, **iq_kw)
+        want = kernels.iq_estimate_ref(*args, **iq_kw)
+        torch.cuda.synchronize()
+        # factors in the smoothed update's moves (0.05 x 1e-4 a move)
+        moves = float((got[0] - want[0]).abs().max()) / (1e-4 * 0.05)
+        ms, plain = time_pair(lambda: kernels.iq_estimate(*args, **iq_kw),
+                              lambda: kernels.iq_estimate_ref(*args, **iq_kw), reps=3)
+        iq_results[label] = (got, want, moves, ms, plain, args)
+    got, want, moves, iq_ms, iq_plain, due_args = iq_results["due"]
+    # where a due step's time goes: the same launch without the descent
+    # (the prefix, both spectra and the gate)
+    pre_ms, _ = time_pair(lambda: kernels.iq_estimate(*due_args, passes=0, **iq_kw),
+                          lambda: None, reps=3)
+    gate_err = float((got[2] - want[2]).abs().max())
+    n_gated = int((got[2] >= 20.0).sum())
+    say(f"[iq] C={CH}, a due step: factors within {moves:.2f} moves of the twin, gate "
+        f"within {gate_err:.2e} dB ({n_gated} of {CH} channels gated), counter "
+        f"{int(got[1])} (twin {int(want[1])})")
+    if moves > 2.001 or gate_err > 1e-3 or int(got[1]) != int(want[1]):
+        fail(f"the I/Q estimator parts from its twin on a due step: {moves:.2f} moves "
+             f"(> 2), gate {gate_err:.2e} dB (> 1e-3) or counter {int(got[1])} != "
+             f"{int(want[1])}")
+    got_s, want_s, _, skip_ms, skip_plain, _ = iq_results["not due"]
+    same = torch.equal(got_s[0], f0) and torch.equal(got_s[0], want_s[0])
+    say(f"[iq] a step that is not due: factors {'bit-identical' if same else 'DIFFER'}, "
+        f"counter {int(got_s[1])} (twin {int(want_s[1])})")
+    if not same or int(got_s[1]) != int(want_s[1]) or int(want_s[1]) != BLOCK:
+        fail("the I/Q estimator changed its factors or miscounted on a step that is "
+             "not due")
+    # a due step: the prefix read once (4 B a frame), the states and
+    # factors in and out; operations: the DC scan (float64, ~8 a sample
+    # and plane), two 1024-point FFTs (5 N log2 N), the gate and 25 passes
+    # x 4 moves x both sides of the band at ~24 operations a bin (complex
+    # product, hypot, log10); a step that is not due: the factors in and
+    # out, the gate (NaN) and the counter
+    lo, hi = iq_balance.band_edges(1024)
+    nb = hi - lo
+    iq_bound = bound(CH * (1024 * 4 + 16 + 8 + 8 + 4) + 16,
+                     CH * (2 * 1024 * 8 + 2 * 5 * 1024 * 10 + (1 + 25 * 4) * 2 * nb * 24),
                      PEAK_FP32_S)
-    say(f"[iq] kernel {iq_ms:.3f} ms, twin (25 passes of tensor ops) {iq_plain:.3f} "
-        f"ms; bound {iq_bound[0]:.5f} ms ({iq_bound[1]})")
-    report["IQ"] = dict(err=iq_err, ms=iq_ms, plain=iq_plain, lib=None, bound=iq_bound)
+    skip_bound = bound(CH * (16 + 4) + 16, 0, PEAK_FP32_S)
+    say(f"[iq] kernel {iq_ms:.4f} ms on a due step, {skip_ms:.4f} ms on one that is "
+        f"not; twin (decode, DC prefix, FFTs, 25 passes of tensor ops, masked) "
+        f"{iq_plain:.3f} / {skip_plain:.3f} ms; bound {iq_bound[0]:.5f} ms "
+        f"({iq_bound[1]}) -> {100 * iq_bound[0] / iq_ms:.1f}%, not due "
+        f"{skip_bound[0]:.6f} ms; a due step without the descent (prefix, "
+        f"spectra, gate) {pre_ms:.4f} ms")
+    report["IQest"] = dict(err=max(float((got[0] - want[0]).abs().max()), gate_err),
+                           ms=iq_ms, plain=iq_plain, lib=None, bound=iq_bound)
+    report["IQest@skip"] = dict(err=float((got_s[0] - want_s[0]).abs().max()),
+                                ms=skip_ms, plain=skip_plain, lib=None, bound=skip_bound)
+    del iq_wire, iq_results, got, want, got_s, want_s
 
     # ------------------------------------------------- 6. the general step
     def run_general(name, steps):
@@ -794,22 +843,42 @@ def main() -> int:
             f"{step_ms:.3f} ms/step over steps 3-{steps} -> "
             f"{CH * BLOCK / (step_ms / 1e3) / 1e6:.1f} Msps in, peak device "
             f"memory {peak / 2 ** 20:.1f} MiB")
+        # all the step's device launches, kernels and copies: 2 more steps
+        # (the last block again) under torch.profiler
+        held = {"carry": carry}
+
+        def one_step():
+            held["carry"], _ = ch_.step(held["carry"],
+                                        stream[:, (steps - 1) * 2 * BLOCK:steps * 2 * BLOCK])
+        per_step = sum(v[1] for v in device_events(one_step, 2).values()) / 2
+        say(f"{label} device launches a step (torch.profiler, 2 steps): {per_step:.1f}")
         if "iq" in carry:
-            # the I/Q estimator runs masked every step (no host sync):
-            # its cost per step, alone
-            m = 1024
-            sr_, si_ = (torch.randn((CH, m), generator=gen, device=dev) for _ in range(2))
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            iq_balance.maybe_update_planar(sr_, si_, carry["iq"], ch_.iq_interval,
-                                           advance_samples=BLOCK)
-            e0.record()
-            for _ in range(3):
-                iq_balance.maybe_update_planar(sr_, si_, carry["iq"], ch_.iq_interval,
-                                               advance_samples=BLOCK)
-            e1.record()
-            torch.cuda.synchronize()
-            say(f"{label} masked I/Q estimator: {e0.elapsed_time(e1) / 3:.3f} "
-                f"ms per step")
+            # the I/Q estimator's call as the step makes it (the chain's
+            # wire, DC state and counter), 3 calls between events with no
+            # spin in front: host and card together, on a step that is due
+            # and on one that is not
+            last = stream[:, (steps - 1) * 2 * BLOCK:steps * 2 * BLOCK]
+            wire_l, kind_l = convert.wire_pack(last, ch_.fmt_in)
+            est_ms = {}
+            for label_d, c0 in (("due", 0xFFFFFFFF), ("not due", 0)):
+                st_d = iq_balance.IqState(carry["iq"].factors,
+                                          torch.tensor(c0, dtype=torch.int64, device=dev))
+                call = lambda: iq_balance.maybe_update_planar(  # noqa: E731
+                    None, None, st_d, ch_.iq_interval, dc_state=carry["dc"],
+                    dc_alpha=ch_.dc_alpha, wire_i32=wire_l, wire_norm=ch_.fmt_in.normalizer,
+                    wire_gain=cfg.gain, wire_kind=kind_l)
+                call()
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                for _ in range(3):
+                    call()
+                e1.record()
+                torch.cuda.synchronize()
+                est_ms[label_d] = e0.elapsed_time(e1) / 3
+            say(f"{label} I/Q estimator ({ch_.iq_interval} samples between updates, "
+                f"{BLOCK} a step; counter after the run {int(carry['iq'].samples_since_opt)}): "
+                f"{est_ms['due']:.4f} ms a due step, {est_ms['not due']:.4f} ms one that "
+                f"is not")
         got_w = torch.cat(outs, dim=-1).cpu().numpy()
         if got_w.shape != (2, steps * 2 * ch_.n_out) or got_w.dtype != np.int16:
             fail(f"{label} output {got_w.shape} {got_w.dtype}")
@@ -847,22 +916,22 @@ def main() -> int:
     step_ms_of = {"[slice]": step_ms}
     general_launches = run_general("4", STEPS)
     want_counts = {"K1": 0, "K2": 2 * STEPS, "K3": STEPS, "K4": STEPS,
-                   "K5": STEPS, "AGC": STEPS, "IQ": STEPS, "K1pro": 0, "K1carry": 0}
+                   "K5": STEPS, "AGC": STEPS, "IQest": STEPS, "K1pro": 0, "K1carry": 0}
     if general_launches != want_counts:
         fail(f"config #4 launch counters {general_launches}, expected {want_counts}")
     s5 = run_general("5", GENERAL_STEPS)
     if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
-              "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQ": 0,
+              "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQest": 0,
               "K1pro": 0, "K1carry": 0}:
         fail(f"config #5 launch counters {s5}")
     s3 = run_general("3", GENERAL_STEPS)
     if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K3": GENERAL_STEPS,
-              "K4": 0, "K5": 0, "AGC": 0, "IQ": 0, "K1pro": 0, "K1carry": 0}:
+              "K4": 0, "K5": 0, "AGC": 0, "IQest": 0, "K1pro": 0, "K1carry": 0}:
         fail(f"config #3 launch counters {s3}")
     s4k = run_general("4k32", GENERAL_STEPS)
     if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
                "K4": GENERAL_STEPS, "K5": GENERAL_STEPS, "AGC": GENERAL_STEPS,
-               "IQ": GENERAL_STEPS, "K1pro": 0, "K1carry": 0}:
+               "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0}:
         fail(f"config #4 at nfft 32768 launch counters {s4k}")
     say(f"[steps] ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms_of.items()))
 
@@ -985,7 +1054,7 @@ def main() -> int:
         if snr_f < 60.0 or np.abs(diff).max() > 32:
             fail(f"[fold] {label}: the fold leaves its contract (>= 60 dB, <= 32 codes)")
         if any(fc_counts[k] == 0 for k in (("K1", "K1carry", "K2") if cname == "c1"
-                                            else ("K2", "K3", "K4", "K5", "AGC", "IQ"))):
+                                            else ("K2", "K3", "K4", "K5", "AGC", "IQest"))):
             fail(f"[fold] {label}: a kernel of the path did not launch: {fc_counts}")
         if cname == "4c1":
             # the AGC kernel and K4 at the fold's own shapes: one stream's
@@ -1130,7 +1199,7 @@ def main() -> int:
     shard_report["1x1 flagship"] = counts
     want_counts = {
         ("flagship", 1, 4): {"K2": 8, "K3": 4, "K1pro": 4},
-        ("4", 1, 4): {"K2": 8, "K3": 8, "K4": 4, "K5": 4, "IQ": 1, "AGCenergy": 4,
+        ("4", 1, 4): {"K2": 8, "K3": 8, "K4": 4, "K5": 4, "IQest": 1, "AGCenergy": 4,
                       "AGCchain": 1},
         ("flagship", 2, 2): {"K2": 8, "K3": 4, "K1pro": 4}}
     for (name, c_, t_), want_c in want_counts.items():
@@ -1213,12 +1282,19 @@ def main() -> int:
         lambda: kernels.agc_chain(e_g, g_g, e2_g, beta_g, tgt_g),
         lambda: kernels.rms_scan_ref(e_g.T, g_g, e2_g, beta_g, tgt_g), reps=2)
     c_g, n_seg_g = e_g.shape
-    # energies and gains in and out, ~12 float operations a segment on
-    # one thread's chain
-    chain_bound = bound(c_g * (8 * n_seg_g + 16), c_g * n_seg_g * 12, PEAK_FP32_S)
+    # the gain recurrence cannot be reassociated: its floor is n_seg steps
+    # of one step's dependent latency, the chain of one channel alone,
+    # timed; against the bytes (energies and gains in and out)
+    one_ms, _ = time_pair(
+        lambda: kernels.agc_chain(e_g[:1], g_g[:1], e2_g[:1], beta_g, tgt_g),
+        lambda: None, reps=2)
+    chain_b = bound(c_g * (8 * n_seg_g + 16), 0, PEAK_FP32_S)
+    chain_bound = (one_ms, "operations") if one_ms > chain_b[0] else chain_b
     say(f"[shard] the AGC chain over the gathered energies ({c_g} x {n_seg_g}): max "
         f"relative error {chain_rel:.3e} from rms_scan_ref; kernel {chain_ms:.4f} ms, twin "
-        f"{chain_plain:.3f} ms; bound {chain_bound[0]:.5f} ms ({chain_bound[1]})")
+        f"{chain_plain:.3f} ms; bound {chain_bound[0]:.5f} ms ({chain_bound[1]}: one "
+        f"channel's chain of {n_seg_g} steps, timed; bytes {chain_b[0]:.5f} ms) -> "
+        f"{100 * chain_bound[0] / chain_ms:.1f}%")
     report["AGCchain"] = dict(err=max_abs(want_c, got_c), ms=chain_ms, plain=chain_plain,
                               lib=None, bound=chain_bound)
     del seen, xr_s, xi_s, got_e, want_e, e_g, got_c, want_c
@@ -1379,7 +1455,7 @@ def main() -> int:
            "K4": "iq_tool_tpu_torch/csrc/post.cu",
            "K5": "iq_tool_tpu_torch/csrc/osfft.cu",
            "AGC": "iq_tool_tpu_torch/csrc/post.cu",
-           "IQ": "iq_tool_tpu_torch/csrc/iq_est.cu",
+           "IQest": "iq_tool_tpu_torch/csrc/iq_est.cu",
            "K1pro": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "K1carry": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "AGCenergy": "iq_tool_tpu_torch/csrc/post.cu",
@@ -1390,7 +1466,7 @@ def main() -> int:
            "K4": "iq_tool_tpu/ops/pallas_kernels.py:1506",
            "K5": "iq_tool_tpu/ops/pallas_kernels.py:1324",
            "AGC": "iq_tool_tpu/ops/agc.py:116",
-           "IQ": "iq_tool_tpu/ops/iq_balance.py:147",
+           "IQest": "iq_tool_tpu/pipeline/chain.py:309",
            "K1pro": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "K1carry": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "AGCenergy": "iq_tool_tpu/parallel/sharded.py:271",
@@ -1405,7 +1481,9 @@ def main() -> int:
               "K1pro": int(shard_report["1x4 flagship"]["K1pro"] * SHARD_STEPS)}
     src["K5@32768"], rep["K5@32768"] = src["K5"], rep["K5"]
     src["K3@cu8"], rep["K3@cu8"] = src["K3"], rep["K3"]
-    phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQ=0), STEPS),
+    src["IQest@skip"], rep["IQest@skip"] = src["IQest"], rep["IQest"]
+    counts["IQest@skip"] = counts["IQest"]
+    phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQest=0), STEPS),
               "#4": (general_launches, STEPS), "#4@32768": (s4k, GENERAL_STEPS),
               "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS),
               "gather": (g_counts, GATHER_STEPS),

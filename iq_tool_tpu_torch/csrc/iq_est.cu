@@ -1,183 +1,471 @@
-// The I/Q estimator's greedy descent: a helper kernel, not a TPU kernel.
+// The I/Q estimator, whole, as one kernel: a helper kernel, not a TPU
+// kernel.
 //
-// Replaces the descent of iq_tool_tpu/ops/iq_balance.py (_optimize_core
-// and the power gate of maybe_update), which the JAX package runs in XLA
-// as one fused program.  In PyTorch's eager mode the same descent is ~28
-// small tensor ops per pass, 25 passes per block: ~700 launches whose
-// host time (~15 ms per step at 128 channels, measured on the H100) was
-// 3/4 of config #4's step.  Here it is one launch.
+// Replaces the estimator branch of the JAX package's fused pre-stage
+// (iq_tool_tpu/pipeline/chain.py:309-328): convert.decode_packed on the
+// wire's first m = min(n, 1024) frames, dc_block._apply_plane on both
+// planes from the carried state, then iq_balance.maybe_update_planar
+// (iq_tool_tpu/ops/iq_balance.py:169-224), which XLA runs as one program
+// under lax.cond.  In PyTorch's eager mode that was ~130 tensor ops a
+// step, ~75 of them kernel launches (the decode, a float64 tile matmul
+// and log-depth scans per plane, the window, two FFTs and rolls, the
+// descent, the gate, the smoothing and the counter), run and masked on
+// every step: their host time was most of config #4's idle share.  Here
+// it is one launch, which reads the carried counter on the device and,
+// when no update is due, does no estimator work at all.
 //
-// For each channel, from the shifted spectra base = FFT(w x) and
-// image = FFT(w Re x) of the block's first nfft samples, the spectrum of
-// the corrected signal for factors (g, phi) is base + (g + i phi) image,
-// in dB 20 log10(|.| / nfft + 1e-12).  The utility is the sum over the
-// band [lo, hi) of (P(+f) - P(-f))^2 where either side is above the
-// floor; each pass tries the 4 diagonal moves and keeps the best if it
-// beats the current utility (first maximum on a tie, as torch.argmax).
-// The kernel also returns the power gate, the band's peak-to-average in
-// dB at the starting factors.
+// For each channel (one CTA, 512 threads):
 //
-// What bounds it: nothing much; 25 x 4 x 2 x 461 spectrum points per
-// channel.  Design: one CTA per channel; the spectra stay in registers,
-// each thread owning a few band bins on both sides; each pass reduces
-// the 4 candidates' sums across the CTA with warp shuffles, and every
-// thread, holding the same sums, takes the same move.  Sums run in
-// another order than torch's reductions, so the kernel and its plain twin
-// (ops/kernels.py iq_descent_ref) may part on a near-tie of two
-// candidates: they are held to a few moves.
+// 1. Due check: counter >= interval (always due without a counter, as
+//    for the pre-stream calibration).  A CTA that is not due copies its
+//    factors and goes to step 5.
+// 2. The prefix: the first m frames of the packed wire (decoded with
+//    decode_packed's order ((x - off) * norm) * gain) or of two float32
+//    planes, optionally DC-blocked, y[k] = a y[k-1] + x[k] - x[k-1] with
+//    a = 1 - alpha, in float64 from the carried (C, 4) state and rounded
+//    to float32 once (ops/dc_block.py scan_plane).  A thread owns two
+//    consecutive samples; a warp-shuffle scan and a Horner pass over the
+//    warp totals give each its incoming y (the scheme of csrc/banded.cu's
+//    DC-wire loader).  Samples past m are zero, as maybe_update pads.
+// 3. The spectra FFT(w y) and FFT(w Re y) of the float32 Hamming-windowed
+//    block, 1024 points each, in shared memory: two warps, one a
+//    transform, as 32 x 32 (a radix-32 pass in registers over the
+//    columns, the twiddles W_1024^(j k1), a transpose through a 33-pitch
+//    buffer, a radix-32 pass over the rows).  The fftshift is an index:
+//    shifted[k] = X[(k + 512) mod 1024].
+// 4. The power gate (the band's peak-to-average in dB at the starting
+//    factors) and the greedy descent: for factors (g, phi) the corrected
+//    spectrum is base + (g + i phi) image, in dB 20 log10(|.| / 1024 +
+//    1e-12); the utility is the sum over the band [lo, hi) of (P(+f) -
+//    P(-f))^2 where either side is above the floor; each pass tries the 4
+//    diagonal moves and keeps the best if it beats the current utility
+//    (first maximum on a tie, as torch.argmax).  Then, where due and
+//    gated, the smoothing (1 - 0.05) f + 0.05 new; without smoothing (the
+//    calibration) the descent's factors as they are.
+// 5. The counter: ran = due & any(gate) over every channel.  Each CTA adds
+//    one, and one more in the high word when it ran, to a 64-bit ticket;
+//    the CTA that draws the last ticket writes ran ? 0 :
+//    min(min(counter, SAT) + advance, SAT) and re-arms the ticket to 0
+//    itself, so no memset runs between launches.  Exact and order-free.
+//
+// What bounds it: on a due step the descent, 25 passes x 4 moves x 2
+// sides x 461 band bins of a complex product, a hypot and a log10 per
+// channel: instructions, not bytes (8 KiB in a channel).  Design: 512
+// threads own one band bin each (both sides, base and image in
+// registers), so the 16 warps of one CTA per SM hide each other's
+// latency; each pass reduces the 4 candidates' sums together (the warp's
+// 4 x 32 values transposed down in 6 shuffles, one barrier, the 16 warp
+// sums in 2 shared loads and 3 shuffles), into one of two slots in turn,
+// so a pass needs one barrier.  Every thread reduces the same values in
+// the same order, so all take the same move.  On a step that is not due
+// the kernel is a launch and a ticket.
+//
+// The sums run in another order than torch's reductions and the FFT
+// rounds otherwise than pocketfft or cuFFT, so the kernel and its plain
+// twin (ops/kernels.py iq_estimate_ref) may part on a near-tie of two
+// candidates: they are held to a few moves.  Decode, window and smoothing
+// round as the twin does (_rn intrinsics: no contraction).
 
 #include <cuda_runtime.h>
 
+#include "wire.cuh"
+
 namespace iqk {
+namespace est {
 
-constexpr int kEstThreads = 256;
-constexpr int kEstWarps = kEstThreads / 32;
-constexpr int kEstPer = 2;  // band bins per thread (band <= 512 bins)
+constexpr int kN = 1024;  // IQ_FFT_SIZE
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPitch = 33;  // the transpose's row pitch (float2)
+constexpr long long kSat = 0xF0000000LL;
 
-struct EstArgs {
-  const float2* base;   // (C, nfft) shifted spectra
-  const float2* image;  // (C, nfft)
-  const float* factors;  // (C, 2) starting [g, phi]
-  const float* moves;    // (4, 2) the diagonal moves, +-step
-  int nfft;
+// exp(-2 pi i k / 32), k < 16
+__constant__ float2 kW32[16] = {
+    {1.000000000e+00f, 0.000000000e+00f},
+    {9.807852804e-01f, -1.950903220e-01f},
+    {9.238795325e-01f, -3.826834324e-01f},
+    {8.314696123e-01f, -5.555702330e-01f},
+    {7.071067812e-01f, -7.071067812e-01f},
+    {5.555702330e-01f, -8.314696123e-01f},
+    {3.826834324e-01f, -9.238795325e-01f},
+    {1.950903220e-01f, -9.807852804e-01f},
+    {0.000000000e+00f, -1.000000000e+00f},
+    {-1.950903220e-01f, -9.807852804e-01f},
+    {-3.826834324e-01f, -9.238795325e-01f},
+    {-5.555702330e-01f, -8.314696123e-01f},
+    {-7.071067812e-01f, -7.071067812e-01f},
+    {-8.314696123e-01f, -5.555702330e-01f},
+    {-9.238795325e-01f, -3.826834324e-01f},
+    {-9.807852804e-01f, -1.950903220e-01f}};
+
+struct Args {
+  const void* wire;  // packed wire (kind >= 0) or null
+  int kind;
+  float norm;
+  float gain;
+  const float* xr;  // float32 planes (kind == kPlanar)
+  const float* xi;
+  long long ld;   // row stride of the source, elements
+  long long inc;  // element stride along a row (planes)
+  int m;          // prefix frames, 1..kN; zero-padded to kN
+  const float* dc;  // (C, 4) [xr_prev, xi_prev, yr_prev, yi_prev] or null
+  double pole;      // 1 - alpha
+  const float* window;    // (kN,) float32 Hamming window
+  const float2* twiddle;  // (kN,) exp(-2 pi i k / kN)
+  const float* factors;   // (C, 2) [g, phi] in
+  const long long* counter;  // () uint32 value, or null: due, no counter out
+  long long interval;
+  long long advance;
+  int passes;
+  float step;
+  float floor_db;
+  float gate_min;
+  float keep;  // 1 - smoothing, rounded to float32
+  float mix;   // smoothing
+  int smooth;  // 0: write the descent's factors as they are
   int lo;
   int hi;
-  int passes;
-  float floor_db;
-  float* out;      // (C, 2) factors after the descent (unsmoothed)
-  float* gate_db;  // (C,) peak-to-average over the band at the start
+  int channels;
+  float* out;              // (C, 2) factors out
+  float* gate;             // (C,) gate dB (NaN where not due) or null
+  long long* counter_out;  // () or null
+  unsigned long long* ticket;  // zero between launches
 };
 
-__device__ __forceinline__ float spec_db(float2 b, float2 m, float g, float phi,
-                                         float n) {
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__device__ __forceinline__ float2 rot32(float2 z, int k) {
+  if (k == 0) return z;
+  if (k == 8) return make_float2(z.y, -z.x);
+  return cmul(z, kW32[k]);
+}
+
+__device__ __forceinline__ constexpr int brev5(int j) {
+  return ((j & 1) << 4) | ((j & 2) << 2) | (j & 4) | ((j & 8) >> 2) | ((j & 16) >> 4);
+}
+
+// A 32-point DFT in registers by radix-2 decimation in frequency: x[n]
+// in, X[brev5(r)] in register r out.
+__device__ __forceinline__ void dft32(float2 (&x)[32]) {
+#pragma unroll
+  for (int b = 4; b >= 0; --b) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (j & (1 << b)) continue;
+      const float2 u = x[j], v = x[j + (1 << b)];
+      x[j] = cadd(u, v);
+      x[j + (1 << b)] = rot32(csub(u, v), (j & ((1 << b) - 1)) << (4 - b));
+    }
+  }
+}
+
+// The 1024-point DFT of buf[0, kN) in place, by one warp: X[k1 + 32 k2] =
+// sum_j W32^(j k2) W1024^(j k1) sum_n1 x[j + 32 n1] W32^(n1 k1).  buf
+// holds kN + kN / 32 points (the transpose's padding).
+__device__ __forceinline__ void fft1024(float2* buf, const float2* __restrict__ tw) {
+  const int j = threadIdx.x & 31;
+  float2 x[32];
+#pragma unroll
+  for (int n1 = 0; n1 < 32; ++n1) x[n1] = buf[j + 32 * n1];
+  dft32(x);
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const int k1 = brev5(r);
+    buf[j * kPitch + k1] = k1 == 0 ? x[r] : cmul(x[r], __ldg(&tw[(j * k1) & (kN - 1)]));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = buf[i * kPitch + j];  // lane j is now k1
+  dft32(x);
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 32; ++r) buf[j + 32 * brev5(r)] = x[r];
+}
+
+// Sums of v[0..3] over the CTA, returned to every thread.  Within a warp
+// the 4 x 32 values are transposed down (lanes 8k..8k+7 end with value
+// k's warp sum), written to `red` (4 x kWarps), then, after the one
+// barrier, every warp sums the 16 warp sums alike.  Each value's sum
+// takes the same tree.
+__device__ __forceinline__ void cta_sum4(float (&v)[4], float* red) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool h16 = lane & 16, h8 = lane & 8;
+  float k0 = h16 ? v[2] : v[0];
+  float k1 = h16 ? v[3] : v[1];
+  k0 += __shfl_xor_sync(full, h16 ? v[0] : v[2], 16);
+  k1 += __shfl_xor_sync(full, h16 ? v[1] : v[3], 16);
+  float s = h8 ? k1 : k0;
+  s += __shfl_xor_sync(full, h8 ? k0 : k1, 8);
+  s += __shfl_xor_sync(full, s, 4);
+  s += __shfl_xor_sync(full, s, 2);
+  s += __shfl_xor_sync(full, s, 1);
+  const int k = lane >> 3, i = lane & 7;
+  if (i == 0) red[k * kWarps + warp] = s;
+  __syncthreads();
+  float w = red[k * kWarps + 2 * i] + red[k * kWarps + 2 * i + 1];
+  w += __shfl_xor_sync(full, w, 4);
+  w += __shfl_xor_sync(full, w, 2);
+  w += __shfl_xor_sync(full, w, 1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = __shfl_sync(full, w, 8 * q);
+}
+
+__device__ __forceinline__ float spec_db(float2 b, float2 m, float g, float phi) {
   const float re = b.x + (g * m.x - phi * m.y);
   const float im = b.y + (g * m.y + phi * m.x);
-  return 20.0f * log10f(hypotf(re, im) / n + 1e-12f);
+  return 20.0f * log10f(hypotf(re, im) / static_cast<float>(kN) + 1e-12f);
 }
 
-// Sum of `v` over the CTA, returned to every thread; `red` holds
-// kEstWarps floats per value and `v` has kVals values.
-template <int kVals>
-__device__ __forceinline__ void cta_sum(float (&v)[kVals], float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kVals; ++k) {
-    for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
-    if (lane == 0) red[k * kEstWarps + warp] = v[k];
+// Sample k of one channel's source, decoded (0 past m).
+template <bool kWire>
+__device__ __forceinline__ void load_sample(const Args& a, int c, int k, float* xr,
+                                            float* xi) {
+  *xr = 0.0f;
+  *xi = 0.0f;
+  if (k >= a.m) return;
+  if constexpr (kWire) {
+    const int elem = a.kind == kCs16 || a.kind == kCu16 ? 4 : 2;
+    const char* row = static_cast<const char*>(a.wire) + c * a.ld * elem;
+    wire_decode(row, a.kind, k, a.norm, a.gain, xr, xi);
+  } else {
+    const long long o = c * a.ld + k * a.inc;
+    *xr = a.xr[o];
+    *xi = a.xi[o];
   }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kVals; ++k) {
-    float s = 0.0f;
-    for (int w = 0; w < kEstWarps; ++w) s += red[k * kEstWarps + w];
-    v[k] = s;
-  }
-  __syncthreads();  // red is reused by the next call
 }
 
-__global__ void __launch_bounds__(kEstThreads) iq_descent_kernel(const EstArgs a) {
-  __shared__ float red[4 * kEstWarps];
-  const int c = blockIdx.x;
-  const int t = threadIdx.x;
-  const int nb = a.hi - a.lo;
-  const float n = static_cast<float>(a.nfft);
-  const float2* base = a.base + static_cast<long long>(c) * a.nfft;
-  const float2* image = a.image + static_cast<long long>(c) * a.nfft;
-  // this thread's bins: p_neg at lo + i, p_pos at nfft - lo - 1 - i
-  float2 bn[kEstPer], mn[kEstPer], bp[kEstPer], mp[kEstPer];
-  bool own[kEstPer];
-#pragma unroll
-  for (int j = 0; j < kEstPer; ++j) {
-    const int i = t + j * kEstThreads;
-    own[j] = i < nb;
-    const int ineg = own[j] ? a.lo + i : 0;
-    const int ipos = own[j] ? a.nfft - a.lo - 1 - i : 0;
-    bn[j] = base[ineg];
-    mn[j] = image[ineg];
-    bp[j] = base[ipos];
-    mp[j] = image[ipos];
-  }
-  float g = a.factors[c * 2];
-  float phi = a.factors[c * 2 + 1];
-
-  // the utility, the band's sums and its peak at the starting factors
-  float s[3] = {0.0f, 0.0f, 0.0f};  // utility, sum of P(+f), sum of P(-f)
-  float mx = -3.0e38f;
-#pragma unroll
-  for (int j = 0; j < kEstPer; ++j) {
-    if (!own[j]) continue;
-    const float pn = spec_db(bn[j], mn[j], g, phi, n);
-    const float pp = spec_db(bp[j], mp[j], g, phi, n);
-    const float d = pp - pn;
-    if (pp > a.floor_db || pn > a.floor_db) s[0] += d * d;
-    s[1] += pp;
-    s[2] += pn;
-    mx = fmaxf(mx, fmaxf(pp, pn));
-  }
-  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if ((t & 31) == 0) red[3 * kEstWarps + (t >> 5)] = mx;
-  cta_sum<3>(s, red);  // its first barrier also publishes the warp peaks
-  if (t == 0) {
-    for (int w = 0; w < kEstWarps; ++w) mx = fmaxf(mx, red[3 * kEstWarps + w]);
-    a.gate_db[c] = mx - (s[1] + s[2]) / (2.0f * static_cast<float>(nb));
-  }
-  __syncthreads();  // the peaks are read before the passes reuse red
-  float cur_u = s[0];
-
-  // every thread reduces the same sums in the same order, so all of
-  // them take the same move: no broadcast is needed
-  for (int p = 0; p < a.passes; ++p) {
-    float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float cg[4], cp[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      cg[k] = g + a.moves[k * 2];
-      cp[k] = phi + a.moves[k * 2 + 1];
+// Steps 2 and the window: the windowed prefix into base (w y) and image
+// (w Re y), natural order.  Holds a barrier when kDc.
+template <bool kWire, bool kDc>
+__device__ __forceinline__ void stage_prefix(const Args& a, int c, float2* base,
+                                             float2* image, double (*wtot)[kWarps]) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int k0 = 2 * t;
+  float x[2][2];  // [sample][plane]
+  load_sample<kWire>(a, c, k0, &x[0][0], &x[0][1]);
+  load_sample<kWire>(a, c, k0 + 1, &x[1][0], &x[1][1]);
+  float y[2][2] = {{x[0][0], x[0][1]}, {x[1][0], x[1][1]}};
+  if constexpr (kDc) {
+    const double pa = a.pole;
+    float xp[2];
+    if (t == 0) {
+      xp[0] = a.dc[c * 4 + 0];
+      xp[1] = a.dc[c * 4 + 1];
+    } else {
+      load_sample<kWire>(a, c, k0 - 1, &xp[0], &xp[1]);
     }
+    // the two samples' increments and the run from y = 0
+    double b[2][2], e[2];
 #pragma unroll
-    for (int j = 0; j < kEstPer; ++j) {
-      if (!own[j]) continue;
+    for (int p = 0; p < 2; ++p) {
+      b[0][p] = static_cast<double>(x[0][p]) - static_cast<double>(xp[p]);
+      b[1][p] = static_cast<double>(x[1][p]) - static_cast<double>(x[0][p]);
+      e[p] = fma(pa, b[0][p], b[1][p]);
+    }
+    // warp scan of the runs: lane l's level-k partner lies 2^(k+1)
+    // samples back
+    const double p2 = pa * pa;
+    double lev = p2;
+    double s[2] = {e[0], e[1]};
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const double u = __shfl_up_sync(0xffffffffu, s[p], 1 << q);
+        if (lane >= (1 << q)) s[p] = fma(lev, u, s[p]);
+      }
+      lev *= lev;  // p2^(2^(q+1))
+    }
+    // lev = a^64, a warp's samples
+    double z[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      z[p] = __shfl_up_sync(0xffffffffu, s[p], 1);
+      if (lane == 0) z[p] = 0.0;
+      if (lane == 31) wtot[p][warp] = s[p];
+    }
+    __syncthreads();
+    const double lane_pow = ipow(p2, static_cast<unsigned>(lane));
+    const double start_pow = ipow(p2, static_cast<unsigned>(t));
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      double w = 0.0;
+      for (int v = 0; v < warp; ++v) w = fma(lev, w, wtot[p][v]);
+      const double yin = fma(start_pow, static_cast<double>(a.dc[c * 4 + 2 + p]),
+                             fma(lane_pow, w, z[p]));
+      const double y0 = fma(pa, yin, b[0][p]);
+      const double y1 = fma(pa, y0, b[1][p]);
+      y[0][p] = k0 < a.m ? static_cast<float>(y0) : 0.0f;
+      y[1][p] = k0 + 1 < a.m ? static_cast<float>(y1) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const float w = a.window[k0 + s];
+    const float wr = __fmul_rn(w, y[s][0]);
+    base[k0 + s] = make_float2(wr, __fmul_rn(w, y[s][1]));
+    image[k0 + s] = make_float2(wr, 0.0f);
+  }
+}
+
+template <bool kWire, bool kDc>
+__global__ void __launch_bounds__(kThreads) iq_estimate_kernel(const Args a) {
+  __shared__ float2 base[kN + kN / 32];
+  __shared__ float2 image[kN + kN / 32];
+  __shared__ double wtot[2][kWarps];
+  __shared__ float red[2][4 * kWarps];
+  __shared__ float peak[kWarps];
+  const int c = blockIdx.x, t = threadIdx.x;
+  const bool due = a.counter == nullptr || *a.counter >= a.interval;
+  bool ran = false;
+  if (due) {
+    stage_prefix<kWire, kDc>(a, c, base, image, wtot);
+    __syncthreads();
+    if (t < 32) {
+      fft1024(base, a.twiddle);
+    } else if (t < 64) {
+      fft1024(image, a.twiddle);
+    }
+    __syncthreads();
+
+    // this thread's band bin: p_neg at lo + t, p_pos at kN - lo - 1 - t,
+    // read from the unshifted spectra at (i + kN / 2) mod kN
+    const int nb = a.hi - a.lo;
+    const bool own = t < nb;
+    const int ineg = ((own ? a.lo + t : 0) + kN / 2) & (kN - 1);
+    const int ipos = ((own ? kN - a.lo - 1 - t : 0) + kN / 2) & (kN - 1);
+    const float2 bn = base[ineg], mn = image[ineg], bp = base[ipos], mp = image[ipos];
+    float g = a.factors[c * 2];
+    float phi = a.factors[c * 2 + 1];
+
+    // the utility, the band's sums and its peak at the starting factors
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float mx = -3.0e38f;
+    if (own) {
+      const float pn = spec_db(bn, mn, g, phi);
+      const float pp = spec_db(bp, mp, g, phi);
+      const float d = pp - pn;
+      if (pp > a.floor_db || pn > a.floor_db) v[0] = d * d;
+      v[1] = pp;
+      v[2] = pn;
+      mx = fmaxf(pp, pn);
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if ((t & 31) == 0) peak[t >> 5] = mx;
+    cta_sum4(v, red[1]);  // its barrier also publishes the warp peaks
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, peak[w]);
+    const float gate_db =
+        __fsub_rn(mx, __fdiv_rn(__fadd_rn(v[1], v[2]), static_cast<float>(2 * nb)));
+    float cur_u = v[0];
+
+    // every thread reduces the same sums in the same order, so all of
+    // them take the same move; pass p reduces through slot p & 1, which
+    // no thread reads again before the next pass's barrier
+    for (int p = 0; p < a.passes; ++p) {
+      float u[4], cg[4], cp[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float pn = spec_db(bn[j], mn[j], cg[k], cp[k], n);
-        const float pp = spec_db(bp[j], mp[j], cg[k], cp[k], n);
-        const float d = pp - pn;
-        if (pp > a.floor_db || pn > a.floor_db) u[k] += d * d;
+        cg[k] = g + (k < 2 ? a.step : -a.step);
+        cp[k] = phi + ((k & 1) ? -a.step : a.step);
+        u[k] = 0.0f;
+        if (own) {
+          const float pn = spec_db(bn, mn, cg[k], cp[k]);
+          const float pp = spec_db(bp, mp, cg[k], cp[k]);
+          const float d = pp - pn;
+          if (pp > a.floor_db || pn > a.floor_db) u[k] = d * d;
+        }
+      }
+      cta_sum4(u, red[p & 1]);
+      int best = 0;
+#pragma unroll
+      for (int k = 1; k < 4; ++k) {
+        if (u[k] > u[best]) best = k;
+      }
+      if (u[best] > cur_u) {
+        g = cg[best];
+        phi = cp[best];
+        cur_u = u[best];
       }
     }
-    cta_sum<4>(u, red);
-    int best = 0;
-    for (int k = 1; k < 4; ++k) {
-      if (u[k] > u[best]) best = k;
+    if (t == 0) {
+      const float f0 = a.factors[c * 2], f1 = a.factors[c * 2 + 1];
+      float o0 = g, o1 = phi;
+      if (a.smooth) {
+        ran = gate_db >= a.gate_min;
+        o0 = ran ? __fadd_rn(__fmul_rn(a.keep, f0), __fmul_rn(a.mix, g)) : f0;
+        o1 = ran ? __fadd_rn(__fmul_rn(a.keep, f1), __fmul_rn(a.mix, phi)) : f1;
+      }
+      a.out[c * 2] = o0;
+      a.out[c * 2 + 1] = o1;
+      if (a.gate) a.gate[c] = gate_db;
     }
-    if (u[best] > cur_u) {
-      g = cg[best];
-      phi = cp[best];
-      cur_u = u[best];
-    }
+  } else if (t == 0) {
+    a.out[c * 2] = a.factors[c * 2];
+    a.out[c * 2 + 1] = a.factors[c * 2 + 1];
+    if (a.gate) a.gate[c] = __int_as_float(0x7fffffff);
   }
-  if (t == 0) {
-    a.out[c * 2] = g;
-    a.out[c * 2 + 1] = phi;
+  if (t == 0 && a.counter != nullptr) {
+    const unsigned long long mine = 1ull | (ran ? (1ull << 32) : 0ull);
+    const unsigned long long before = atomicAdd(a.ticket, mine);
+    if ((before & 0xffffffffull) == static_cast<unsigned long long>(a.channels - 1)) {
+      const bool any_ran = ((before >> 32) != 0ull) || ran;
+      const long long cnt = *a.counter;
+      const long long held = cnt < kSat ? cnt : kSat;
+      const long long next = held + a.advance < kSat ? held + a.advance : kSat;
+      *a.counter_out = any_ran ? 0LL : next;
+      *a.ticket = 0ull;  // re-armed for the next launch
+    }
   }
 }
 
+template <bool kWire, bool kDc>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  iq_estimate_kernel<kWire, kDc><<<a.channels, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace est
 }  // namespace iqk
 
 // Launch on `stream`; returns the launch's cudaError_t (0 on success).
-extern "C" int iq_est_descent(const void* base, const void* image,
-                              const float* factors, const float* moves,
-                              int channels, int nfft, int lo, int hi,
-                              int passes, float floor_db, float* out,
-                              float* gate_db, void* stream) {
-  if (channels <= 0 || nfft <= 0 || lo < 0 || hi <= lo || 2 * hi > nfft ||
-      hi - lo > iqk::kEstThreads * iqk::kEstPer || passes < 0) {
+// wire: packed wire of `kind` (>= 0) or null for the float32 planes
+// xr/xi (kind -1); ld/inc: the source's row and element strides; dc: the
+// (C, 4) DC state or null; counter: the () int64 counter or null (always
+// due, no counter_out, no ticket).
+extern "C" int iq_estimate(const void* wire, int kind, float norm, float gain,
+                           const float* xr, const float* xi, long long ld,
+                           long long inc, int m, const float* dc, double pole,
+                           const float* window, const void* twiddle,
+                           const float* factors, const long long* counter,
+                           long long interval, long long advance, int passes,
+                           float step, float floor_db, float gate_min, float keep,
+                           float mix, int smooth, int lo, int hi, int channels,
+                           float* out, float* gate, long long* counter_out,
+                           void* ticket, void* stream) {
+  using namespace iqk::est;
+  const bool wired = kind != iqk::kPlanar;
+  if (channels <= 0 || m <= 0 || m > kN || lo < 0 || hi <= lo || 2 * hi > kN ||
+      hi - lo > kThreads || passes < 0 || (wired ? wire == nullptr : (xr == nullptr || xi == nullptr)) ||
+      (counter != nullptr && (counter_out == nullptr || ticket == nullptr))) {
     return cudaErrorInvalidValue;
   }
-  iqk::EstArgs a{static_cast<const float2*>(base), static_cast<const float2*>(image),
-                 factors, moves, nfft, lo, hi, passes, floor_db, out, gate_db};
-  iqk::iq_descent_kernel<<<channels, iqk::kEstThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  Args a{wire, kind, norm, gain, xr, xi, ld, inc, m, dc, pole, window,
+         static_cast<const float2*>(twiddle), factors, counter, interval, advance,
+         passes, step, floor_db, gate_min, keep, mix, smooth, lo, hi, channels,
+         out, gate, counter_out, static_cast<unsigned long long*>(ticket)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wired) return dc ? launch<true, true>(a, s) : launch<true, false>(a, s);
+  return dc ? launch<false, true>(a, s) : launch<false, false>(a, s);
 }

@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "iq_banded_apply": [_P, _P, _P, _I, _F, _F, _P, _U, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _F,
@@ -56,7 +57,9 @@ _SIGNATURES = {
     "iq_agc_chain": [_P, _I, _P, _P, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     "iq_osfft_apply": [_P, _P, _I, _P, _P, ctypes.c_longlong, _I, _P, _P, _I,
                        _P, _P, _P, _I, _I, _I, _I, _P, _P, ctypes.c_longlong, _P],
-    "iq_est_descent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "iq_estimate": [_P, _I, _F, _F, _P, _P, _L, _L, _I, _P, ctypes.c_double, _P, _P,
+                    _P, _P, _L, _L, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _P, _P,
+                    _P, _P, _P],
 }
 _RESTYPES = {"iq_dc_scratch_bytes": ctypes.c_longlong, "iq_dc_geometry": None}
 

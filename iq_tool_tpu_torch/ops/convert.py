@@ -153,19 +153,29 @@ def from_planar(xr: torch.Tensor, xi: torch.Tensor,
     return _narrow(codes, torch_wire_dtype(fmt)).reshape(*lead, -1)
 
 
-def wire_pack(raw: torch.Tensor, fmt: SampleFormat | str):
-    """(packed wire, kind) with one element per frame, or None when the
-    format has no such packing.  The same zero-copy views as the
-    reference: kind "cs16" (also sc16q11) and "cu16" are int32 with I in
+def wire_kind(fmt: SampleFormat | str):
+    """(element dtype, kind) of the format's packed wire, or None when it
+    has none: kind "cs16" (also sc16q11) and "cu16" are int32 with I in
     the low 16 bits; "cu8"/"cs8" are int16 with I in the low byte."""
     fmt = _fmt(fmt)
     if fmt.wire_dtype == np.int16 and fmt.signed and fmt.items_per_frame == 2:
-        return raw.contiguous().view(torch.int32), "cs16"
-    if fmt.name == "cu16":
-        return raw.contiguous().view(torch.int16).view(torch.int32), "cu16"
-    if fmt.name in ("cu8", "cs8"):
-        return raw.contiguous().view(torch.int16), fmt.name
+        return torch.int32, "cs16"
+    if fmt.name in ("cu16", "cu8", "cs8"):
+        return (torch.int32 if fmt.name == "cu16" else torch.int16), fmt.name
     return None
+
+
+def wire_pack(raw: torch.Tensor, fmt: SampleFormat | str):
+    """(packed wire, kind) with one element per frame, or None when the
+    format has no such packing (``wire_kind``): the same zero-copy views
+    as the reference."""
+    packing = wire_kind(fmt)
+    if packing is None:
+        return None
+    raw = raw.contiguous()
+    if raw.dtype == torch.uint16:
+        raw = raw.view(torch.int16)
+    return raw.view(packing[0]), packing[1]
 
 
 def packed_to_wire(packed: torch.Tensor, fmt: SampleFormat | str) -> torch.Tensor:

@@ -121,8 +121,8 @@ def apply_planar(xr: torch.Tensor, xi: torch.Tensor, state: torch.Tensor,
 def apply_prefix(xr: torch.Tensor, xi: torch.Tensor, state: torch.Tensor,
                  alpha: float, m: int):
     """The DC-blocked first ``m`` samples of a block, from the carried
-    (C, 4) state: what the I/Q estimator taps, recomputed beside the
-    fused pre-stage kernel (which outputs only the corrected signal)."""
+    (C, 4) state: what the I/Q estimator taps (its plain twin's prefix;
+    the estimator kernel computes it in its own loader)."""
     yr, _, _ = apply_plane(xr[:, :m], state[:, 0], state[:, 2], alpha)
     yi, _, _ = apply_plane(xi[:, :m], state[:, 1], state[:, 3], alpha)
     return yr, yi

@@ -10,11 +10,14 @@
   smoothed into the active factors with weight 0.05.
 
 The reference runs the estimator under ``lax.cond`` on its device
-counter.  Here it runs on every call and its result is masked with
-``torch.where`` on the device-side ``due`` flag, so a chain step never
-reads a device value back to the host: the estimator costs the same on
-every block, due or not.  The descent and the power gate are one helper
-kernel on a CUDA tensor (``kernels.iq_descent``); its plain twin, here,
+counter.  On a CUDA tensor the whole estimator of a step is one helper
+kernel (``kernels.iq_estimate``, csrc/iq_est.cu): it reads the counter
+on the card, so a chain step never reads a device value back to the
+host, and on a step that is not due it does no estimator work (one
+launch and a ticket).  It also takes the chain's prefix as it lies: the
+packed wire or the planes, DC-blocked in the kernel from the carried
+state (``maybe_update_planar``).  Its plain twin, on the CPU, runs the estimator on
+every step and masks the result (``maybe_update``): the descent
 evaluates the 4 candidates of every channel as one batched tensor op per
 pass.
 
@@ -156,52 +159,76 @@ def _optimize_core(base: torch.Tensor, image: torch.Tensor,
     return cur
 
 
-def maybe_update_planar(xr: torch.Tensor, xi: torch.Tensor, state: IqState,
-                        interval_samples: int, passes: int = 25,
-                        advance_samples: int | None = None) -> IqState:
-    """Only the first IQ_FFT_SIZE samples feed the estimator, so the
-    complex view is built over that slice alone."""
-    n = xr.shape[-1]
-    m = min(n, C.IQ_FFT_SIZE)
-    seg = torch.complex(xr[:, :m], xi[:, :m])
-    return maybe_update(seg, state, interval_samples, passes,
-                        advance_samples=n if advance_samples is None
-                        else advance_samples)
+def maybe_update_planar(xr, xi, state: IqState, interval_samples: int,
+                        passes: int = 25, advance_samples: int | None = None, *,
+                        dc_state=None, dc_alpha: float = 0.0, wire_i32=None,
+                        wire_norm: float = 0.0, wire_gain: float = 1.0,
+                        wire_kind: str = "cs16") -> IqState:
+    """The estimator of one step on the block's prefix (its first
+    IQ_FFT_SIZE frames): the float32 (C, N) planes xr/xi or, in their
+    place, the packed wire ``wire_i32``, DC-blocked from ``dc_state`` when
+    one is given (``kernels.iq_estimate``).  The counter advances by N
+    unless ``advance_samples`` says otherwise."""
+    from iq_tool_tpu_torch.ops import kernels
+    src = wire_i32 if wire_i32 is not None else xr
+    factors, counter, _ = kernels.iq_estimate(
+        xr, xi, state.factors, state.samples_since_opt, interval_samples,
+        src.shape[-1] if advance_samples is None else advance_samples, dc_state,
+        dc_alpha, wire_i32, wire_norm, wire_gain, wire_kind, passes)
+    return IqState(factors=factors, samples_since_opt=counter)
 
 
-def maybe_update(x: torch.Tensor, state: IqState, interval_samples: int,
-                 passes: int = 25, advance_samples: int | None = None) -> IqState:
-    """The rate-limited, power-gated estimator on a (C, N) complex64 block
-    (the pre-correction signal; its first IQ_FFT_SIZE samples are used).
-    Runs masked: see the module docstring."""
+def _update(x: torch.Tensor, state: IqState, interval_samples: int, passes: int,
+            advance_samples: int):
+    """maybe_update's body: (new state, (C,) gate dB, computed due or not)."""
+    from iq_tool_tpu_torch.ops import kernels
     nfft = C.IQ_FFT_SIZE
     n = x.shape[-1]
     seg = x[:, :nfft] if n >= nfft else torch.cat(
         [x, torch.zeros((x.shape[0], nfft - n), dtype=x.dtype, device=x.device)],
         dim=-1)
-    from iq_tool_tpu_torch.ops import kernels
     counter = state.samples_since_opt
     due = counter >= int(interval_samples)
     factors = state.factors
-    new_raw, gate_db = kernels.iq_descent(*_spectra(seg), factors, passes)
+    new_raw, gate_db = kernels.iq_descent_ref(*_spectra(seg), factors, passes)
     gate = gate_db >= C.IQ_POWER_GATE_DB                             # (C,)
     sm = _f32(C.IQ_SMOOTHING)
     smoothed = _f32(1.0 - sm) * factors + sm * new_raw
     new_factors = torch.where((due & gate)[:, None], smoothed, factors)
     ran = due & gate.any()
-    adv = int(advance_samples if advance_samples is not None else n)
+    adv = int(advance_samples)
     new_counter = torch.where(ran, torch.zeros_like(counter),
                               torch.clamp(torch.clamp(counter, max=_SAT) + adv,
                                           max=_SAT))
-    return IqState(factors=new_factors, samples_since_opt=new_counter)
+    return IqState(factors=new_factors, samples_since_opt=new_counter), gate_db
+
+
+def maybe_update(x: torch.Tensor, state: IqState, interval_samples: int,
+                 passes: int = 25, advance_samples: int | None = None) -> IqState:
+    """The rate-limited, power-gated estimator on a (C, N) complex64 block
+    (the pre-correction signal; its first IQ_FFT_SIZE samples are used),
+    in tensor ops on any device: the kernel's plain twin, which runs the
+    estimator whether or not an update is due and masks its result."""
+    adv = x.shape[-1] if advance_samples is None else advance_samples
+    return _update(x, state, interval_samples, passes, adv)[0]
 
 
 def calibrate(x: torch.Tensor, rounds: int = 10, passes: int = 25) -> torch.Tensor:
     """Synchronous pre-stream calibration (files): (C, nfft) complex64 ->
-    (C, 2) factors after several unsmoothed descent rounds from zero."""
+    (C, 2) factors after several unsmoothed descent rounds from zero.  On
+    a CUDA tensor the rounds are one estimator launch of rounds x passes
+    passes (a round starts where the last ended, at its utility), which
+    takes a full IQ_FFT_SIZE block."""
     from iq_tool_tpu_torch.ops import kernels
-    base, image = _spectra(x[:, :C.IQ_FFT_SIZE].to(torch.complex64))
+    x = x[:, :C.IQ_FFT_SIZE].to(torch.complex64)
     factors = torch.zeros((x.shape[0], 2), dtype=torch.float32, device=x.device)
-    for _ in range(rounds):
-        factors, _ = kernels.iq_descent(base, image, factors, passes)
-    return factors
+    if x.device.type == "cpu":
+        base, image = _spectra(x)
+        for _ in range(rounds):
+            factors, _ = kernels.iq_descent_ref(base, image, factors, passes)
+        return factors
+    if x.shape[-1] != C.IQ_FFT_SIZE:
+        raise ValueError(f"calibration on the card takes {C.IQ_FFT_SIZE} frames, "
+                         f"got {x.shape[-1]}")
+    return kernels.iq_estimate(x.real, x.imag, factors, None,
+                               passes=rounds * passes)[0]

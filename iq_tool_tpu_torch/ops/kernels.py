@@ -20,8 +20,10 @@
   ``segment_energies`` and ``agc_chain``, the loop over given energies
   (helper kernels, not TPU kernels).
 * K5 ``osfft_apply`` (``csrc/osfft.cu``): the overlap-save FFT filter.
-* ``iq_descent`` (``csrc/iq_est.cu``): the I/Q estimator's greedy
-  descent and power gate (a helper kernel, not a TPU kernel).
+* ``iq_estimate`` (``csrc/iq_est.cu``): the I/Q estimator of a step,
+  whole (prefix decode, float64 DC prefix, both spectra, power gate,
+  descent, smoothing and the due counter; a helper kernel, not a TPU
+  kernel), which exits early when no update is due.
 
 Each wrapper keeps the reference's signature minus ``interpret`` and the
 TPU tiling, and dispatches on where its input lies: a CPU tensor runs the
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -994,52 +997,150 @@ def osfft_apply(xr, xi, h, block: int, advance=None, windows=None, tail=None):
 osfft_apply.launches = 0
 
 
-# ------------------------------ I/Q descent ------------------------------------
+# ------------------------------ the I/Q estimator -----------------------------
 
 def iq_descent_ref(base, image, factors, passes: int = 25):
-    """Plain twin of iq_descent: the descent and the gate in tensor ops."""
+    """The estimator's descent and power gate in tensor ops: base/image
+    (C, nfft) complex64 shifted spectra of the windowed block and of its
+    real part, factors (C, 2) -> (factors after ``passes`` passes,
+    unsmoothed, and the (C,) gate in dB at the starting factors)."""
     gate_db = iq_balance._power_gate(
         iq_balance._spectrum_db(base, image, factors[:, 0], factors[:, 1]))
     return iq_balance._optimize_core(base, image, factors, passes), gate_db
 
 
-def iq_descent(base, image, factors, passes: int = 25):
-    """The I/Q estimator's greedy descent (helper kernel in
-    csrc/iq_est.cu; the reference runs it in XLA): base/image (C, nfft)
-    complex64 shifted spectra of the windowed block and of its real part,
-    factors (C, 2) -> (factors after ``passes`` passes, unsmoothed, and
-    the (C,) power gate in dB at the starting factors)."""
-    if base.device.type == "cpu":
-        return iq_descent_ref(base, image, factors, passes)
+_EST_TICKETS: dict = {}   # (device index, stream) -> the estimator's ticket
+
+
+@functools.lru_cache(maxsize=8)
+def _est_consts(device: str):
+    """(window, twiddles) of the estimator kernel on `device`: the float32
+    Hamming window and exp(-2 pi i k / 1024) from float64, made once."""
+    n = C.IQ_FFT_SIZE
+    tw = np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64)
+    return (iq_balance._window(n, device),
+            torch.from_numpy(tw.view(np.float32).copy()).to(device))
+
+
+def _est_ticket(dev: torch.device) -> torch.Tensor:
+    """The estimator's ticket of this device and stream: zeroed once when
+    it is allocated; each launch's last CTA re-arms it."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _EST_TICKETS.get(key)
+    if buf is None:
+        buf = _EST_TICKETS[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return buf
+
+
+def iq_estimate_ref(xr, xi, factors, counter, interval: int = 0, advance: int = 0,
+                    dc_state=None, dc_alpha: float = 0.0, wire_i32=None,
+                    wire_norm: float = 0.0, wire_gain: float = 1.0,
+                    wire_kind: str = "cs16", passes: int = 25):
+    """Plain twin of iq_estimate: the decode of the prefix, the float64 DC
+    prefix (``dc_block.apply_prefix``), then ``iq_balance.maybe_update``
+    with the descent in tensor ops, run whether or not an update is due
+    and masked.  The gate is NaN where no update was due, as the kernel
+    leaves it."""
+    src = wire_i32 if wire_i32 is not None else xr
+    m = min(src.shape[-1], C.IQ_FFT_SIZE)
+    if wire_i32 is not None:
+        xr, xi = convert.decode_packed(wire_i32[:, :m], wire_kind, wire_norm, wire_gain)
+    if dc_state is not None:
+        xr, xi = dc_block.apply_prefix(xr, xi, dc_state, dc_alpha, m)
+    seg = torch.complex(xr[:, :m], xi[:, :m])
+    if counter is None:
+        seg = torch.nn.functional.pad(seg, (0, C.IQ_FFT_SIZE - m))
+        new, gate_db = iq_descent_ref(*iq_balance._spectra(seg), factors, passes)
+        return new, None, gate_db
+    state, gate_db = iq_balance._update(seg, iq_balance.IqState(factors, counter),
+                                        interval, passes, advance)
+    due = counter >= int(interval)
+    return (state.factors, state.samples_since_opt,
+            torch.where(due, gate_db, torch.full_like(gate_db, float("nan"))))
+
+
+def iq_estimate(xr, xi, factors, counter, interval: int = 0, advance: int = 0,
+                dc_state=None, dc_alpha: float = 0.0, wire_i32=None,
+                wire_norm: float = 0.0, wire_gain: float = 1.0,
+                wire_kind: str = "cs16", passes: int = 25):
+    """The I/Q estimator of one step (helper kernel in csrc/iq_est.cu; the
+    reference runs it in XLA under lax.cond).
+
+    Its input is the first m = min(n, 1024) frames of ``wire_i32`` (C, n)
+    (convert.wire_pack, decoded with wire_norm/wire_gain) or of the planes
+    xr/xi (C, n) float32 (any strides, the same for both), DC-blocked from
+    the (C, 4) ``dc_state`` when one is given, zero-padded to 1024.
+    factors (C, 2) float32; counter () int64 holding the uint32 samples
+    since the last update.  Returns (factors, counter, gate_db): where the
+    counter reaches ``interval`` the power gate (C,) in dB and, where it
+    passes, the factors smoothed toward the descent's; the counter reset
+    when any channel ran, else advanced by ``advance`` (saturating).
+    ``counter=None`` is the calibration: always due, the descent's factors
+    unsmoothed, no counter out.  On a step that is not due the kernel
+    does no estimator work; the gate is then NaN."""
+    src = wire_i32 if wire_i32 is not None else xr
+    if src.device.type == "cpu":
+        return iq_estimate_ref(xr, xi, factors, counter, interval, advance, dc_state,
+                               dc_alpha, wire_i32, wire_norm, wire_gain, wire_kind,
+                               passes)
     from iq_tool_tpu_torch.ops import _build
     lib = _build.library()
-    _require_cuda(base, image, factors)
-    ch, nfft = base.shape
-    if base.dtype != torch.complex64 or image.dtype != torch.complex64:
-        raise ValueError("spectra must be complex64")
-    if image.shape != (ch, nfft) or factors.shape != (ch, 2):
-        raise ValueError(f"image must be ({ch}, {nfft}) and factors ({ch}, 2)")
-    _require_dtypes(None, 0, None, factors)
-    lo, hi = iq_balance.band_edges(nfft)
-    dev = base.device
-    moves = iq_balance._moves(str(dev))
+    dev = src.device
+    if wire_i32 is not None:
+        if not wire_norm:
+            raise ValueError("wire_i32 requires wire_norm (the format normalizer)")
+        kind = _WIRE_KINDS[wire_kind]
+        _require_dtypes(wire_i32, kind, None)
+        if wire_i32.stride(-1) != 1:
+            raise ValueError("the packed wire's rows must be contiguous")
+        xr = xi = None
+        ld, inc = wire_i32.stride(0), 1
+    else:
+        kind = _PLANAR
+        _require_dtypes(None, kind, None, xr, xi)
+        if xr.shape != xi.shape or xr.stride() != xi.stride():
+            raise ValueError("xr and xi must have one shape and one layout")
+        ld, inc = xr.stride()
+    _require_cuda(factors, counter, dc_state)
+    _require_dtypes(None, kind, None, factors, dc_state)
+    for t in (xr, xi):
+        if t is not None and t.device != dev:
+            raise ValueError(f"kernel input on {t.device}, expected {dev}")
+    ch, n = src.shape
+    if factors.shape != (ch, 2) or factors.device != dev:
+        raise ValueError(f"factors must be ({ch}, 2) on {dev}")
+    if dc_state is not None and (dc_state.shape != (ch, 4) or dc_state.device != dev):
+        raise ValueError(f"dc_state must be ({ch}, 4) on {dev}")
+    if counter is not None and (counter.dtype != torch.int64 or counter.shape != ()
+                                or counter.device != dev):
+        raise ValueError(f"counter must be a () int64 tensor on {dev}")
+    lo, hi = iq_balance.band_edges(C.IQ_FFT_SIZE)
+    sm = convert._f32(C.IQ_SMOOTHING)
     out = torch.empty_like(factors)
     gate_db = torch.empty((ch,), dtype=torch.float32, device=dev)
+    new_counter = None if counter is None else torch.empty_like(counter)
     with torch.cuda.device(dev):
-        rc = lib.iq_est_descent(
-            _ptr(base), _ptr(image), _ptr(factors), _ptr(moves), ch, nfft, lo, hi,
-            int(passes), float(C.IQ_SPECTRUM_FLOOR_DB), _ptr(out),
-            _ptr(gate_db), _stream())
-    _check(rc, "I/Q descent kernel")
-    iq_descent.launches += 1
-    return out, gate_db
+        window, twiddle = _est_consts(str(dev))
+        ticket = None if counter is None else _est_ticket(dev)
+        rc = lib.iq_estimate(
+            _ptr(wire_i32), kind, convert._f32(wire_norm), convert._f32(wire_gain),
+            _ptr(xr), _ptr(xi), ld, inc, min(n, C.IQ_FFT_SIZE), _ptr(dc_state),
+            float(1.0 - dc_alpha), _ptr(window), _ptr(twiddle), _ptr(factors),
+            _ptr(counter), int(interval), int(advance), int(passes),
+            convert._f32(C.IQ_EST_STEP), float(C.IQ_SPECTRUM_FLOOR_DB),
+            float(C.IQ_POWER_GATE_DB), convert._f32(1.0 - sm), sm,
+            int(counter is not None), lo, hi, ch, _ptr(out), _ptr(gate_db),
+            _ptr(new_counter), _ptr(ticket), _stream())
+    _check(rc, "I/Q estimator kernel")
+    iq_estimate.launches += 1
+    return out, new_counter, gate_db
 
 
-iq_descent.launches = 0
+iq_estimate.launches = 0
 
 
 def reset_launch_counts() -> None:
     for fn in (banded_apply, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
                post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
-               iq_descent):
+               iq_estimate):
         fn.launches = 0

@@ -19,8 +19,9 @@ through four collectives of the time axis (``_TimeRow``):
 * ``all_gather``: the DC blocker's zero-start ends and the RMS AGC's
   segment energies;
 * ``all_max``: the digital AGC's block peak;
-* ``broadcast0``: shard 0's first IQ_FFT_SIZE DC-blocked samples, which
-  the I/Q estimator reads.
+* ``broadcast0``: shard 0's first IQ_FFT_SIZE frames (packed wire or
+  planes) and its carried DC state, from which the I/Q estimator's
+  kernel decodes and DC-blocks what it reads.
 
 The NCO needs none: shard t's phase is the carry advanced by t * n.  The
 DC recurrence is exact across shards by running the DC kernel twice: once
@@ -58,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 from iq_tool_tpu_torch import constants as C
-from iq_tool_tpu_torch.ops import agc, convert, dc_block, iq_balance, kernels, nco
+from iq_tool_tpu_torch.ops import agc, convert, iq_balance, kernels, nco
 from iq_tool_tpu_torch.pipeline.chain import (Chain, ChainConfig, carry_from_numpy,
                                               carry_to_numpy, resolve_device)
 from iq_tool_tpu_torch.pipeline.folded import widest_tail
@@ -215,13 +216,13 @@ class _TimeRow:
     def all_max(self, vals: dict) -> torch.Tensor:
         return torch.stack(self.all_gather(vals)).amax(dim=0)
 
-    def broadcast0(self, val, shapes: tuple) -> tuple:
-        """Shard 0's float32 tensors (``val`` where this process holds
-        shard 0, else None; ``shapes`` theirs) on ``lead``."""
+    def broadcast0(self, val, specs: tuple) -> tuple:
+        """Shard 0's tensors (``val`` where this process holds shard 0,
+        else None; ``specs`` their (shape, dtype)) on ``lead``."""
         if 0 in self.held:
             self._p2p([(x, r) for r in self.peers for x in val], [])
             return _to(val, self.lead)
-        bufs = tuple(torch.empty(s, dtype=torch.float32, device=self.lead) for s in shapes)
+        bufs = tuple(torch.empty(s, dtype=d, device=self.lead) for s, d in specs)
         self._p2p([], [(b, self.owner[0]) for b in bufs])
         return bufs
 
@@ -516,14 +517,26 @@ class _RowStep:
 
     # --- pre-stage -------------------------------------------------------------
 
-    def iq_update(self, seg0) -> torch.Tensor:
+    def iq_update(self, prefix) -> torch.Tensor:
         """Shard 0's estimator input broadcast, the estimator run once on
-        lead over it: the factors (lead)."""
-        shape = (self.sc.c_local, min(self.lc.n_in, C.IQ_FFT_SIZE))
-        seg_r, seg_i = self.row.broadcast0(seg0, (shape, shape))
-        state = iq_balance.maybe_update_planar(seg_r, seg_i, self.rep["iq"],
-                                               self.lc.iq_interval,
-                                               advance_samples=self.t * self.lc.n_in)
+        lead over it: the factors (lead).  ``prefix`` (where this process
+        holds shard 0) is its block's first IQ_FFT_SIZE frames, the packed
+        wire's for a packable format with the DC block, else the planes',
+        then with the DC block shard 0's carried DC state."""
+        lc = self.lc
+        shape = (self.sc.c_local, min(lc.n_in, C.IQ_FFT_SIZE))
+        kind = convert.wire_kind(lc.fmt_in) if lc.cfg.dc_block else None
+        specs = ([(shape, kind[0])] if kind else [(shape, torch.float32)] * 2)
+        if lc.cfg.dc_block:
+            specs.append(((self.sc.c_local, 4), torch.float32))
+        got = self.row.broadcast0(prefix, tuple(specs))
+        planes = (None, None) if kind else got[:2]
+        src = (dict(wire_i32=got[0], wire_norm=lc.fmt_in.normalizer,
+                    wire_gain=lc.cfg.gain, wire_kind=kind[1]) if kind else {})
+        if lc.cfg.dc_block:
+            src.update(dc_state=got[-1], dc_alpha=lc.dc_alpha)
+        state = iq_balance.maybe_update_planar(*planes, self.rep["iq"], lc.iq_interval,
+                                               advance_samples=self.t * lc.n_in, **src)
         self.place("iq", state)
         return state.factors
 
@@ -561,15 +574,12 @@ class _RowStep:
             state=st, alpha=lc.dc_alpha, **args[t])[2])
         fac = None
         if cfg.iq_correction:
-            seg0 = None
+            prefix = None
             if 0 in self.held:
                 m = min(n, C.IQ_FFT_SIZE)
-                a0 = args[0]
-                pr, pi = ((a0["xr"], a0["xi"]) if planes[0] is not None else
-                          convert.decode_packed(a0["wire_i32"][:, :m], a0["wire_kind"],
-                                                a0["wire_norm"], cfg.gain))
-                seg0 = dc_block.apply_prefix(pr, pi, self.carry[0]["dc"], lc.dc_alpha, m)
-            fac = self.iq_update(seg0)
+                src = ((args[0]["wire_i32"],) if planes[0] is None else planes[0])
+                prefix = (*(x[:, :m] for x in src), self.carry[0]["dc"])
+            fac = self.iq_update(prefix)
         out = {}
         for t in self.held:
             yr, yi, _ = kernels.dc_block_apply(

@@ -25,7 +25,8 @@ On a CUDA device each of those calls launches its kernel; on the CPU the
 same calls run the kernels' plain twins.  The device is an explicit
 argument: asking for CUDA without a card raises, nothing falls back to
 the CPU.  A step never reads a device value back to the host (the I/Q
-estimator runs masked, see ``ops/iq_balance.py``).  All stream state
+estimator's kernel reads its due counter on the card, see
+``ops/iq_balance.py``).  All stream state
 lives in the carry, a dict of tensors:
 
     nco_pre, nco_post: (C,) int64 holding uint32 NCO phases
@@ -325,8 +326,9 @@ class Chain:
         """K3: DC block + I/Q apply + pre-NCO in one pass, over the packed
         wire (decoded in the kernel) or, for formats without one, the
         converted planes.  The I/Q estimator taps the DC-blocked signal
-        before the correction, so its IQ_FFT_SIZE-sample prefix is
-        recomputed beside the kernel from the carried DC state."""
+        before the correction: its kernel decodes and DC-blocks the
+        block's IQ_FFT_SIZE-frame prefix itself, from the carried DC
+        state, ahead of K3."""
         cfg = self.cfg
         packed = convert.wire_pack(raw, self.fmt_in)
         if packed is None:
@@ -340,12 +342,10 @@ class Chain:
         state = carry["dc"]
         factors = None
         if cfg.iq_correction:
-            m = min(n, C.IQ_FFT_SIZE)
-            pr, pi = ((xr, xi) if wire is None
-                      else convert.decode_packed(wire[:, :m], kind, norm, cfg.gain))
-            seg_r, seg_i = dc_block.apply_prefix(pr, pi, state, self.dc_alpha, m)
             new["iq"] = iq_balance.maybe_update_planar(
-                seg_r, seg_i, carry["iq"], self.iq_interval, advance_samples=n)
+                xr, xi, carry["iq"], self.iq_interval, dc_state=state,
+                dc_alpha=self.dc_alpha, wire_i32=wire, wire_norm=norm,
+                wire_gain=cfg.gain, wire_kind=kind)
             factors = new["iq"].factors
         dth = self.dtheta_pre
         yr, yi, new["dc"] = kernels.dc_block_apply(

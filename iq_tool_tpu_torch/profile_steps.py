@@ -113,6 +113,23 @@ def to_cu8(wire16: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x * 127.5 + 127.5), 0, 255).to(torch.uint8)
 
 
+def device_events(run, steps: int) -> dict:
+    """Run ``run`` ``steps`` times under torch.profiler (CPU and CUDA
+    activity, ending in a synchronize): {device event name: [ms,
+    launches]} summed over the runs, kernels and copies."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
+            by_name[ev.name][1] += 1
+    return by_name
+
+
 def profile(name: str) -> dict:
     dev = torch.device("cuda")
     chain = make_chain(name, dev)
@@ -143,16 +160,7 @@ def profile(name: str) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(STEPS):
-            step()
-        torch.cuda.synchronize()
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
-            by_name[ev.name][1] += 1
+    by_name = device_events(step, STEPS)
     busy_ms = sum(v[0] for v in by_name.values())
     launches = sum(v[1] for v in by_name.values())
     return dict(name=name, wall_ms=wall_ms, busy_ms=busy_ms / STEPS,

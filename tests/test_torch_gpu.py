@@ -623,32 +623,123 @@ def test_general_chain_on_card_matches_cpu_chain(rng):
         assert int(d[:, ramp if b == 0 else 0:].max()) <= 4
     assert (kernels.dc_block_apply.launches, kernels.banded_apply.launches,
             kernels.osfft_apply.launches, kernels.post_apply.launches,
-            kernels.rms_gains.launches, kernels.iq_descent.launches,
+            kernels.rms_gains.launches, kernels.iq_estimate.launches,
             kernels.banded_apply_dc.launches, kernels.dc_prologue.launches) == (
                 3, 6, 3, 3, 3, 3, 0, 0)
 
 
 def test_iq_descent_matches_twin(rng):
-    """The estimator's descent kernel against its tensor-op twin on
-    spectra of an imbalanced two-tone block: factors within 2 moves (a
+    """The estimator kernel's descent, unsmoothed (the calibration mode:
+    no counter, always due), against its tensor-op twin on an imbalanced
+    two-tone block from given factors: factors within 2 moves (a
     near-tie may go the other way when sums round differently), the
     power gate within 1e-4 dB relative."""
     _need_card()
-    from iq_tool_tpu_torch.ops import iq_balance
     ch, n = 16, 1024
-    k = np.arange(n)
-    x = (0.4 * np.exp(2j * np.pi * 0.07 * k) + 0.1 * np.exp(-2j * np.pi * 0.19 * k)
-         + 1e-3 * (rng.standard_normal((ch, n)) + 1j * rng.standard_normal((ch, n))))
-    x = (x.real * 1.01 + 1j * (x.imag + 0.012 * x.real)).astype(np.complex64)
-    base, image = iq_balance._spectra(_cuda(x))
+    x = _cuda(_imbalanced(rng, ch, n))
     f0 = _cuda((rng.standard_normal((ch, 2)) * 1e-3).astype(np.float32))
-    before = kernels.iq_descent.launches
-    got, gate = kernels.iq_descent(base, image, f0, 25)
-    want, want_gate = kernels.iq_descent_ref(base, image, f0, 25)
+    before = kernels.iq_estimate.launches
+    got, cnt, gate = kernels.iq_estimate(x.real, x.imag, f0, None, passes=25)
+    want, _, want_gate = kernels.iq_estimate_ref(x.real, x.imag, f0, None, passes=25)
     torch.cuda.synchronize()
-    assert kernels.iq_descent.launches == before + 1
+    assert kernels.iq_estimate.launches == before + 1 and cnt is None
     assert float((got - want).abs().max()) <= 2e-4 + 1e-7
     assert float(((gate - want_gate).abs() / want_gate.abs()).max()) <= 1e-4
+
+
+def _imbalanced(rng, ch, n, noise=1e-3):
+    """Tones at 0.07 and -0.19 of the rate behind a 1 % / 0.012 rad I/Q
+    imbalance, plus noise: (C, n) complex64."""
+    k = np.arange(n)
+    x = (0.4 * np.exp(2j * np.pi * 0.07 * k) + 0.1 * np.exp(-2j * np.pi * 0.19 * k)
+         + noise * (rng.standard_normal((ch, n)) + 1j * rng.standard_normal((ch, n))))
+    return (x.real * 1.01 + 1j * (x.imag + 0.012 * x.real)).astype(np.complex64)
+
+
+_IQ_CASES = ["cs16-dc", "cu8-dc", "cs8-dc", "cu16-dc", "planes-dc", "planes",
+             "strided", "short-dc", "notdue", "noise"]
+
+
+@pytest.mark.parametrize("case", _IQ_CASES)
+def test_iq_estimate_matches_twin(rng, case):
+    """The estimator of a step, whole, against its twin in each mode: the
+    packed wires with the DC prefix, planes with and without it, planes
+    with a stride (to_planar's views), a block shorter than 1024, a step
+    that is not due (factors bit-identical, gate NaN) and noise that
+    never passes the gate (the counter saturates).  Over 3 carried steps
+    (due, due, not due at interval 2n): factors within 2 smoothed moves,
+    the gate within 1e-3 dB, the counter exact, one launch a step."""
+    _need_card()
+    from iq_tool_tpu_torch.formats import get_format
+    ch = 8
+    n = 700 if case.startswith("short") else 4096
+    x = (_imbalanced(rng, ch, 3 * n) if case != "noise" else
+         (1e-3 * (rng.standard_normal((ch, 3 * n))
+                  + 1j * rng.standard_normal((ch, 3 * n)))).astype(np.complex64))
+    fac = _cuda((rng.standard_normal((ch, 2)) * 1e-3).astype(np.float32))
+    cnt = torch.tensor(5 if case == "notdue" else 0xFFFFFFFF, dtype=torch.int64).cuda()
+    want_f, want_c = fac, cnt
+    dc = _cuda((rng.standard_normal((ch, 4)) * 0.05).astype(np.float32))
+    interval = n + 1
+    for step in range(3):
+        blk = x[:, step * n:(step + 1) * n]
+        kw = dict(dc_state=dc if "dc" in case else None, dc_alpha=DC_ALPHA)
+        xr = xi = None
+        if case.split("-")[0] in ("cs16", "cu8", "cs8", "cu16"):
+            fmt = get_format(case.split("-")[0])
+            raw = convert.from_planar(torch.from_numpy(blk.real.copy()),
+                                      torch.from_numpy(blk.imag.copy()), fmt)
+            wire, kind = convert.wire_pack(raw.cuda(), fmt)
+            kw.update(wire_i32=wire, wire_norm=fmt.normalizer, wire_gain=1.0,
+                      wire_kind=kind)
+        elif case == "strided":
+            xc = _cuda(blk)
+            xr, xi = xc.real, xc.imag
+        else:
+            xr, xi = _cuda(blk.real), _cuda(blk.imag)
+        before = kernels.iq_estimate.launches
+        got = kernels.iq_estimate(xr, xi, fac, cnt, interval, n, **kw)
+        want = kernels.iq_estimate_ref(xr, xi, want_f, want_c, interval, n, **kw)
+        torch.cuda.synchronize()
+        assert kernels.iq_estimate.launches == before + 1
+        assert int(got[1]) == int(want[1])
+        due = int(cnt) >= interval
+        if due:
+            assert float((got[0] - want[0]).abs().max()) <= 2 * 1e-4 * 0.05 * (step + 1) + 1e-7
+            assert float((got[2] - want[2]).abs().max()) <= 1e-3
+        else:
+            assert torch.equal(got[0], fac)
+            assert bool(torch.isnan(got[2]).all())
+        if case == "noise":
+            assert int(got[1]) == 0xF0000000 and torch.equal(got[0], fac)
+        fac, cnt = got[0], got[1]
+        want_f, want_c = want[0], want[1]
+
+
+def test_iq_estimate_ticket_rearms_and_calibrates(rng):
+    """Many channels and repeated launches: each launch's last CTA re-arms
+    the ticket (the counter stays exact over 6 launches, on two
+    streams); iq_balance.calibrate goes through the kernel (one launch
+    of 250 passes) within 2 moves of the CPU's 10 rounds of 25."""
+    _need_card()
+    from iq_tool_tpu_torch.ops import iq_balance
+    ch, n = 130, 2048
+    x = _imbalanced(rng, ch, n)
+    xr, xi = _cuda(x.real), _cuda(x.imag)
+    state = iq_balance.init(ch, "cuda")
+    want = iq_balance.init(ch, "cpu")
+    side = torch.cuda.Stream()
+    for k in range(6):
+        with torch.cuda.stream(side if k % 2 else torch.cuda.current_stream()):
+            state = iq_balance.maybe_update_planar(xr, xi, state, 3000)
+        torch.cuda.synchronize()
+        want = iq_balance.maybe_update_planar(xr.cpu(), xi.cpu(), want, 3000)
+        assert int(state.samples_since_opt) == int(want.samples_since_opt)
+    before = kernels.iq_estimate.launches
+    cal = iq_balance.calibrate(_cuda(x[:, :1024]))
+    assert kernels.iq_estimate.launches == before + 1
+    want_cal = iq_balance.calibrate(torch.from_numpy(x[:, :1024]))
+    assert float((cal.cpu() - want_cal).abs().max()) <= 2e-4 + 1e-7
 
 
 def test_folded_on_card_matches_cpu_chain(rng):
