@@ -67,15 +67,27 @@ first failure:
    AGC's two halves against their twins at the shapes the 1x4 config #4
    step gave them (one shard's planes; the four shards' gathered
    energies), timed; the first DC pass's cost a shard;
-9. the CLI on a 10 s, 2.048 Msps cs16 tone file: the flagship flags, then
-   the general step's (I/Q correction, notch, post-shift, AGC);
+8c. [graph]: the step as one CUDA graph (pipeline/graphed.py) for the
+   flagship and config #4 at 128 x 262144, and "c1", "4c1" and "4c1f8"
+   (config #4 as one stream at the CLI's automatic fold): 10 replays of
+   distinct blocks with a reset at the fifth and a carry handed in from
+   carry_from_numpy at the eighth, every output and carry bit-identical
+   to the eager step's; the kernels each capture recorded; then eager
+   and graphed steps timed in turns (eager, graph, graph, eager) by
+   profile_steps: wall, busy, kernels and copies a step, idle, and the
+   graph's device kernels held against the eager step's;
+9. the CLI on a 10 s, 2.048 Msps cs16 tone file (the automatic fold: F =
+   8 at one channel): the flagship flags, then the general step's (I/Q
+   correction, notch, post-shift, AGC), each run's wall split into its
+   start-up (kernel build, graph capture), its streaming and the rest;
 10. [ckpt]: the CLI (in this process, so the launch counters see it) on a
    2 s tone file with the flagship flags: an uninterrupted run, a run on
    the file cut off a block boundary with --checkpoint, a --resume run
-   against the whole file: byte-identical; again with --time-fold 4;
+   against the whole file: byte-identical; with --time-fold 1, 4 and the
+   automatic fold;
 11. [profile]: the CLI with --profile-dir: the trace names K1's two
    kernels, the DC kernel's carry pass and the banded kernel with the
-   DC-wire loader;
+   DC-wire loader, replayed in the step's graph;
 
 then one JSON line per the kernels (each with its bound, the bytes or
 operations that set it, the library call's time where there is one, and
@@ -99,6 +111,8 @@ GATHER_STEPS = 4
 FOLDS = (1, 2, 4, 8, 16)
 FOLD_STEPS = 20             # timed steps per fold factor
 SHARD_STEPS = 3             # sharded steps ([shard]); the first is not timed
+GRAPH_STEPS = 10            # graph replays against eager steps ([graph])
+GRAPH_RESET = 4             # the step (from 0) that takes a reset
 # NVIDIA's data sheet for the H100 SXM (dense): the bounds below divide by
 # these
 PEAK_BYTES_S = 3.35e12
@@ -165,6 +179,16 @@ def nco_hz(shift_hz: float, rate: float) -> float:
     from iq_tool_tpu_torch.ops import nco
     d = nco.freq_to_dtheta(shift_hz, rate)
     return (d - ((d >> 31) << 32)) / 2 ** 32 * rate
+
+
+def cli_times(stderr: str) -> tuple[float, float, int]:
+    """(start-up s, streaming s, time fold) from the CLI's summaries: the
+    kernel build and the graph capture, the stream itself, and the fold
+    it ran."""
+    def value(key):
+        line = next(ln for ln in stderr.splitlines() if ln.strip().startswith(key))
+        return float(line.split(":", 1)[1].split()[0])
+    return value("Start-up"), value("Duration"), int(value("Time Fold"))
 
 
 def cs16_iq(wire: np.ndarray) -> np.ndarray:
@@ -528,7 +552,7 @@ def main() -> int:
     step_ms = ev[0].elapsed_time(ev[1]) / (STEPS - 2)
     peak = torch.cuda.max_memory_allocated()
     msps = CH * BLOCK / (step_ms / 1e3) / 1e6
-    say(f"[slice] {STEPS} steps of {CH} x {BLOCK}: launches {launches}, "
+    say(f"[slice] {STEPS} eager steps of {CH} x {BLOCK}: launches {launches}, "
         f"{step_ms:.3f} ms/step over steps 3-{STEPS} -> {msps:.1f} Msps in, "
         f"peak device memory {peak / 2 ** 20:.1f} MiB")
     if launches != {"K1": STEPS, "K2": STEPS, "K1pro": 0, "K1carry": STEPS}:
@@ -839,7 +863,7 @@ def main() -> int:
         counts = launch_counts()
         step_ms = ev[0].elapsed_time(ev[1]) / (steps - 2)
         peak = torch.cuda.max_memory_allocated()
-        say(f"{label} {steps} steps of {CH} x {BLOCK}: launches {counts}, "
+        say(f"{label} {steps} eager steps of {CH} x {BLOCK}: launches {counts}, "
             f"{step_ms:.3f} ms/step over steps 3-{steps} -> "
             f"{CH * BLOCK / (step_ms / 1e3) / 1e6:.1f} Msps in, peak device "
             f"memory {peak / 2 ** 20:.1f} MiB")
@@ -958,7 +982,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     say(f"[gather] {gch.resampler.plan.p}/{gch.resampler.plan.q}: {GATHER_STEPS} steps of "
         f"{CH} x {n_g} -> {gch.n_out} frames, K {gch.resampler.stages[0].plan.weights.shape[1]}: "
-        f"launches {g_counts}, {g_ms:.3f} ms/step over steps 2-{GATHER_STEPS} -> "
+        f"eager launches {g_counts}, {g_ms:.3f} ms/step over steps 2-{GATHER_STEPS} -> "
         f"{CH * n_g / (g_ms / 1e3) / 1e6:.1f} Msps in, peak device memory "
         f"{peak / 2 ** 20:.1f} MiB ({(peak - base_mem) / 2 ** 20:.1f} MiB above the "
         f"{base_mem / 2 ** 20:.1f} MiB held before the run, the input stream included)")
@@ -1046,7 +1070,7 @@ def main() -> int:
         say(f"[fold] {label} C=1, F=8 x {row.n_in}: 3 folded blocks vs the CPU twin "
             f"fold: max |dcode| {d_twin}; vs the row chain run 24 times: SNR "
             f"{snr_f:.1f} dB, max |dcode| {int(np.abs(diff).max())}; both past the "
-            f"first {skip // 2} frames; launches per folded step "
+            f"first {skip // 2} frames; eager launches per folded step "
             f"{ {k: v / 3 for k, v in fc_counts.items() if v} }")
         if d_twin > 4:
             fail(f"[fold] {label}: the card's fold differs from its CPU twin by "
@@ -1318,6 +1342,95 @@ def main() -> int:
         f"{e0.elapsed_time(e1) / 5:.3f} ms a shard a step")
     del wire1
 
+    # ---------------------------------------------------------- 8c. graph
+    # the step as one CUDA graph (pipeline/graphed.py) against the eager
+    # step, bit for bit, over GRAPH_STEPS replays of distinct blocks with a
+    # reset at the fifth and, at the eighth, a carry handed in from
+    # carry_from_numpy as a resume hands it; then both forms timed in turns
+    from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves
+    from iq_tool_tpu_torch.profile_steps import graph_kernels_differ, profile
+    k1_path = {"banded_apply": 1, "banded_apply_dc": 1, "dc_carry": 1}
+    general_path = {"banded_apply": 2, "dc_block_apply": 1, "post_apply": 1,
+                    "rms_gains": 1, "osfft_apply": 1, "iq_estimate": 1}
+    graph_kernels = {}
+    for name, label, path in (("flagship", "flagship", k1_path),
+                              ("4", "config #4", general_path),
+                              ("c1", "flagship C=1", k1_path),
+                              ("4c1", "config #4 C=1", general_path),
+                              ("4c1f8", "config #4 C=1, the automatic fold F=8",
+                               general_path)):
+        ch_ = make_chain(name, dev)
+        n = ch_.n_in
+        stream = tone_wire(ch_.cfg.channels, GRAPH_STEPS * n, gen)
+        blocks = [stream[:, k * 2 * n:(k + 1) * 2 * n].contiguous()
+                  for k in range(GRAPH_STEPS)]
+        del stream
+        carry, want, due = ch_.init_carry(), [], []
+        for k, raw in enumerate(blocks):
+            before = None if "iq" not in carry else int(carry["iq"].samples_since_opt)
+            carry, out = ch_.step(carry, raw, k == GRAPH_RESET)
+            want.append((out.clone(), [t.clone() for t in _leaves(carry)]))
+            if before is not None and int(carry["iq"].samples_since_opt) <= before:
+                due.append(k)
+        g = GraphedStep(ch_)
+        g.capture()
+        carry, bad = g.init_carry(), []
+        for k, raw in enumerate(blocks):
+            g.input_buffer.copy_(raw)
+            if k == 7:
+                carry = g.carry_from_numpy(g.carry_to_numpy(carry))
+            carry, out = g.step(carry, g.input_buffer, k == GRAPH_RESET)
+            if not torch.equal(out, want[k][0]):
+                bad.append(f"output of step {k}")
+            bad += [f"carry tensor {i} after step {k}"
+                    for i, (a, b) in enumerate(zip(_leaves(carry), want[k][1]))
+                    if not torch.equal(a, b)]
+        torch.cuda.synchronize()
+        say(f"[graph] {label} ({ch_.cfg.channels} x {n}): {GRAPH_STEPS} replays of distinct "
+            f"blocks, a reset at step {GRAPH_RESET + 1}, a carry from carry_from_numpy at "
+            f"step 8: outputs and carries "
+            f"{'bit-identical to the eager step' if not bad else 'DIFFER: ' + ', '.join(bad[:6])}"
+            f"; capture {g.capture_sec:.3f} s; captured kernels a replay {g.kernels} x "
+            f"{g.replays} replays (host launches a step: 1)"
+            + (f"; the I/Q update fell due at steps {[k + 1 for k in due]}" if due else ""))
+        if bad:
+            fail(f"[graph] {label}: the graph parts from the eager step")
+        if g.kernels != path or g.replays != GRAPH_STEPS:
+            fail(f"[graph] {label}: captured kernels {g.kernels} x {g.replays} replays, "
+                 f"expected {path} x {GRAPH_STEPS}")
+        if name == "4" and not any(k > 0 for k in due):
+            fail("[graph] config #4: no I/Q update fell due after the first step")
+        graph_kernels[label] = g.kernels
+        del blocks, want, g, carry, out, ch_
+        # eager, graph, graph, eager
+        runs = [profile(name, graphed) for graphed in (False, True, True, False)]
+        form = {"eager": (runs[0], runs[3]), "graph": (runs[1], runs[2])}
+        diff = graph_kernels_differ(runs[0], runs[1])
+        mean = {f: {key: (a[key] + b[key]) / 2 for key in
+                    ("wall_ms", "busy_ms", "kernels_per_step", "copies_per_step", "idle",
+                     "queued_ms", "queued_late_ms", "sm_mhz", "power_w")}
+                for f, (a, b) in form.items()}
+        say(f"[graph] {label} in turns (eager, graph, graph, eager; torch.profiler): "
+            + "; ".join(
+                f"{f} wall {m['wall_ms']:.3f} ms/step ({form[f][0]['wall_ms']:.3f}, "
+                f"{form[f][1]['wall_ms']:.3f}), busy {m['busy_ms']:.3f} "
+                f"({form[f][0]['busy_ms']:.3f}, {form[f][1]['busy_ms']:.3f}), "
+                f"{m['kernels_per_step']:.1f} kernels and {m['copies_per_step']:.1f} "
+                f"copies a step, idle {100 * m['idle']:.1f} %, queued behind a spin "
+                f"{m['queued_ms']:.3f} ms/step ({form[f][0]['queued_ms']:.3f}, "
+                f"{form[f][1]['queued_ms']:.3f}), after 32 steps without a pause "
+                f"{m['queued_late_ms']:.3f} ({form[f][0]['queued_late_ms']:.3f}, "
+                f"{form[f][1]['queued_late_ms']:.3f}), SM {m['sm_mhz']:.0f} MHz and "
+                f"{m['power_w']:.0f} W meanwhile"
+                for f, m in mean.items())
+            + f"; graphed/eager: busy {mean['graph']['busy_ms'] / mean['eager']['busy_ms']:.4f}"
+            f", queued {mean['graph']['queued_ms'] / mean['eager']['queued_ms']:.4f}, "
+            f"after 32 steps "
+            f"{mean['graph']['queued_late_ms'] / mean['eager']['queued_late_ms']:.4f}")
+        if diff:
+            fail(f"[graph] {label}: the graph's device kernels are not the eager step's: "
+                 + "; ".join(diff))
+
     # -------------------------------------------------------------- 9. CLI
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -1339,8 +1452,14 @@ def main() -> int:
     os.remove(outp)
     want_frames = frames * 11907 // 16384
     snr_c = tone_snr_db(cs16_iq(out), TONE_HZ + SHIFT_HZ, OUT_RATE, int(OUT_RATE))
+    up, streaming, fold = cli_times(res.stderr)
     say(f"[cli] {frames} frames in, {out.size // 2} out (want {want_frames}), "
-        f"tone SNR {snr_c:.1f} dB after 1 s, wall {wall:.2f} s")
+        f"tone SNR {snr_c:.1f} dB after 1 s, wall {wall:.2f} s: start-up (kernel "
+        f"build, graph capture) {up:.2f} s, streaming {streaming:.2f} s, the rest "
+        f"(interpreter, imports, set-up) {wall - up - streaming:.2f} s; the automatic "
+        f"fold at one channel: F = {fold}")
+    if fold != 8:
+        fail(f"[cli] the automatic fold at one channel on the card is {fold}, not 8")
     if out.size != 2 * want_frames:
         fail("CLI output length is not n * 11907 // 16384 frames")
     if snr_c < 60.0:
@@ -1371,9 +1490,11 @@ def main() -> int:
     os.remove(outp)
     tone_g = TONE_HZ + SHIFT_HZ + nco_hz(POST_SHIFT_HZ, OUT_RATE)
     snr_g = tone_snr_db(cs16_iq(out), tone_g, OUT_RATE, int(OUT_RATE))
-    say(f"[cli] general flags: {frames} frames in, {out.size // 2} out (want "
+    up, streaming, fold = cli_times(res.stderr)
+    say(f"[cli] general flags (F = {fold}): {frames} frames in, {out.size // 2} out (want "
         f"{want_frames}), tone at {tone_g:.4f} Hz: SNR {snr_g:.1f} dB after 1 s, wall "
-        f"{wall:.2f} s")
+        f"{wall:.2f} s: start-up {up:.2f} s, streaming {streaming:.2f} s, the rest "
+        f"{wall - up - streaming:.2f} s")
     if out.size != 2 * want_frames:
         fail("CLI (general flags) output length is not n * 11907 // 16384 frames")
     if snr_g < 60.0:
@@ -1394,8 +1515,8 @@ def main() -> int:
              "--dc-block", "--freq-shift", "100000", "--lowpass", "400000",
              "--device", "cuda", "--checkpoint-interval", "0.05", "--log-level", "warn"]
     kernels.reset_launch_counts()
-    for fold in ("1", "4"):
-        fl = flags + ["--time-fold", fold]
+    for fold in ("1", "4", "automatic"):
+        fl = flags + (["--time-fold", fold] if fold != "automatic" else [])
         for p_ in (full, part, ck):
             if os.path.exists(p_):
                 os.remove(p_)
@@ -1417,7 +1538,8 @@ def main() -> int:
         if not same or size != 4 * (frames * 11907 // 16384):
             fail(f"[ckpt] --time-fold {fold}: resume is not byte-identical")
     ck_counts = launch_counts()
-    say(f"[ckpt] launches over the 6 runs: {ck_counts}")
+    say(f"[ckpt] host launches over the 9 runs (each run's graph warm-up and "
+        f"capture; its replays launch the captured kernels): {ck_counts}")
     if not all(ck_counts[k] for k in ("K1", "K1carry", "K2")) or ck_counts["K1pro"]:
         fail(f"[ckpt] the CLI runs did not launch the flagship's kernels: {ck_counts}")
 
@@ -1473,8 +1595,9 @@ def main() -> int:
            "AGCchain": "iq_tool_tpu/ops/agc.py:78"}
     # K1/K1carry/K2 launches from the flagship slice, the rest from config
     # #4's run, K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
-    # config #3's, the DC prologue from the 1x4 flagship's sharded run; and
-    # each phase's launches per step
+    # config #3's, the DC prologue from the 1x4 flagship's sharded run, all
+    # host launches of eager steps; and each phase's launches per step, the
+    # graphs' as their captured kernels times their replays
     counts = {**general_launches, **launches, "K5@32768": s4k["K5"], "K3@cu8": s3["K3"],
               **{k: int(shard_report["1x4 config #4"][k] * SHARD_STEPS)
                  for k in ("AGCenergy", "AGCchain")},
@@ -1483,13 +1606,21 @@ def main() -> int:
     src["K3@cu8"], rep["K3@cu8"] = src["K3"], rep["K3"]
     src["IQest@skip"], rep["IQest@skip"] = src["IQest"], rep["IQest"]
     counts["IQest@skip"] = counts["IQest"]
+    wrapper_key = {"banded_apply_dc": "K1", "banded_apply": "K2", "dc_block_apply": "K3",
+                   "post_apply": "K4", "osfft_apply": "K5", "rms_gains": "AGC",
+                   "iq_estimate": "IQest", "dc_prologue": "K1pro", "dc_carry": "K1carry",
+                   "segment_energies": "AGCenergy", "agc_chain": "AGCchain"}
     phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQest=0), STEPS),
               "#4": (general_launches, STEPS), "#4@32768": (s4k, GENERAL_STEPS),
               "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS),
               "gather": (g_counts, GATHER_STEPS),
               "fold flagship C=1 F=8": (fold_counts["flagship"], 3),
               "fold #4 C=1 F=8": (fold_counts["config #4"], 3),
-              **{f"shard {k}": (v, 1) for k, v in shard_report.items()}}
+              **{f"shard {k}": (v, 1) for k, v in shard_report.items()},
+              # the graphs: the kernels each capture recorded, times its replays
+              **{f"graph {k} (captured x replays)": (
+                  {wrapper_key[w]: c * GRAPH_STEPS for w, c in v.items()}, GRAPH_STEPS)
+                 for k, v in graph_kernels.items()}}
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src[k], "replaces": rep[k],
          "launches": counts[k], "max_abs_err": report[k]["err"],

@@ -154,7 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "remaining devices / --mesh-channel)")
     g.add_argument("--time-fold", type=int, metavar="F",
                    help="Run each channel's block as F consecutive row blocks in "
-                        "one step (default 1)")
+                        "one step (default: automatic, 8 // --channels rows on "
+                        "the card as the JAX CLI on its TPU, 1 on the CPU)")
     g.add_argument("--profile-dir", metavar="DIR",
                    help="Write a torch.profiler trace of the run into DIR "
                         "(open with Perfetto or chrome://tracing)")
@@ -248,25 +249,52 @@ def build_mesh(device: str, channels: int, mesh_channel: int | None,
     return make_mesh(devices[:mc * mt], mc, mt)
 
 
+def choose_time_fold(time_fold: int | None, channels: int, device,
+                     meshed: bool) -> tuple[int, bool]:
+    """(rows per channel, whether the fold was chosen automatically) for
+    --time-fold: an explicit F as given; the automatic fold (None) is the
+    JAX CLI's rule on its accelerator, ``auto_fold`` (8 rows at one
+    channel, 1 past 8 channels), on the card, and 1 on the CPU or with a
+    mesh flag."""
+    from iq_tool_tpu_torch.pipeline.folded import auto_fold
+    if time_fold is not None:
+        return time_fold, False
+    if meshed or str(device).split(":")[0] != "cuda":
+        return 1, True
+    return auto_fold(channels), True
+
+
+def fold_chain(cfg, fold: int, auto: bool, device):
+    """A FoldedChain of ``fold`` rows (a Chain at fold <= 1).  A fold the
+    configuration cannot take raises when it was asked for and falls
+    back to the unfolded Chain when it was chosen automatically."""
+    from iq_tool_tpu_torch.pipeline.chain import Chain
+    from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+    if fold <= 1:
+        return Chain(cfg, device=device)
+    try:
+        return FoldedChain(cfg, fold, device=device)
+    except ValueError:
+        if not auto:
+            raise
+        return Chain(cfg, device=device)
+
+
 def build_chain(cfg: AppConfig, block_size: int, channels: int, device,
                 time_fold: int | None = None, mesh_channel: int | None = None,
                 mesh_time: int | None = None):
-    """The Chain the flags ask for: a ShardedChain with a mesh flag, a
-    FoldedChain with ``time_fold`` > 1 (an explicit fold the
-    configuration cannot take raises; no fold is taken unasked: the
-    reference's automatic fold is for the TPU's sublanes, see
-    pipeline/folded.py)."""
+    """The Chain the flags ask for: a ShardedChain with a mesh flag, else
+    the fold ``choose_time_fold`` picks (``fold_chain``)."""
     from iq_tool_tpu_torch.parallel.sharded import ShardedChain
-    from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
-    from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+    from iq_tool_tpu_torch.pipeline.chain import ChainConfig
     if cfg.raw_passthrough:
         return None
     shift = cfg.freq_shift_hz if cfg.freq_shift_hz is not None else cfg.nco_shift_hz
     pre = 0.0 if cfg.shift_after_resample else (shift or 0.0)
     post = (shift or 0.0) if cfg.shift_after_resample else 0.0
-    fold = time_fold or 1
-    make = ((lambda c, device: FoldedChain(c, fold, device=device)) if fold > 1
-            else Chain)
+    fold, auto = choose_time_fold(time_fold, channels, device,
+                                  bool(mesh_channel or mesh_time))
+    make = lambda c, device: fold_chain(c, fold, auto, device)    # noqa: E731
     if mesh_channel or mesh_time:
         if fold > 1:
             raise ValueError("--time-fold does not combine with --mesh-channel/--mesh-time "
@@ -481,6 +509,8 @@ def main(argv=None) -> int:
                          "Output Format": cfg.output_format}
         summary_items.update(source.summary())
         summary_items.update(sink.summary())
+        if chain is not None:
+            summary_items["Time Fold"] = getattr(chain, "fold", 1)
         if chain is not None and chain.resampler is not None:
             pl = chain.resampler.plan
             summary_items["Resample Ratio"] = f"{pl.p}/{pl.q} = {pl.p / pl.q:.9g}"
@@ -498,6 +528,9 @@ def main(argv=None) -> int:
                               initial_carry=initial_carry,
                               pipeline_depth=args.pipeline_depth)
         try:
+            # the build and the capture, ahead of the stream and of the
+            # profiler's window
+            engine.prepare()
             s = _run(engine, args.profile_dir,
                      chain is not None and chain.device.type == "cuda", log)
         finally:
@@ -516,6 +549,8 @@ def main(argv=None) -> int:
         if sink.requires_output_path:
             print(file=sys.stderr)
             _print_summary_table("Final Summary", {
+                "Start-up": f"{getattr(engine.stepper, 'capture_sec', 0.0):.2f} s "
+                            "(kernel build, graph capture)",
                 "Duration": f"{s.duration_sec:.2f} s",
                 "Frames In": s.frames_in,
                 "Frames Out": s.frames_out,

@@ -320,13 +320,37 @@ DC_THREADS, DC_PER, DC_GROUP = 256, 16, 32
 DC_TILE = DC_THREADS * DC_PER
 _DC_SCRATCH: dict = {}   # (device index, stream) -> the DC look-back buffer
 _dc_seq = 0
+# csrc/banded_dc.cu's DcLook: per (channel, tile) two double2 values, then
+# the two status-word arrays of 4 bytes each
+_DC_VALUE_BYTES, _DC_FLAG_BYTES = 32, 8
+
+
+def _per_stream(table: dict, dev: torch.device, need: int, make, what: str):
+    """The scratch buffer of this device and stream in ``table``, made by
+    ``make()`` when missing or smaller than ``need`` elements.  A buffer
+    made while the stream captures a CUDA graph would come from the
+    graph's pool and be made anew at every replay: that raises, as the
+    graph's warm-up steps on the capture stream allocate every one."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = table.get(key)
+    if buf is None or buf.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the {what} buffer of this stream was not made "
+                               "before the CUDA graph capture (warm up on the "
+                               "capture stream first)")
+        buf = table[key] = make()
+    return buf
 
 
 def _dc_look(lib, dev: torch.device, channels: int, n: int):
     """(scratch, sequence number) of one DC kernel launch: the look-back
     status buffer of this device and stream, zeroed once when it is
     allocated or grown (its status words hold the launch's sequence
-    number, so no launch clears it), and a new nonzero sequence number."""
+    number, so no eager launch clears it), and a new nonzero sequence
+    number.  A launch captured into a CUDA graph keeps its number at every
+    replay, so a replay would take the words its previous replay left as
+    this launch's: under capture a memset of the launch's status words
+    goes into the graph ahead of the kernel."""
     global _dc_seq
     if _dc_seq == 0:
         geo = (ctypes.c_int * 3)()
@@ -335,11 +359,16 @@ def _dc_look(lib, dev: torch.device, channels: int, n: int):
             raise RuntimeError(f"csrc/banded_dc.cu tiles {tuple(geo)}, "
                                f"ops/kernels.py {(DC_THREADS, DC_PER, DC_GROUP)}")
     need = int(lib.iq_dc_scratch_bytes(channels, n))
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _DC_SCRATCH.get(key)
-    if buf is None or buf.numel() < need:
-        buf = torch.zeros(need, dtype=torch.uint8, device=dev)
-        _DC_SCRATCH[key] = buf
+    entries = channels * -(-n // DC_TILE)
+    if need != entries * (_DC_VALUE_BYTES + _DC_FLAG_BYTES):
+        raise RuntimeError(f"csrc/banded_dc.cu wants {need} scratch bytes for "
+                           f"{entries} tiles, ops/kernels.py's layout "
+                           f"{entries * (_DC_VALUE_BYTES + _DC_FLAG_BYTES)}")
+    buf = _per_stream(_DC_SCRATCH, dev, need,
+                      lambda: torch.zeros(need, dtype=torch.uint8, device=dev),
+                      "DC look-back")
+    if torch.cuda.is_current_stream_capturing():
+        buf[entries * _DC_VALUE_BYTES:need].zero_()
     _dc_seq = _dc_seq % 0x7FFFFFFF + 1
     return buf, _dc_seq
 
@@ -1024,12 +1053,11 @@ def _est_consts(device: str):
 
 def _est_ticket(dev: torch.device) -> torch.Tensor:
     """The estimator's ticket of this device and stream: zeroed once when
-    it is allocated; each launch's last CTA re-arms it."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _EST_TICKETS.get(key)
-    if buf is None:
-        buf = _EST_TICKETS[key] = torch.zeros(1, dtype=torch.int64, device=dev)
-    return buf
+    it is allocated; each launch's last CTA re-arms it, so a graph's
+    replays find it armed too."""
+    return _per_stream(_EST_TICKETS, dev, 1,
+                       lambda: torch.zeros(1, dtype=torch.int64, device=dev),
+                       "I/Q estimator's ticket")
 
 
 def iq_estimate_ref(xr, xi, factors, counter, interval: int = 0, advance: int = 0,
@@ -1139,8 +1167,16 @@ def iq_estimate(xr, xi, factors, counter, interval: int = 0, advance: int = 0,
 iq_estimate.launches = 0
 
 
+_COUNTED = (banded_apply, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
+            post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
+            iq_estimate)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches} of every kernel wrapper."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
 def reset_launch_counts() -> None:
-    for fn in (banded_apply, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
-               post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
-               iq_estimate):
+    for fn in _COUNTED:
         fn.launches = 0

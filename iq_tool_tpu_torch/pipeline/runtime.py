@@ -9,12 +9,17 @@ Three host threads around the device queue:
       the step's copy-back event, then writes the sinks
 
 so source I/O, device work and sink I/O overlap, while the output bytes
-stay identical at any queue depth (FIFO order end to end).  On CUDA each
-block goes host -> device as a ``non_blocking`` copy from pinned memory,
-and each output comes back into a pinned tensor on the current stream,
-with an event the writer waits on.  EOS pads the final partial block with
-zeros and trims the output to exactly floor(valid_in * P/Q) frames;
-stream discontinuities set the step's reset flag.
+stay identical at any queue depth (FIFO order end to end).  A Chain or a
+FoldedChain runs as a ``GraphedStep`` (``pipeline/graphed.py``: one CUDA
+graph a step on the card, captured by ``prepare``; the same static
+buffers on the CPU); a ShardedChain steps eagerly.  On CUDA each block
+goes host -> device as a ``non_blocking`` copy from pinned memory,
+straight into the graph's input buffer, and each output comes back into
+a pinned tensor on the current stream, enqueued before the next replay
+overwrites it, with an event the writer waits on.  EOS pads the final
+partial block with zeros and trims the output to exactly
+floor(valid_in * P/Q) frames; stream discontinuities set the step's
+reset flag.
 
 With a checkpoint path the engine saves (carry, frames in, frames out)
 every ``checkpoint_interval_sec`` and at the end, each time after the
@@ -46,6 +51,8 @@ from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.modules.base import OutputClosed
 from iq_tool_tpu_torch.pipeline.chain import Chain
 from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
+from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+from iq_tool_tpu_torch.pipeline.graphed import GraphedStep
 
 
 @dataclasses.dataclass
@@ -219,6 +226,15 @@ class StreamEngine:
                 f"{n_ch} source streams were given")
         if raw_passthrough and n_ch != 1:
             raise ValueError("raw passthrough is single-stream")
+        self.stepper = (GraphedStep(chain) if isinstance(chain, (Chain, FoldedChain))
+                        else chain)
+
+    def prepare(self) -> None:
+        """Build the kernels and capture the step's graph now (the first
+        step does it otherwise); ``stepper.capture_sec`` says how long it
+        took."""
+        if isinstance(self.stepper, GraphedStep):
+            self.stepper.capture()
 
     def run(self) -> StreamSummary:
         if self.raw_passthrough:
@@ -317,7 +333,8 @@ class StreamEngine:
     # ------------------------------------------------------------- chain
 
     def _run_chain(self) -> StreamSummary:
-        ch = self.chain
+        ch = self.stepper
+        self.prepare()
         bpf = ch.fmt_in.bytes_per_frame
         block_bytes = ch.n_in * bpf
         n_channels = ch.cfg.channels
@@ -372,7 +389,11 @@ class StreamEngine:
                     chunk = chunk + b"\x00" * (block_bytes - len(chunk))
                 rows.append(np.frombuffer(chunk, dtype=ch.in_wire_dtype))
             host_in = torch.from_numpy(np.stack(rows, axis=0))
-            if on_cuda:
+            if isinstance(ch, GraphedStep):
+                raw = ch.input_buffer
+                raw.copy_(host_in.pin_memory() if on_cuda else host_in,
+                          non_blocking=on_cuda)
+            elif on_cuda:
                 raw = host_in.pin_memory().to(ch.device, non_blocking=True)
             else:
                 raw = host_in
@@ -389,7 +410,9 @@ class StreamEngine:
                 ready = torch.cuda.Event()
                 ready.record()
             else:
-                host_out = out
+                # the next step overwrites a GraphedStep's output while
+                # the writer may still read it
+                host_out = out.clone() if isinstance(ch, GraphedStep) else out
             writer.put(host_out, ready, emit)   # blocks when the pipe is full
 
         def consistent_cut():

@@ -3,6 +3,7 @@ the card.
 
     python -m iq_tool_tpu_torch.profile_steps [--configs flagship 4 5 3 4k32 c1 c1f8 4c1 4c1f8 gather
                                                          flagship@1x4 4@1x4 flagship@2x2]
+                                              [--forms eager graph]
 
 ``config``, ``make_chain`` and ``tone_wire`` are the one definition of
 the measured chains and their seeded input; ``chip_smoke.py`` runs the
@@ -11,19 +12,35 @@ frames a step; "c1" and "4c1" the flagship and config #4 as one stream
 at the CLI's default 16384-frame block, "f8" with --time-fold 8;
 "gather" 128 x 254597 through the gather stage; "<name>@<C>x<T>" the
 ShardedChain of <name> on a C x T mesh repeating the card, each shard a
-128 / C x 262144 block): 3 warm-up steps, then 8 steps timed by the host clock (ending in a
-synchronize), then 8 more under ``torch.profiler``.  Prints per
-configuration the wall ms per step, the device's busy ms per step and
-launches per step (kernels and copies, from the profiler's device
-events), the idle share (1 - busy / unprofiled wall time) and the
-kernels by device time.  Each step's block is a contiguous device
-tensor, as the host engine hands it over.  Needs a CUDA card.
+128 / C x 262144 block): 3 warm-up steps, then 40 steps timed by the
+host clock (ending in a synchronize; a short window after an idle card
+reads slower than the card's steady state), then 8 more under
+``torch.profiler``, then 40 more queued behind a spin kernel and timed
+by CUDA events: the device's time a step with its queue full (no host
+gaps) over the first 8 and over the last 8, when the card has run
+without a pause for 32 steps, with the card's SM clock and power draw
+sampled by nvidia-smi meanwhile.  Prints per configuration and form the
+wall ms per step, the device's busy ms per step, its kernels and copies
+per step (from the profiler's device events), the idle share (1 - busy
+/ unprofiled wall time), the queued ms per step, the clock and power
+and the kernels by device time.
+
+Two forms of a step: "eager", the chain's step over a contiguous device
+block a step, as the host engine hands a block to an eager step,
+and "graph", the step as one CUDA graph (``pipeline/graphed.py``) over
+its input buffer, filled once (a step's work does not depend on its
+data); a graph's kernels are held against the eager step's (the same
+kernels, plus the graph's memset of the DC kernel's status words and
+its copies into its static carry).  The sharded chains run eagerly
+only.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import itertools
+import subprocess
 import time
 
 import numpy as np
@@ -130,21 +147,36 @@ def device_events(run, steps: int) -> dict:
     return by_name
 
 
-def profile(name: str) -> dict:
+def is_copy(event_name: str) -> bool:
+    """A device event that moves bytes rather than runs a kernel (a
+    cudaMemcpy or cudaMemset)."""
+    return event_name.startswith(("Memcpy", "Memset"))
+
+
+def profile(name: str, graphed: bool = False) -> dict:
+    """One configuration's step profiled as above, eagerly or as a CUDA
+    graph (``graphed``); the graph's record also holds its kernels per
+    replay as counted at the capture (``captured``)."""
+    from iq_tool_tpu_torch.pipeline.graphed import GraphedStep
     dev = torch.device("cuda")
     chain = make_chain(name, dev)
     cfg, n = chain.cfg, chain.n_in
-    n_blocks = 3 + 2 * STEPS
     # a sharded step's block is T times a chain's: its stream repeats 4
     # blocks, so the input stays as large as the unsharded chains'
-    distinct = n_blocks if cfg.channels * n <= CHANNELS * BLOCK else 4
+    distinct = 3 + 2 * STEPS if cfg.channels * n <= CHANNELS * BLOCK else 4
     wire = tone_wire(cfg.channels, distinct * n, torch.Generator(device=dev).manual_seed(SEED),
                      GATHER_TONE_HZ if name == "gather" else TONE_HZ)
     if cfg.input_format == "cu8":
         wire = to_cu8(wire)
     parts = [wire[:, k * 2 * n:(k + 1) * 2 * n].contiguous() for k in range(distinct)]
-    blocks = iter([parts[k % distinct] for k in range(n_blocks)])
+    blocks = itertools.cycle(parts)
     del wire
+    if graphed:
+        chain = GraphedStep(chain)
+        chain.input_buffer.copy_(parts[0])
+        chain.capture()
+        blocks = itertools.repeat(chain.input_buffer)
+        del parts
     carry = chain.init_carry()
 
     def step():
@@ -155,40 +187,101 @@ def profile(name: str) -> dict:
         step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(STEPS):
+    for _ in range(5 * STEPS):
         step()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (5 * STEPS)
 
     by_name = device_events(step, STEPS)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "10"],
+                           stdout=subprocess.PIPE, text=True)
+    smi.stdout.readline()           # sampling has begun
+    torch.cuda._sleep(50_000_000)
+    for k in range(5 * STEPS):
+        if k in (0, STEPS, 4 * STEPS):
+            ev[(0, STEPS, 4 * STEPS).index(k)].record()
+        step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    smi.terminate()
+    samples = [tuple(map(float, ln.split(","))) for ln in smi.communicate()[0].splitlines()
+               if ln.count(",") == 1]
+    clock, power = (float(np.mean([x[i] for x in samples])) if samples else float("nan")
+                    for i in (0, 1))
     busy_ms = sum(v[0] for v in by_name.values())
-    launches = sum(v[1] for v in by_name.values())
-    return dict(name=name, wall_ms=wall_ms, busy_ms=busy_ms / STEPS,
-                launches=launches / STEPS,
+    kernels = sum(v[1] for k, v in by_name.items() if not is_copy(k))
+    copies = sum(v[1] for k, v in by_name.items() if is_copy(k))
+    return dict(name=name, form="graph" if graphed else "eager", wall_ms=wall_ms,
+                busy_ms=busy_ms / STEPS, kernels_per_step=kernels / STEPS,
+                copies_per_step=copies / STEPS,
+                queued_ms=ev[0].elapsed_time(ev[1]) / STEPS,
+                queued_late_ms=ev[2].elapsed_time(ev[3]) / STEPS, sm_mhz=clock,
+                power_w=power,
                 idle=1 - busy_ms / STEPS / wall_ms if busy_ms else None,
+                captured=chain.kernels if graphed else None,
+                by_name={k: v[1] / STEPS for k, v in by_name.items()},
                 kernels=sorted(((k, v[0] / STEPS, v[1] / STEPS) for k, v in by_name.items()),
                                key=lambda r: -r[1]))
+
+
+def graph_kernels_differ(eager: dict, graph: dict) -> list:
+    """How the device kernels of a graphed step differ from the eager
+    step's (profile() records): the eager kernels the graph lacks or
+    launches another number of times a step (rounded: the profiler may
+    miss an event at its window's edge), and the graph's kernels that
+    are neither the eager step's nor its own: the memset of the DC
+    kernel's status words (a fill of bytes) and the multi-tensor copies
+    into its static carry.  Empty when they agree."""
+    out = []
+    for k, v in eager["by_name"].items():
+        got = graph["by_name"].get(k, 0)
+        if not is_copy(k) and round(got) != round(v):
+            out.append(f"{k[:80]}: {v} a step eagerly, {got} graphed")
+    for k in graph["by_name"]:
+        if not (is_copy(k) or k in eager["by_name"] or "FillFunctor<unsigned char>" in k
+                or "multi_tensor_apply_kernel" in k):
+            out.append(f"{k[:80]}: only in the graph")
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--configs", nargs="+", default=list(CONFIGS), choices=CONFIGS)
+    ap.add_argument("--forms", nargs="+", default=["eager", "graph"],
+                    choices=["eager", "graph"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps needs a CUDA card")
     print(f"device {torch.cuda.get_device_name(0)}, torch {torch.__version__}")
+    bad = 0
     for name in args.configs:
-        r = profile(name)
-        if r["idle"] is None:
-            print(f"[{name}] wall {r['wall_ms']:.3f} ms/step; device time not measured "
-                  "(the profiler saw no device events)")
-            continue
-        print(f"[{name}] wall {r['wall_ms']:.3f} ms/step, device busy {r['busy_ms']:.3f} "
-              f"ms/step in {r['launches']:.1f} launches/step, idle share "
-              f"{100 * r['idle']:.1f} %")
-        for k, ms, n in r["kernels"][:12]:
-            print(f"    {ms:8.3f} ms {n:5.1f}x  {k[:100]}")
-    return 0
+        forms = [f for f in args.forms if f == "eager" or "@" not in name]
+        rs = {f: profile(name, f == "graph") for f in forms}
+        for f, r in rs.items():
+            if r["idle"] is None:
+                print(f"[{name} {f}] wall {r['wall_ms']:.3f} ms/step; device time not "
+                      "measured (the profiler saw no device events)")
+                continue
+            captured = (f", {sum(r['captured'].values())} kernel launches captured, "
+                        "host launches a step 1" if r["captured"] is not None else "")
+            print(f"[{name} {f}] wall {r['wall_ms']:.3f} ms/step, device busy "
+                  f"{r['busy_ms']:.3f} ms/step in {r['kernels_per_step']:.1f} kernels and "
+                  f"{r['copies_per_step']:.1f} copies a step{captured}, idle share "
+                  f"{100 * r['idle']:.1f} %; "
+                  f"queued {r['queued_ms']:.3f} ms/step, after 32 steps "
+                  f"{r['queued_late_ms']:.3f} (SM {r['sm_mhz']:.0f} MHz, "
+                  f"{r['power_w']:.0f} W)")
+            for k, ms, n in r["kernels"][:12]:
+                print(f"    {ms:8.3f} ms {n:5.1f}x  {k[:100]}")
+        if len(rs) == 2 and None not in (rs["eager"]["idle"], rs["graph"]["idle"]):
+            diff = graph_kernels_differ(rs["eager"], rs["graph"])
+            bad += bool(diff)
+            print(f"[{name}] the graph's device kernels "
+                  + ("are the eager step's" if not diff else "DIFFER: " + "; ".join(diff)))
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -861,3 +861,54 @@ def test_sharded_on_card_matches_chain(rng, name, mesh):
         (2 * shards, 0) if name == "general" else (shards, shards))
     assert kernels.agc_chain.launches == (3 * c_ if name == "general" else 0)
     assert kernels.segment_energies.launches == (shards if name == "general" else 0)
+
+
+@pytest.mark.parametrize("name,fold", [("flagship", 1), ("general", 1), ("general", 4)],
+                         ids=["flagship", "general", "general-fold4"])
+def test_graph_replays_equal_eager(rng, name, fold):
+    """The step as one CUDA graph (pipeline/graphed.py), 8 replays with
+    distinct inputs and a reset at the fifth, against the eager step bit
+    for bit, outputs and carries: 4 channels of 262144 frames (64 DC
+    tiles a channel, two look-back groups), so a DC launch replayed with
+    the status words its previous replay left would take stale
+    aggregates.  The capture records the kernels a replay launches."""
+    _need_card()
+    from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+    from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves
+    block = 262144 // fold
+    cfg = (_chain_cfg("flagship", block, channels=4) if name == "flagship"
+           else _general_cfg(block, channels=4))
+    ch = FoldedChain(cfg, fold, device="cuda") if fold > 1 else Chain(cfg, device="cuda")
+    raws = [_cuda(rng.integers(-2 ** 14, 2 ** 14, (4, ch.in_wire_len)).astype(np.int16))
+            for _ in range(8)]
+    carry, want = ch.init_carry(), []
+    for k, raw in enumerate(raws):
+        carry, out = ch.step(carry, raw, k == 4)
+        want.append((out.clone(), [t.clone() for t in _leaves(carry)]))
+    g = GraphedStep(ch)
+    carry = g.init_carry()
+    for k, raw in enumerate(raws):
+        g.input_buffer.copy_(raw)
+        carry, out = g.step(carry, g.input_buffer, k == 4)
+        assert torch.equal(out, want[k][0]), k
+        for a, b in zip(_leaves(carry), want[k][1]):
+            assert torch.equal(a, b), k
+    assert g.replays == 8
+    assert g.kernels == ({"banded_apply": 1, "banded_apply_dc": 1, "dc_carry": 1}
+                         if name == "flagship" else
+                         {"banded_apply": 2, "dc_block_apply": 1, "post_apply": 1,
+                          "rms_gains": 1, "osfft_apply": 1, "iq_estimate": 1})
+
+
+def test_graph_capture_needs_warm_scratch(monkeypatch):
+    """A DC launch captured on a stream whose look-back buffer was never
+    made raises: the buffer would come from the graph's pool."""
+    _need_card()
+    monkeypatch.setattr(kernels, "_DC_SCRATCH", {})
+    wire = torch.zeros((2, 8192), dtype=torch.int32, device="cuda")
+    dc = torch.zeros((2, 4), dtype=torch.float32, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before the CUDA graph capture"):
+        with torch.cuda.graph(g, stream=torch.cuda.Stream()):
+            kernels.dc_block_apply(None, None, dc, DC_ALPHA, wire_i32=wire,
+                                   wire_norm=get_format("cs16").normalizer)
