@@ -28,7 +28,9 @@ first failure:
    shapes (128 channels): K3 dc_block_apply (cs16 and cu8 wire), K4
    post_apply, K5 osfft_apply (at nfft 16384 and, on the schedule the
    chain makes for --filter-fft-size 32768, at nfft 32768, each beside
-   the twin's torch.fft core) and two helper kernels, the AGC's gains
+   the twin's torch.fft core; above K5's sizes, [osfft], the torch.fft
+   route that takes nfft 131072 in its place, against K5's twin, timed
+   and its peak memory) and two helper kernels, the AGC's gains
    (segment energies and gain loop; its bound the larger of its bytes
    and its dependency chain, the chain alone timed over the same
    energies) and the I/Q estimator ([iq]: the whole estimator of a step
@@ -42,8 +44,9 @@ first failure:
    step), against the CPU twin chain on 2 channels, tone SNR, ms per
    step, Msps, peak memory, all device launches a step (torch.profiler)
    and the estimator's call as the step makes it, due and not; then
-   configs #5 and #3, and #4 with --filter-fft-size 32768 ([full32k]),
-   the same way at 4 steps;
+   configs #5 and #3, and #4 with --filter-fft-size 32768 ([full32k])
+   and 131072 ([full128k], the torch.fft route once a step), the same
+   way at 4 steps;
 7. [gather]: the gather resampler stage (2.048 Msps -> 25282.56 sps,
    449/36371) behind the DC kernel and in front of K4 (local AGC), 128 x
    254597 frames for 4 steps with exact launch counters, against the CPU
@@ -66,7 +69,13 @@ first failure:
    segment energies once a shard and its chain kernel once a step); the
    AGC's two halves against their twins at the shapes the 1x4 config #4
    step gave them (one shard's planes; the four shards' gathered
-   energies), timed; the first DC pass's cost a shard;
+   energies), timed; the first DC pass's cost a shard; 4x1 flagship
+   (a channel mesh, one Chain step a position); every one of these
+   meshes also graphed (GraphedStep over the ShardedChain): 4 replays of
+   distinct blocks with a reset and a carry from carry_from_numpy,
+   bit-identical to the eager sharded step, the captured kernels its
+   exact launches; 1x4 flagship and config #4 eager and graphed in
+   turns;
 8c. [graph]: the step as one CUDA graph (pipeline/graphed.py) for the
    flagship and config #4 at 128 x 262144, and "c1", "4c1" and "4c1f8"
    (config #4 as one stream at the CLI's automatic fold): 10 replays of
@@ -75,7 +84,11 @@ first failure:
    to the eager step's; the kernels each capture recorded; then eager
    and graphed steps timed in turns (eager, graph, graph, eager) by
    profile_steps: wall, busy, kernels and copies a step, idle, and the
-   graph's device kernels held against the eager step's;
+   graph's device kernels held against the eager step's; then configs
+   #1, #2, #3, #5, the gather chain, #4 at nfft 32768 and 131072 and
+   with the dx and digital AGC at 16 channels, 6 replays each with a
+   reset and a carry from carry_from_numpy, bit-identical to the eager
+   step, the captured kernels its exact launches;
 9. the CLI on a 10 s, 2.048 Msps cs16 tone file (the automatic fold: F =
    8 at one channel): the flagship flags, then the general step's (I/Q
    correction, notch, post-shift, AGC), each run's wall split into its
@@ -111,8 +124,11 @@ GATHER_STEPS = 4
 FOLDS = (1, 2, 4, 8, 16)
 FOLD_STEPS = 20             # timed steps per fold factor
 SHARD_STEPS = 3             # sharded steps ([shard]); the first is not timed
+SHARD_GRAPH_STEPS = 4       # graphed sharded replays against eager steps ([shard])
 GRAPH_STEPS = 10            # graph replays against eager steps ([graph])
 GRAPH_RESET = 4             # the step (from 0) that takes a reset
+GRAPH_MORE_STEPS = 6        # replays of the other chains ([graph], 16 channels)
+GRAPH_MORE_CH = 16
 # NVIDIA's data sheet for the H100 SXM (dense): the bounds below divide by
 # these
 PEAK_BYTES_S = 3.35e12
@@ -210,7 +226,7 @@ def main() -> int:
         fail(f"the port is not importable next to this script: {e}")
     if not os.path.abspath(iq_tool_tpu_torch.__file__).startswith(HERE + os.sep):
         fail("iq_tool_tpu_torch was not imported from this checkout")
-    from iq_tool_tpu_torch.ops import _build, convert, kernels
+    from iq_tool_tpu_torch.ops import _build, convert, filters, kernels
     from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
     # the measured chains and their seeded tone, shared with the profiler
     from iq_tool_tpu_torch.profile_steps import (
@@ -289,7 +305,8 @@ def main() -> int:
                 "AGC": kernels.rms_gains.launches,
                 "IQest": kernels.iq_estimate.launches,
                 "K1pro": kernels.dc_prologue.launches,
-                "K1carry": kernels.dc_carry.launches}
+                "K1carry": kernels.dc_carry.launches,
+                "OSfft": filters.overlap_save_fft.launches}
 
     def codes(packed):
         p = packed.to(torch.int64) & 0xFFFFFFFF
@@ -765,6 +782,51 @@ def main() -> int:
              "K5@32768")
     del got, want, wire, pr, pi, g4k
 
+    # above K5's largest window, the torch.fft route (ops/filters.py
+    # overlap_save_fft; no TPU kernel: the reference's XLA overlap-save) on
+    # config #4's notch at --filter-fft-size 131072 (b 65536), against K5's
+    # twin over the same half-advance windows and re-anchored tail; timed
+    # beside the twin and the transforms alone; its peak device memory
+    filt = Chain(config("4k128"), device=dev).post_filter
+    b = filt.block
+    xr, xi = (0.3 * torch.randn((CH, n_out), generator=gen, device=dev) for _ in range(2))
+    tr, ti = (0.3 * torch.randn((CH, b), generator=gen, device=dev) for _ in range(2))
+    h_t = filt._spectrum(dev).h
+    windows = kernels.Windows.build(*filters.osfft_windows(n_out, b, (b,)), dev)
+    torch.cuda.synchronize()
+    mem_held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = filters.overlap_save_fft(xr, xi, tr, ti, h_t, b)
+    torch.cuda.synchronize()
+    os_peak = torch.cuda.max_memory_allocated() - mem_held
+    want = kernels.osfft_apply_ref(xr, xi, filt._h, b, windows=windows, tail=(tr, ti))
+    torch.cuda.synchronize()
+    snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(want, got[:2])]
+    os_err = max_abs(want, got[:2])
+    nfft, nw = 2 * b, len(windows.starts)
+    say(f"[osfft] config #4's notch at --filter-fft-size 131072: C={CH} n={n_out} taps "
+        f"{filt.num_taps} nfft {nfft}, {nw} windows (half advance, the last re-anchored): "
+        f"the torch.fft route vs K5's twin SNR {snrs[0]:.1f}/{snrs[1]:.1f} dB, max |err| "
+        f"{os_err:.3e}; peak device memory {os_peak / 2 ** 20:.1f} MiB above the "
+        f"{mem_held / 2 ** 20:.1f} MiB held (inputs included)")
+    if min(snrs) < 100.0:
+        fail(f"the torch.fft overlap-save route disagrees with K5's twin at nfft {nfft}: "
+             f"min SNR {min(snrs):.1f} dB < 100 dB")
+    ext = torch.complex(torch.cat([tr, xr], -1), torch.cat([ti, xi], -1))
+    win = ext[:, windows.starts_t.long()[:, None] + torch.arange(nfft, device=dev)[None, :]]
+    ms, plain, lib = time_pair(
+        lambda: filters.overlap_save_fft(xr, xi, tr, ti, h_t, b),
+        lambda: kernels.osfft_apply_ref(xr, xi, filt._h, b, windows=windows, tail=(tr, ti)),
+        run_library=lambda: torch.fft.ifft(torch.fft.fft(win) * h_t))
+    nbytes = CH * (n_out + b) * 8 + CH * n_out * 8 + nfft * 8
+    ops = CH * nw * (2 * 5 * nfft * (nfft.bit_length() - 1) + 6 * nfft)
+    bd = bound(nbytes, ops, PEAK_FP32_S)
+    say(f"[osfft] route {ms:.3f} ms, twin {plain:.3f} ms, the transforms alone {lib:.3f} "
+        f"ms; bound {bd[0]:.4f} ms ({bd[1]}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
+        f"-> {100 * bd[0] / ms:.1f}% of bound")
+    report["OSfft"] = dict(err=os_err, ms=ms, plain=plain, lib=lib, bound=bd)
+    del got, want, xr, xi, tr, ti, ext, win, filt
+
     # the I/Q estimator, whole, at config #4's step: the cs16 wire (C,
     # 262144) of an in-band tone behind a 1 % / 0.01 rad imbalance, its
     # first 1024 frames decoded and DC-blocked from a carried state; a due
@@ -842,7 +904,8 @@ def main() -> int:
         """Config `name` at CH x BLOCK for `steps` steps; returns the
         launch counts, and checks output against the CPU twin chain."""
         cfg = config(name)
-        label = {"4": "[full]", "4k32": "[full32k]"}.get(name, f"[config{name}]")
+        label = {"4": "[full]", "4k32": "[full32k]",
+                 "4k128": "[full128k]"}.get(name, f"[config{name}]")
         ch_ = Chain(cfg, device=dev)
         stream = tone_wire(CH, steps * BLOCK, gen)
         if cfg.input_format == "cu8":
@@ -922,7 +985,7 @@ def main() -> int:
         tone = TONE_HZ
         if name != "3":
             tone += nco_hz(SHIFT_HZ, IN_RATE)
-        if name in ("4", "4k32"):
+        if name in ("4", "4k32", "4k128"):
             tone += nco_hz(POST_SHIFT_HZ, OUT_RATE)
         snr_t = tone_snr_db(cs16_iq(got_w[0]), tone, OUT_RATE, 2 * ch_.n_out)
         say(f"{label} vs CPU twin chain (2 channels): max |dcode| {dmax} "
@@ -940,23 +1003,31 @@ def main() -> int:
     step_ms_of = {"[slice]": step_ms}
     general_launches = run_general("4", STEPS)
     want_counts = {"K1": 0, "K2": 2 * STEPS, "K3": STEPS, "K4": STEPS,
-                   "K5": STEPS, "AGC": STEPS, "IQest": STEPS, "K1pro": 0, "K1carry": 0}
+                   "K5": STEPS, "AGC": STEPS, "IQest": STEPS, "K1pro": 0, "K1carry": 0,
+                   "OSfft": 0}
     if general_launches != want_counts:
         fail(f"config #4 launch counters {general_launches}, expected {want_counts}")
     s5 = run_general("5", GENERAL_STEPS)
     if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
               "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQest": 0,
-              "K1pro": 0, "K1carry": 0}:
+              "K1pro": 0, "K1carry": 0, "OSfft": 0}:
         fail(f"config #5 launch counters {s5}")
     s3 = run_general("3", GENERAL_STEPS)
     if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K3": GENERAL_STEPS,
-              "K4": 0, "K5": 0, "AGC": 0, "IQest": 0, "K1pro": 0, "K1carry": 0}:
+              "K4": 0, "K5": 0, "AGC": 0, "IQest": 0, "K1pro": 0, "K1carry": 0,
+              "OSfft": 0}:
         fail(f"config #3 launch counters {s3}")
     s4k = run_general("4k32", GENERAL_STEPS)
     if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
                "K4": GENERAL_STEPS, "K5": GENERAL_STEPS, "AGC": GENERAL_STEPS,
-               "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0}:
+               "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": 0}:
         fail(f"config #4 at nfft 32768 launch counters {s4k}")
+    # above K5's sizes: the torch.fft route in its place, once a step
+    s4r = run_general("4k128", GENERAL_STEPS)
+    if s4r != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
+               "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS,
+               "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": GENERAL_STEPS}:
+        fail(f"config #4 at nfft 131072 launch counters {s4r}")
     say(f"[steps] ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms_of.items()))
 
     # ---------------------------------------------------- 7. the gather stage
@@ -1139,6 +1210,87 @@ def main() -> int:
 
     # ---------------------------------------------------------- 8b. shard
     from iq_tool_tpu_torch.parallel import ShardedChain, make_mesh
+    from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves
+    from iq_tool_tpu_torch.profile_steps import graph_kernels_differ, profile
+    wrapper_key = {"banded_apply_dc": "K1", "banded_apply": "K2", "dc_block_apply": "K3",
+                   "post_apply": "K4", "osfft_apply": "K5", "rms_gains": "AGC",
+                   "iq_estimate": "IQest", "dc_prologue": "K1pro", "dc_carry": "K1carry",
+                   "segment_energies": "AGCenergy", "agc_chain": "AGCchain",
+                   "overlap_save_fft": "OSfft"}
+
+    def graph_vs_eager(chain, blocks, reset, resume):
+        """The eager step of ``chain`` over ``blocks`` (a reset at step
+        ``reset``), then its GraphedStep replayed over the same blocks
+        written into its input buffer (and a carry from carry_from_numpy
+        at step ``resume``): (what differs, the eager launches a step by
+        chip_smoke's names, the GraphedStep)."""
+        carry, want = chain.init_carry(), []
+        kernels.reset_launch_counts()
+        for k, raw in enumerate(blocks):
+            carry, out = chain.step(carry, raw, k == reset)
+            want.append((out.clone(), [t.clone() for t in _leaves(carry)]))
+        eager = {wrapper_key[w]: v / len(blocks)
+                 for w, v in kernels.launch_counts().items() if v}
+        g = GraphedStep(chain)
+        g.capture()
+        carry, bad = g.init_carry(), []
+        for k, raw in enumerate(blocks):
+            g.input_buffer.copy_(raw)
+            if k == resume:
+                carry = g.carry_from_numpy(g.carry_to_numpy(carry))
+            carry, out = g.step(carry, g.input_buffer, k == reset)
+            if not torch.equal(out, want[k][0]):
+                bad.append(f"output of step {k}")
+            bad += [f"carry tensor {i} after step {k}"
+                    for i, (a, b) in enumerate(zip(_leaves(carry), want[k][1]))
+                    if not torch.equal(a, b)]
+        torch.cuda.synchronize()
+        return bad, eager, g
+
+    def in_turns(tag, name, label):
+        """Eager and graphed steps of profile_steps' chain ``name`` timed in
+        turns (eager, graph, graph, eager) by profile_steps.profile; fails
+        when the graph's device kernels are not the eager step's."""
+        runs = [profile(name, graphed) for graphed in (False, True, True, False)]
+        if any(r["idle"] is None for r in runs):
+            fail(f"[{tag}] {label}: torch.profiler saw no device event in a window")
+        form = {"eager": (runs[0], runs[3]), "graph": (runs[1], runs[2])}
+        diff = graph_kernels_differ(runs[0], runs[1])
+        # the profiler may drop a whole step's device events from a window
+        # (every kernel's count a step then reads 7/8 of the truth): a
+        # window that differs is measured again, both forms, up to twice
+        for _ in range(2):
+            if not diff:
+                break
+            say(f"[{tag}] {label}: profiled kernels differ, measuring again: "
+                + "; ".join(diff[:3]))
+            diff = graph_kernels_differ(profile(name, False), profile(name, True))
+        mean = {f: {key: (a[key] + b[key]) / 2 for key in
+                    ("wall_ms", "busy_ms", "kernels_per_step", "copies_per_step", "idle",
+                     "queued_ms", "queued_late_ms", "sm_mhz", "power_w")}
+                for f, (a, b) in form.items()}
+        say(f"[{tag}] {label} in turns (eager, graph, graph, eager; torch.profiler): "
+            + "; ".join(
+                f"{f} wall {m['wall_ms']:.3f} ms/step ({form[f][0]['wall_ms']:.3f}, "
+                f"{form[f][1]['wall_ms']:.3f}), busy {m['busy_ms']:.3f} "
+                f"({form[f][0]['busy_ms']:.3f}, {form[f][1]['busy_ms']:.3f}), "
+                f"{m['kernels_per_step']:.1f} kernels and {m['copies_per_step']:.1f} "
+                f"copies a step, host launches a step "
+                f"{1 if f == 'graph' else m['kernels_per_step'] + m['copies_per_step']:.0f}, "
+                f"idle {100 * m['idle']:.1f} %, queued behind a spin "
+                f"{m['queued_ms']:.3f} ms/step ({form[f][0]['queued_ms']:.3f}, "
+                f"{form[f][1]['queued_ms']:.3f}), after 32 steps without a pause "
+                f"{m['queued_late_ms']:.3f} ({form[f][0]['queued_late_ms']:.3f}, "
+                f"{form[f][1]['queued_late_ms']:.3f}), SM {m['sm_mhz']:.0f} MHz and "
+                f"{m['power_w']:.0f} W meanwhile"
+                for f, m in mean.items())
+            + f"; graphed/eager: busy {mean['graph']['busy_ms'] / mean['eager']['busy_ms']:.4f}"
+            f", queued {mean['graph']['queued_ms'] / mean['eager']['queued_ms']:.4f}, "
+            f"after 32 steps "
+            f"{mean['graph']['queued_late_ms'] / mean['eager']['queued_late_ms']:.4f}")
+        if diff:
+            fail(f"[{tag}] {label}: the graph's device kernels are not the eager step's: "
+                 + "; ".join(diff))
 
     def shard_counts(steps):
         c = {**launch_counts(), "AGCenergy": kernels.segment_energies.launches,
@@ -1225,7 +1377,8 @@ def main() -> int:
         ("flagship", 1, 4): {"K2": 8, "K3": 4, "K1pro": 4},
         ("4", 1, 4): {"K2": 8, "K3": 8, "K4": 4, "K5": 4, "IQest": 1, "AGCenergy": 4,
                       "AGCchain": 1},
-        ("flagship", 2, 2): {"K2": 8, "K3": 4, "K1pro": 4}}
+        ("flagship", 2, 2): {"K2": 8, "K3": 4, "K1pro": 4},
+        ("flagship", 4, 1): {"K1": 4, "K2": 4, "K1carry": 4}}
     for (name, c_, t_), want_c in want_counts.items():
         sh_ms, ch_ms, sh_wall, ch_wall, counts, dmax, snr, d_twin = run_shard(
             name, c_, t_, SHARD_STEPS, twin=True)
@@ -1243,6 +1396,39 @@ def main() -> int:
             fail(f"[shard] {c_}x{t_} {label} differs from its CPU twin mesh by {d_twin} "
                  f"codes (> 4)")
         shard_report[f"{c_}x{t_} {label}"] = counts
+
+    # the sharded step as one CUDA graph (pipeline/graphed.py) on every mesh
+    # above: SHARD_GRAPH_STEPS replays of distinct blocks, a reset at the
+    # second and a carry from carry_from_numpy at the third, bit for bit
+    # against the eager ShardedChain step, the captured kernels its exact
+    # launches a step; then 1x4 flagship and config #4 in turns, eager and
+    # graphed
+    t0 = time.perf_counter()
+    shard_graph_kernels = {}
+    for name, c_, t_ in (("flagship", 1, 1), *want_counts):
+        label = f"{c_}x{t_} {'flagship' if name == 'flagship' else 'config #4'}"
+        sc = ShardedChain(config(name), make_mesh([dev] * (c_ * t_), c_, t_))
+        stream = tone_wire(CH, SHARD_GRAPH_STEPS * sc.n_in, gen)
+        w = sc.in_wire_len
+        blocks = [stream[:, k * w:(k + 1) * w] for k in range(SHARD_GRAPH_STEPS)]
+        bad, eager, g = graph_vs_eager(sc, blocks, 1, 2)
+        captured = {wrapper_key[k]: v for k, v in g.kernels.items()}
+        say(f"[shard] {label} graphed ({CH} x {t_} x {BLOCK} a step): {SHARD_GRAPH_STEPS} "
+            f"replays of distinct blocks, a reset at step 2, a carry from carry_from_numpy "
+            f"at step 3: outputs and carries "
+            f"{'bit-identical to the eager step' if not bad else 'DIFFER: ' + ', '.join(bad[:6])}"
+            f"; capture {g.capture_sec:.3f} s; captured kernels a replay {captured} against "
+            f"the eager step's {eager} (host launches a step: 1)")
+        if bad:
+            fail(f"[shard] {label}: the graphed sharded step parts from the eager step")
+        if captured != eager or eager != shard_report[label]:
+            fail(f"[shard] {label}: captured kernels {captured}, eager launches a step "
+                 f"{eager}, expected {shard_report[label]}")
+        shard_graph_kernels[label] = (g.kernels, g.replays)
+        del sc, stream, blocks, g
+    say(f"[shard] graphed meshes: {time.perf_counter() - t0:.1f} s")
+    for name in ("flagship@1x4", "4@1x4"):
+        in_turns("shard", name, name)
 
     # the AGC's two halves at the shapes a 1x4 config #4 step gives them:
     # one shard's segment energies, and the gain loop over the four
@@ -1347,8 +1533,6 @@ def main() -> int:
     # step, bit for bit, over GRAPH_STEPS replays of distinct blocks with a
     # reset at the fifth and, at the eighth, a carry handed in from
     # carry_from_numpy as a resume hands it; then both forms timed in turns
-    from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves
-    from iq_tool_tpu_torch.profile_steps import graph_kernels_differ, profile
     k1_path = {"banded_apply": 1, "banded_apply_dc": 1, "dc_carry": 1}
     general_path = {"banded_apply": 2, "dc_block_apply": 1, "post_apply": 1,
                     "rms_gains": 1, "osfft_apply": 1, "iq_estimate": 1}
@@ -1400,36 +1584,43 @@ def main() -> int:
                  f"expected {path} x {GRAPH_STEPS}")
         if name == "4" and not any(k > 0 for k in due):
             fail("[graph] config #4: no I/Q update fell due after the first step")
-        graph_kernels[label] = g.kernels
+        graph_kernels[label] = (g.kernels, g.replays)
         del blocks, want, g, carry, out, ch_
-        # eager, graph, graph, eager
-        runs = [profile(name, graphed) for graphed in (False, True, True, False)]
-        form = {"eager": (runs[0], runs[3]), "graph": (runs[1], runs[2])}
-        diff = graph_kernels_differ(runs[0], runs[1])
-        mean = {f: {key: (a[key] + b[key]) / 2 for key in
-                    ("wall_ms", "busy_ms", "kernels_per_step", "copies_per_step", "idle",
-                     "queued_ms", "queued_late_ms", "sm_mhz", "power_w")}
-                for f, (a, b) in form.items()}
-        say(f"[graph] {label} in turns (eager, graph, graph, eager; torch.profiler): "
-            + "; ".join(
-                f"{f} wall {m['wall_ms']:.3f} ms/step ({form[f][0]['wall_ms']:.3f}, "
-                f"{form[f][1]['wall_ms']:.3f}), busy {m['busy_ms']:.3f} "
-                f"({form[f][0]['busy_ms']:.3f}, {form[f][1]['busy_ms']:.3f}), "
-                f"{m['kernels_per_step']:.1f} kernels and {m['copies_per_step']:.1f} "
-                f"copies a step, idle {100 * m['idle']:.1f} %, queued behind a spin "
-                f"{m['queued_ms']:.3f} ms/step ({form[f][0]['queued_ms']:.3f}, "
-                f"{form[f][1]['queued_ms']:.3f}), after 32 steps without a pause "
-                f"{m['queued_late_ms']:.3f} ({form[f][0]['queued_late_ms']:.3f}, "
-                f"{form[f][1]['queued_late_ms']:.3f}), SM {m['sm_mhz']:.0f} MHz and "
-                f"{m['power_w']:.0f} W meanwhile"
-                for f, m in mean.items())
-            + f"; graphed/eager: busy {mean['graph']['busy_ms'] / mean['eager']['busy_ms']:.4f}"
-            f", queued {mean['graph']['queued_ms'] / mean['eager']['queued_ms']:.4f}, "
-            f"after 32 steps "
-            f"{mean['graph']['queued_late_ms'] / mean['eager']['queued_late_ms']:.4f}")
-        if diff:
-            fail(f"[graph] {label}: the graph's device kernels are not the eager step's: "
-                 + "; ".join(diff))
+        in_turns("graph", name, label)
+
+    # every other chain profile_steps measures, at GRAPH_MORE_CH channels:
+    # GRAPH_MORE_STEPS replays of distinct blocks, a reset at the third and
+    # a carry from carry_from_numpy at the fifth, bit for bit against the
+    # eager step, the captured kernels its exact launches a step
+    t0 = time.perf_counter()
+    for name, label in (("1", "config #1"), ("2", "config #2"), ("3", "config #3 (cu8)"),
+                        ("5", "config #5"), ("gather", "gather"),
+                        ("4k32", "config #4 at nfft 32768"),
+                        ("4k128", "config #4 at nfft 131072 (the torch.fft route)"),
+                        ("4dx", "config #4, dx AGC"), ("4dig", "config #4, digital AGC")):
+        ch_ = Chain(config(name, GRAPH_MORE_CH), device=dev)
+        n = ch_.n_in
+        stream = tone_wire(GRAPH_MORE_CH, GRAPH_MORE_STEPS * n, gen,
+                           GATHER_TONE_HZ if name == "gather" else TONE_HZ)
+        if ch_.cfg.input_format == "cu8":
+            stream = to_cu8(stream)
+        blocks = [stream[:, k * 2 * n:(k + 1) * 2 * n] for k in range(GRAPH_MORE_STEPS)]
+        bad, eager, g = graph_vs_eager(ch_, blocks, 2, 4)
+        captured = {wrapper_key[k]: v for k, v in g.kernels.items()}
+        say(f"[graph] {label} ({GRAPH_MORE_CH} x {n}): {GRAPH_MORE_STEPS} replays of "
+            f"distinct blocks, a reset at step 3, a carry from carry_from_numpy at step 5: "
+            f"outputs and carries "
+            f"{'bit-identical to the eager step' if not bad else 'DIFFER: ' + ', '.join(bad[:6])}"
+            f"; capture {g.capture_sec:.3f} s; captured kernels a replay {captured} against "
+            f"the eager step's {eager}")
+        if bad:
+            fail(f"[graph] {label}: the graph parts from the eager step")
+        if captured != eager or g.replays != GRAPH_MORE_STEPS:
+            fail(f"[graph] {label}: captured kernels {captured} x {g.replays} replays, "
+                 f"the eager step launches {eager} a step")
+        graph_kernels[label] = (g.kernels, g.replays)
+        del stream, blocks, g, ch_
+    say(f"[graph] the other chains: {time.perf_counter() - t0:.1f} s")
 
     # -------------------------------------------------------------- 9. CLI
     work = os.path.join(HERE, "build", "chip_smoke")
@@ -1542,6 +1733,33 @@ def main() -> int:
         f"capture; its replays launch the captured kernels): {ck_counts}")
     if not all(ck_counts[k] for k in ("K1", "K1carry", "K2")) or ck_counts["K1pro"]:
         fail(f"[ckpt] the CLI runs did not launch the flagship's kernels: {ck_counts}")
+    # a mesh flag (1 x 1 on one card): the engine steps the graphed sharded
+    # chain (its host launches: the warm-up steps and the capture), the
+    # summary says so, and the bytes are the unfolded chain's
+    from iq_tool_tpu_torch import cli as cli_mod
+    from iq_tool_tpu_torch.pipeline.graphed import WARMUP_STEPS
+    shown, tables, runs = cli_mod._print_summary_table, {}, {}
+    cli_mod._print_summary_table = lambda title, items, file=sys.stderr: (
+        tables.__setitem__(title, items), shown(title, items, file))
+    try:
+        for label_, extra, path in (("unfolded", ["--time-fold", "1"], full),
+                                    ("mesh 1x1", ["--mesh-time", "1"], part)):
+            kernels.reset_launch_counts()
+            tables.clear()
+            rc = cli_main(flags + extra + [inp, path, "--force-overwrite"])
+            runs[label_] = (rc, tables.get("Configuration Summary", {}).get("Step"),
+                            {k: v for k, v in launch_counts().items() if v})
+    finally:
+        cli_mod._print_summary_table = shown
+    with open(full, "rb") as a, open(part, "rb") as b:
+        same = a.read() == b.read()
+    say(f"[ckpt] the CLI with --mesh-time 1 against --time-fold 1 on the same file: "
+        f"output {'byte-identical' if same else 'DIFFERS'}; (exit code, the summary's "
+        f"step form, host launches) {runs}")
+    graphed = {k: WARMUP_STEPS + 1 for k in ("K1", "K1carry", "K2")}
+    if not same or any(r[:3] != (0, "graph", graphed) for r in runs.values()):
+        fail(f"[ckpt] the CLI with a mesh flag did not step the graphed sharded chain "
+             f"to the unfolded chain's bytes: {runs}")
 
     # ------------------------------------------------------------ 11. profile
     import glob
@@ -1581,7 +1799,8 @@ def main() -> int:
            "K1pro": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "K1carry": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "AGCenergy": "iq_tool_tpu_torch/csrc/post.cu",
-           "AGCchain": "iq_tool_tpu_torch/csrc/post.cu"}
+           "AGCchain": "iq_tool_tpu_torch/csrc/post.cu",
+           "OSfft": "iq_tool_tpu_torch/ops/filters.py"}
     rep = {"K1": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "K2": "iq_tool_tpu/ops/pallas_kernels.py:492",
            "K3": "iq_tool_tpu/ops/pallas_kernels.py:1121",
@@ -1592,13 +1811,18 @@ def main() -> int:
            "K1pro": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "K1carry": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "AGCenergy": "iq_tool_tpu/parallel/sharded.py:271",
-           "AGCchain": "iq_tool_tpu/ops/agc.py:78"}
+           "AGCchain": "iq_tool_tpu/ops/agc.py:78",
+           # no TPU kernel: the reference's XLA overlap-save, where its
+           # Pallas kernel declines the size
+           "OSfft": "iq_tool_tpu/ops/filters.py:265"}
     # K1/K1carry/K2 launches from the flagship slice, the rest from config
     # #4's run, K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
     # config #3's, the DC prologue from the 1x4 flagship's sharded run, all
-    # host launches of eager steps; and each phase's launches per step, the
-    # graphs' as their captured kernels times their replays
+    # host launches of eager steps, the torch.fft route's from the [full128k]
+    # run; and each phase's launches per step, the graphs' as their
+    # captured kernels times their replays
     counts = {**general_launches, **launches, "K5@32768": s4k["K5"], "K3@cu8": s3["K3"],
+              "OSfft": s4r["OSfft"],
               **{k: int(shard_report["1x4 config #4"][k] * SHARD_STEPS)
                  for k in ("AGCenergy", "AGCchain")},
               "K1pro": int(shard_report["1x4 flagship"]["K1pro"] * SHARD_STEPS)}
@@ -1606,12 +1830,9 @@ def main() -> int:
     src["K3@cu8"], rep["K3@cu8"] = src["K3"], rep["K3"]
     src["IQest@skip"], rep["IQest@skip"] = src["IQest"], rep["IQest"]
     counts["IQest@skip"] = counts["IQest"]
-    wrapper_key = {"banded_apply_dc": "K1", "banded_apply": "K2", "dc_block_apply": "K3",
-                   "post_apply": "K4", "osfft_apply": "K5", "rms_gains": "AGC",
-                   "iq_estimate": "IQest", "dc_prologue": "K1pro", "dc_carry": "K1carry",
-                   "segment_energies": "AGCenergy", "agc_chain": "AGCchain"}
     phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQest=0), STEPS),
               "#4": (general_launches, STEPS), "#4@32768": (s4k, GENERAL_STEPS),
+              "#4@131072": (s4r, GENERAL_STEPS),
               "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS),
               "gather": (g_counts, GATHER_STEPS),
               "fold flagship C=1 F=8": (fold_counts["flagship"], 3),
@@ -1619,10 +1840,14 @@ def main() -> int:
               **{f"shard {k}": (v, 1) for k, v in shard_report.items()},
               # the graphs: the kernels each capture recorded, times its replays
               **{f"graph {k} (captured x replays)": (
-                  {wrapper_key[w]: c * GRAPH_STEPS for w, c in v.items()}, GRAPH_STEPS)
-                 for k, v in graph_kernels.items()}}
+                  {wrapper_key[w]: c * r for w, c in v.items()}, r)
+                 for k, (v, r) in graph_kernels.items()},
+              **{f"shard graph {k} (captured x replays)": (
+                  {wrapper_key[w]: c * r for w, c in v.items()}, r)
+                 for k, (v, r) in shard_graph_kernels.items()}}
     say(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src[k], "replaces": rep[k],
+        {"name": k, "route": "torch.fft" if k == "OSfft" else "cuda", "source": src[k],
+         "replaces": rep[k],
          "launches": counts[k], "max_abs_err": report[k]["err"],
          "ms": report[k]["ms"], "plain_ms": report[k]["plain"],
          "bound_ms": report[k]["bound"][0], "bound_by": report[k]["bound"][1],

@@ -510,7 +510,9 @@ def main(argv=None) -> int:
         summary_items.update(source.summary())
         summary_items.update(sink.summary())
         if chain is not None:
+            from iq_tool_tpu_torch.pipeline.graphed import step_form
             summary_items["Time Fold"] = getattr(chain, "fold", 1)
+            summary_items["Step"] = step_form(chain)
         if chain is not None and chain.resampler is not None:
             pl = chain.resampler.plan
             summary_items["Resample Ratio"] = f"{pl.p}/{pl.q} = {pl.p / pl.q:.9g}"

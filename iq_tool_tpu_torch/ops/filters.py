@@ -11,7 +11,10 @@ Both methods are block maps plus a carried input tail:
   samples transformed, multiplied by H and transformed back, run by the
   K5 kernel (``kernels.osfft_apply``) in one launch per block: as many
   3/4-advance windows as fit, then half-advance windows, then one
-  re-anchored window for the ragged tail (``osfft_windows``).
+  re-anchored window for the ragged tail (``osfft_windows``).  Windows
+  above K5's largest (``kernels.OSFFT_MAX_NFFT`` points) take
+  ``overlap_save_fft``, the reference's XLA overlap-save in torch.fft, as
+  the reference's step takes XLA where its Pallas kernel declines.
 
 The carried tail is ``block`` samples (>= taps - 1) for the fft method
 and taps - 1 for the direct one, one per channel, as (state_r, state_i).
@@ -72,6 +75,37 @@ def osfft_windows(n: int, block: int, advances: tuple[int, ...]):
         heads.append(block + s - st)
         s = st + block
     return tuple(starts), tuple(heads)
+
+
+@kernels.counted
+def overlap_save_fft(xr, xi, state_r, state_i, h: torch.Tensor, block: int):
+    """Overlap-save in torch.fft over ext = tail ++ x (the reference's
+    ``StreamingFilter.__call__``, ``iq_tool_tpu/ops/filters.py``): windows
+    of 2b samples advancing by b, the last one re-anchored at n - b when b
+    does not divide n, each transformed, multiplied by ``h`` (the (2b,)
+    complex64 response on x's device) and transformed back, its last b
+    samples kept.  (C, n) planes and the (C, b) tail -> (yr, yi, new_r,
+    new_i).  The reference leaves this to XLA, so it is torch ops, with
+    its own ``launches`` counter (on either device)."""
+    c, n = xr.shape
+    b = block
+    ext = torch.complex(torch.cat([state_r, xr], -1), torch.cat([state_i, xi], -1))
+    if n % b == 0:
+        segs = ext.reshape(c, n // b + 1, b)
+        windows = torch.cat([segs[:, :-1], segs[:, 1:]], -1)
+    else:
+        # window i starts at i * b, the last one at n - b: no host value
+        # reaches the device, so the route can be captured in a CUDA graph
+        nc = -(-n // b)
+        starts = (torch.arange(nc, device=xr.device) * b).clamp_(max=n - b)
+        windows = ext[:, starts[:, None] + torch.arange(2 * b, device=xr.device)[None, :]]
+    out = torch.fft.ifft(torch.fft.fft(windows) * h)[..., b:]       # (C, nc, b)
+    if n % b:
+        out = torch.cat([out[:, :-1].reshape(c, -1), out[:, -1, (nc - 1) * b - n:]], -1)
+    y = out.reshape(c, n)
+    overlap_save_fft.launches += 1
+    return (y.real.contiguous(), y.imag.contiguous(),
+            banded.new_tail(state_r, xr, b), banded.new_tail(state_i, xi, b))
 
 
 class StreamingFilter:
@@ -173,6 +207,9 @@ class StreamingFilter:
         n = xr.shape[-1]
         if n < b:
             raise ValueError(f"block length {n} smaller than filter block {b}")
+        if self.nfft > kernels.OSFFT_MAX_NFFT:
+            return overlap_save_fft(xr, xi, state_r, state_i,
+                                    self._spectrum(xr.device).h, b)
         yr, yi = kernels.osfft_apply(xr, xi, self._spectrum(xr.device), b,
                                      windows=self._schedule(n, xr.device),
                                      tail=(state_r, state_i))

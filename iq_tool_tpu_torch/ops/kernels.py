@@ -342,6 +342,18 @@ def _per_stream(table: dict, dev: torch.device, need: int, make, what: str):
     return buf
 
 
+def stream_scratch(dev: torch.device, stream) -> list:
+    """The per-stream scratch buffers (the DC look-back, the estimator's
+    ticket) of ``stream`` on ``dev`` (without an index: the current
+    device).  A launch captured into a CUDA graph
+    keeps its buffer's address, while a later launch on the same stream
+    that needs a larger one replaces the table's entry: a graph holds these
+    references so that its buffers outlive the entry."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, stream.cuda_stream)
+    return [t[key] for t in (_DC_SCRATCH, _EST_TICKETS) if key in t]
+
+
 def _dc_look(lib, dev: torch.device, channels: int, n: int):
     """(scratch, sequence number) of one DC kernel launch: the look-back
     status buffer of this device and stream, zeroed once when it is
@@ -987,8 +999,9 @@ def osfft_apply(xr, xi, h, block: int, advance=None, windows=None, tail=None):
         raise ValueError(f"H has {nfft} points, expected 2b = {2 * block}")
     if not OSFFT_MIN_NFFT <= nfft <= OSFFT_MAX_NFFT:
         raise NotImplementedError(
-            f"overlap-save kernel at nfft {nfft}: sizes {OSFFT_MIN_NFFT} to "
-            f"{OSFFT_MAX_NFFT} are ported (ROADMAP Queue 2, K5 sizes)")
+            f"overlap-save kernel at nfft {nfft}: it takes {OSFFT_MIN_NFFT} to "
+            f"{OSFFT_MAX_NFFT} points; StreamingFilter runs larger windows through "
+            f"ops/filters.py's torch.fft route (overlap_save_fft)")
     lib = _build.library()
     tail_r, tail_i = (None, None) if tail is None else tail
     _require_cuda(xr, xi, tail_r, tail_i, spec.h_k)
@@ -1167,9 +1180,18 @@ def iq_estimate(xr, xi, factors, counter, interval: int = 0, advance: int = 0,
 iq_estimate.launches = 0
 
 
-_COUNTED = (banded_apply, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
+_COUNTED = [banded_apply, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
             post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
-            iq_estimate)
+            iq_estimate]
+
+
+def counted(fn):
+    """Give ``fn``, a route of the step outside this module, a
+    ``launches`` counter that launch_counts and reset_launch_counts
+    include (a decorator)."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
 
 
 def launch_counts() -> dict:

@@ -87,6 +87,21 @@ class Mesh:
                 for ti in range(self.shape["time"]) if self.is_local(ci, ti)]
 
 
+def sharded_eager_reason(mesh: Mesh) -> str | None:
+    """Why a ShardedChain on ``mesh`` steps eagerly rather than as captured
+    CUDA graphs (``pipeline/graphed.py``), or None when it can be captured:
+    a mesh with positions in other processes ("multi-process": the halos
+    travel by point-to-point calls that the host waits on) or with a time
+    row over more than one device ("time shards span devices": the row's
+    collectives would be copies between devices inside one graph).  Every
+    other mesh is captured, one graph per device."""
+    if mesh.ranks is not None and any(r != mesh.rank for row in mesh.ranks for r in row):
+        return "multi-process"
+    if any(len({str(d) for d in row}) > 1 for row in mesh.devices):
+        return "time shards span devices"
+    return None
+
+
 def visible_devices() -> list:
     """Every visible CUDA device; an error without one (the CPU is a
     mesh device only when the caller names it)."""
@@ -294,6 +309,21 @@ class ShardedChain:
 
     # ------------------------------ carry ------------------------------------
 
+    def device_rows(self) -> dict:
+        """{device name: the channel shards whose time row leads on it},
+        in mesh order (on a mesh that ``sharded_eager_reason`` lets be
+        captured, each row sits on one device)."""
+        out: dict = {}
+        for ci, row in self._rows.items():
+            out.setdefault(str(row.lead), []).append(ci)
+        return out
+
+    def _reset_carry(self, carry: dict) -> dict:
+        """Each position's carry reset as ``step(..., reset=True)`` resets
+        it (``Chain._reset_carry``: I/Q kept, AGC re-initialised, the rest
+        zero)."""
+        return {p: self._chain(*p)._reset_carry(c) for p, c in carry.items()}
+
     def init_carry(self, channels: int | None = None) -> dict:
         if channels is not None and channels != self.cfg.channels:
             raise ValueError(f"carry channels {channels} != configured "
@@ -416,8 +446,16 @@ class ShardedChain:
         global (C, n_out * items) wire on ``device`` when the mesh is
         this process's)."""
         blocks = raw if isinstance(raw, dict) else self.place_input(raw)
+        new, outs = self.step_rows(carry, blocks, list(self._rows), reset)
+        return new, self._assemble(outs)
+
+    def step_rows(self, carry: dict, blocks: dict, rows: list, reset: bool = False):
+        """The step of the channel shards ``rows`` alone over their
+        positions' placed blocks -> ({position: new carry}, {position:
+        output})."""
         new, outs = {}, {}
-        for ci, row in self._rows.items():
+        for ci in rows:
+            row = self._rows[ci]
             if self.t == 1:
                 nc, outs[(ci, 0)] = self._chain(ci, 0).step(carry[(ci, 0)],
                                                             blocks[(ci, 0)], reset)
@@ -427,7 +465,7 @@ class ShardedChain:
                               {t: blocks[(ci, t)] for t in row.held}, bool(reset)).run()
             for t in row.held:
                 new[(ci, t)], outs[(ci, t)] = rc[t], ro[t]
-        return new, self._assemble(outs)
+        return new, outs
 
     def _assemble(self, outs: dict) -> torch.Tensor:
         held = [row.held for row in self._rows.values()]

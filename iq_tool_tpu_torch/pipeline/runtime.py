@@ -9,10 +9,12 @@ Three host threads around the device queue:
       the step's copy-back event, then writes the sinks
 
 so source I/O, device work and sink I/O overlap, while the output bytes
-stay identical at any queue depth (FIFO order end to end).  A Chain or a
-FoldedChain runs as a ``GraphedStep`` (``pipeline/graphed.py``: one CUDA
-graph a step on the card, captured by ``prepare``; the same static
-buffers on the CPU); a ShardedChain steps eagerly.  On CUDA each block
+stay identical at any queue depth (FIFO order end to end).  A Chain, a
+FoldedChain or a ShardedChain runs as a ``GraphedStep``
+(``pipeline/graphed.py``: captured CUDA graphs on the card, by
+``prepare``; the same static buffers on the CPU), except a ShardedChain
+on a mesh that ``sharded_eager_reason`` names (positions in other
+processes, a time row over several devices), which steps eagerly.  On CUDA each block
 goes host -> device as a ``non_blocking`` copy from pinned memory,
 straight into the graph's input buffer, and each output comes back into
 a pinned tensor on the current stream, enqueued before the next replay
@@ -51,8 +53,7 @@ from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.modules.base import OutputClosed
 from iq_tool_tpu_torch.pipeline.chain import Chain
 from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
-from iq_tool_tpu_torch.pipeline.folded import FoldedChain
-from iq_tool_tpu_torch.pipeline.graphed import GraphedStep
+from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, eager_reason
 
 
 @dataclasses.dataclass
@@ -226,7 +227,7 @@ class StreamEngine:
                 f"{n_ch} source streams were given")
         if raw_passthrough and n_ch != 1:
             raise ValueError("raw passthrough is single-stream")
-        self.stepper = (GraphedStep(chain) if isinstance(chain, (Chain, FoldedChain))
+        self.stepper = (GraphedStep(chain) if chain is not None and eager_reason(chain) is None
                         else chain)
 
     def prepare(self) -> None:

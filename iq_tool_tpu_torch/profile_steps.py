@@ -1,16 +1,20 @@
 """The chains the port is measured on, and where a step's time goes on
 the card.
 
-    python -m iq_tool_tpu_torch.profile_steps [--configs flagship 4 5 3 4k32 c1 c1f8 4c1 4c1f8 gather
-                                                         flagship@1x4 4@1x4 flagship@2x2]
+    python -m iq_tool_tpu_torch.profile_steps [--configs flagship 1 2 4 5 3 4k32 4k128 4dx 4dig
+                                                         c1 c1f8 4c1 4c1f8 gather flagship@1x4
+                                                         4@1x4 flagship@2x2 flagship@4x1]
                                               [--forms eager graph]
 
 ``config``, ``make_chain`` and ``tone_wire`` are the one definition of
 the measured chains and their seeded input; ``chip_smoke.py`` runs the
 same.  Run as a module, for each configuration (128 channels x 262144
-frames a step; "c1" and "4c1" the flagship and config #4 as one stream
-at the CLI's default 16384-frame block, "f8" with --time-fold 8;
-"gather" 128 x 254597 through the gather stage; "<name>@<C>x<T>" the
+frames a step; "1" to "5" BASELINE's configs under bench.py's short
+names, "4k32" and "4k128" config #4 at --filter-fft-size 32768 and
+131072, "4dx" and "4dig" config #4 with the dx and digital AGC
+profiles; "c1" and "4c1" the flagship and config #4 as one stream at
+the CLI's default 16384-frame block, "f8" with --time-fold 8; "gather"
+128 x 254597 through the gather stage; "<name>@<C>x<T>" the
 ShardedChain of <name> on a C x T mesh repeating the card, each shard a
 128 / C x 262144 block): 3 warm-up steps, then 40 steps timed by the
 host clock (ending in a synchronize; a short window after an idle card
@@ -29,10 +33,10 @@ Two forms of a step: "eager", the chain's step over a contiguous device
 block a step, as the host engine hands a block to an eager step,
 and "graph", the step as one CUDA graph (``pipeline/graphed.py``) over
 its input buffer, filled once (a step's work does not depend on its
-data); a graph's kernels are held against the eager step's (the same
-kernels, plus the graph's memset of the DC kernel's status words and
-its copies into its static carry).  The sharded chains run eagerly
-only.  Needs a CUDA card.
+data), a sharded chain's too; a graph's kernels are held against the
+eager step's (the same kernels, plus the graph's memset of the DC
+kernel's status words and its copies into its static carry).  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -60,24 +64,34 @@ POST_SHIFT_HZ = -50_000.0   # config #4: 37 + 100 - 50 -> 87 kHz out
 GATHER_RATE = 25_282.56     # 2469/200000 of 2.048 Msps -> 449/36371: the gather stage
 GATHER_TONE_HZ = 3_000.0
 STREAM_BLOCK = 16384        # the CLI's default --block-size
-CONFIGS = ("flagship", "4", "5", "3", "4k32", "c1", "c1f8", "4c1", "4c1f8", "gather",
-           "flagship@1x4", "4@1x4", "flagship@2x2")
+CONFIGS = ("flagship", "1", "2", "4", "5", "3", "4k32", "4k128", "4dx", "4dig", "c1",
+           "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4", "4@1x4", "flagship@2x2",
+           "flagship@4x1")
+# config #4's variants: --filter-fft-size, --output-agc
+_FULL = {"4": (None, "local"), "4k32": (32768, "local"), "4k128": (131072, "local"),
+         "4dx": (None, "dx"), "4dig": (None, "digital")}
 
 
 def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConfig:
-    """The flagship chain (bench.py) and BASELINE configs #3-#5
-    (tools/bench_all.py); "4k32" is #4 with --filter-fft-size 32768."""
+    """The flagship chain (bench.py), BASELINE configs #1-#5
+    (tools/bench_all.py) and config #4's variants (``_FULL``)."""
     base = dict(input_rate=IN_RATE, target_rate=OUT_RATE, channels=channels,
                 target_block=block, dc_block=True, output_format="cs16")
     if name == "flagship":
         return ChainConfig(input_format="cs16", freq_shift_pre_hz=SHIFT_HZ,
                            filters=(FilterRequest("lowpass", 400e3),), **base)
-    if name in ("4", "4k32"):
+    if name == "1":
+        return ChainConfig(input_format="cs16", **{**base, "dc_block": False})
+    if name == "2":
+        return ChainConfig(input_format="cs16", freq_shift_pre_hz=250e3,
+                           filters=(FilterRequest("lowpass", 400e3),),
+                           **{**base, "dc_block": False})
+    if name in _FULL:
+        fft_size, profile = _FULL[name]
         return ChainConfig(input_format="cs16", iq_correction=True,
                            freq_shift_pre_hz=SHIFT_HZ, freq_shift_post_hz=POST_SHIFT_HZ,
                            filters=(FilterRequest("stop-range", 0.0, 10e3),),
-                           filter_fft_size=32768 if name == "4k32" else None,
-                           agc_profile="local", **base)
+                           filter_fft_size=fft_size, agc_profile=profile, **base)
     if name == "5":
         return ChainConfig(input_format="cs16", freq_shift_pre_hz=SHIFT_HZ,
                            filters=(FilterRequest("lowpass", 400e3),),
@@ -130,20 +144,26 @@ def to_cu8(wire16: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x * 127.5 + 127.5), 0, 255).to(torch.uint8)
 
 
-def device_events(run, steps: int) -> dict:
+def device_events(run, steps: int, attempts: int = 3) -> dict:
     """Run ``run`` ``steps`` times under torch.profiler (CPU and CUDA
     activity, ending in a synchronize): {device event name: [ms,
-    launches]} summed over the runs, kernels and copies."""
+    launches]} summed over the runs, kernels and copies.  A window in
+    which the profiler saw no device event at all (it happened on the
+    H100 after a few dozen profiler sessions in one process) is run
+    again, up to ``attempts`` windows."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            run()
-        torch.cuda.synchronize()
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
-            by_name[ev.name][1] += 1
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                run()
+            torch.cuda.synchronize()
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
+                by_name[ev.name][1] += 1
+        if by_name:
+            break
     return by_name
 
 
@@ -258,8 +278,7 @@ def main(argv=None) -> int:
     print(f"device {torch.cuda.get_device_name(0)}, torch {torch.__version__}")
     bad = 0
     for name in args.configs:
-        forms = [f for f in args.forms if f == "eager" or "@" not in name]
-        rs = {f: profile(name, f == "graph") for f in forms}
+        rs = {f: profile(name, f == "graph") for f in args.forms}
         for f, r in rs.items():
             if r["idle"] is None:
                 print(f"[{name} {f}] wall {r['wall_ms']:.3f} ms/step; device time not "

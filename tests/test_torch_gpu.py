@@ -863,41 +863,156 @@ def test_sharded_on_card_matches_chain(rng, name, mesh):
     assert kernels.segment_energies.launches == (shards if name == "general" else 0)
 
 
-@pytest.mark.parametrize("name,fold", [("flagship", 1), ("general", 1), ("general", 4)],
-                         ids=["flagship", "general", "general-fold4"])
-def test_graph_replays_equal_eager(rng, name, fold):
-    """The step as one CUDA graph (pipeline/graphed.py), 8 replays with
-    distinct inputs and a reset at the fifth, against the eager step bit
-    for bit, outputs and carries: 4 channels of 262144 frames (64 DC
-    tiles a channel, two look-back groups), so a DC launch replayed with
-    the status words its previous replay left would take stale
-    aggregates.  The capture records the kernels a replay launches."""
-    _need_card()
-    from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+def _graph_against_eager(ch, raws, reset=4, resume=None):
+    """A GraphedStep of ``ch`` replayed over ``raws`` (a reset at step
+    ``reset``, a carry from carry_from_numpy at ``resume``) against the
+    eager step, bit for bit, outputs and carries; the captured kernels
+    against the eager step's launches a step.  Returns the GraphedStep."""
     from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves
-    block = 262144 // fold
-    cfg = (_chain_cfg("flagship", block, channels=4) if name == "flagship"
-           else _general_cfg(block, channels=4))
-    ch = FoldedChain(cfg, fold, device="cuda") if fold > 1 else Chain(cfg, device="cuda")
-    raws = [_cuda(rng.integers(-2 ** 14, 2 ** 14, (4, ch.in_wire_len)).astype(np.int16))
-            for _ in range(8)]
     carry, want = ch.init_carry(), []
     for k, raw in enumerate(raws):
-        carry, out = ch.step(carry, raw, k == 4)
+        kernels.reset_launch_counts()
+        carry, out = ch.step(carry, raw, k == reset)
+        eager = {k_: v for k_, v in kernels.launch_counts().items() if v}
         want.append((out.clone(), [t.clone() for t in _leaves(carry)]))
     g = GraphedStep(ch)
     carry = g.init_carry()
     for k, raw in enumerate(raws):
         g.input_buffer.copy_(raw)
-        carry, out = g.step(carry, g.input_buffer, k == 4)
+        if k == resume:
+            carry = g.carry_from_numpy(g.carry_to_numpy(carry))
+        carry, out = g.step(carry, g.input_buffer, k == reset)
         assert torch.equal(out, want[k][0]), k
         for a, b in zip(_leaves(carry), want[k][1]):
             assert torch.equal(a, b), k
-    assert g.replays == 8
-    assert g.kernels == ({"banded_apply": 1, "banded_apply_dc": 1, "dc_carry": 1}
-                         if name == "flagship" else
-                         {"banded_apply": 2, "dc_block_apply": 1, "post_apply": 1,
-                          "rms_gains": 1, "osfft_apply": 1, "iq_estimate": 1})
+    assert g.replays == len(raws) and g.kernels == eager
+    return g
+
+
+@pytest.mark.parametrize("name,fold", [
+    ("flagship", 1), ("general", 1), ("general", 4), ("1", 1), ("2", 1), ("3", 1),
+    ("5", 1), ("gather", 1), ("4k32", 1), ("4k128", 1), ("4dx", 1), ("4dig", 1)],
+    ids=["flagship", "general", "general-fold4", "config1", "config2", "config3",
+         "config5", "gather", "4k32", "4k128", "4dx", "4dig"])
+def test_graph_replays_equal_eager(rng, name, fold):
+    """The step as one CUDA graph (pipeline/graphed.py), 8 replays with
+    distinct inputs, a reset at the fifth and a carry from
+    carry_from_numpy at the seventh, against the eager step bit for bit,
+    outputs and carries: 4 channels of 262144 frames (64 DC tiles a
+    channel, two look-back groups), so a DC launch replayed with the
+    status words its previous replay left would take stale aggregates.
+    Every chain profile_steps measures: the flagship, BASELINE configs
+    #1-#5 (#3 on cu8), the gather stage, config #4 at nfft 32768 (K5's
+    cluster) and 131072 (the torch.fft route), its dx and digital AGC.
+    The capture records the kernels a replay launches: the eager step's."""
+    _need_card()
+    from iq_tool_tpu_torch import profile_steps
+    from iq_tool_tpu_torch.pipeline.folded import FoldedChain
+    block = 262144 // fold
+    if name in ("flagship", "general"):
+        cfg = (_chain_cfg("flagship", block, channels=4) if name == "flagship"
+               else _general_cfg(block, channels=4))
+    else:
+        cfg = profile_steps.config(name, 4, block)
+    ch = FoldedChain(cfg, fold, device="cuda") if fold > 1 else Chain(cfg, device="cuda")
+    dt = convert.wire_dtype(ch.fmt_in)
+    lo, hi = (0, 256) if dt == np.uint8 else (-2 ** 14, 2 ** 14)
+    raws = [_cuda(rng.integers(lo, hi, (4, ch.in_wire_len)).astype(dt)) for _ in range(8)]
+    g = _graph_against_eager(ch, raws, resume=6)
+    if name == "flagship":
+        assert g.kernels == {"banded_apply": 1, "banded_apply_dc": 1, "dc_carry": 1}
+    elif name == "general":
+        assert g.kernels == {"banded_apply": 2, "dc_block_apply": 1, "post_apply": 1,
+                             "rms_gains": 1, "osfft_apply": 1, "iq_estimate": 1}
+    elif name == "4k128":
+        assert g.kernels["overlap_save_fft"] == 1 and "osfft_apply" not in g.kernels
+
+
+def test_graph_keeps_its_scratch_when_the_stream_grows(rng):
+    """A graph's DC look-back buffer outlives its stream's table entry: a
+    larger chain warmed up and captured on the first graph's capture
+    stream grows that entry, a tensor made there afterwards does not get
+    the old buffer's memory, and the first graph's replays stay the eager
+    step's bit for bit."""
+    _need_card()
+    from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves
+    small = Chain(_chain_cfg("flagship", 8192, channels=2), device="cuda")
+    raws = [_cuda(rng.integers(-2 ** 14, 2 ** 14, (2, small.in_wire_len)).astype(np.int16))
+            for _ in range(3)]
+    g = GraphedStep(small)
+    g.capture()
+    stream = g._parts[0].stream
+    key = (torch.cuda.current_device(), stream.cuda_stream)
+    old = kernels._DC_SCRATCH[key]
+    ptr, size = old.data_ptr(), old.numel()
+    del old
+    big = Chain(_chain_cfg("flagship", 262144, channels=8), device="cuda")
+    wire = _cuda(rng.integers(-2 ** 14, 2 ** 14, (8, big.in_wire_len)).astype(np.int16))
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        carry = big.init_carry()
+        for _ in range(2):
+            big.step(carry, wire)
+        junk = torch.full((size,), 7, dtype=torch.uint8, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        big.step(carry, wire)
+    torch.cuda.synchronize()
+    assert kernels._DC_SCRATCH[key].numel() > size and junk.data_ptr() != ptr
+    assert any(t.data_ptr() == ptr for t in g._scratch)
+    carry, want = small.init_carry(), []
+    for raw in raws:
+        carry, out = small.step(carry, raw)
+        want.append((out.clone(), [t.clone() for t in _leaves(carry)]))
+    carry = g.init_carry()
+    for k, raw in enumerate(raws):
+        graph.replay()
+        carry, out = g.step(carry, raw)
+        assert torch.equal(out, want[k][0]), k
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(carry), want[k][1])), k
+    torch.cuda.synchronize()
+    assert int(junk.min()) == 7 and int(junk.max()) == 7
+
+
+@pytest.mark.parametrize("name,mesh", [("flagship", (4, 1)), ("flagship", (1, 4)),
+                                       ("flagship", (2, 2)), ("general", (1, 4)),
+                                       ("general", (4, 1))])
+def test_sharded_graph_replays_equal_eager(rng, name, mesh):
+    """The sharded step as one CUDA graph on a mesh repeating cuda:0, 4
+    channels of 16384 frames a shard, 6 replays with a reset and a carry
+    from carry_from_numpy, against the eager ShardedChain step bit for
+    bit, its captured kernels the eager step's launches."""
+    _need_card()
+    from iq_tool_tpu_torch.parallel import ShardedChain, make_mesh
+    c_, t_ = mesh
+    cfg = (_chain_cfg("flagship", 16384, channels=4) if name == "flagship"
+           else _general_cfg(16384, channels=4))
+    sc = ShardedChain(cfg, make_mesh(["cuda:0"] * (c_ * t_), c_, t_))
+    raws = [_cuda(rng.integers(-2 ** 14, 2 ** 14, (4, sc.in_wire_len)).astype(np.int16))
+            for _ in range(6)]
+    _graph_against_eager(sc, raws, reset=2, resume=4)
+
+
+def test_route_at_nfft_131072_on_card(rng):
+    """Config #4's notch at nfft 131072 on the card: K5 refuses the size
+    and names the route; the filter takes the torch.fft route, >= 100 dB
+    from K5's twin on a ragged block."""
+    _need_card()
+    from iq_tool_tpu_torch import profile_steps
+    from iq_tool_tpu_torch.ops import filters
+    filt = Chain(profile_steps.config("4k128", 2, 131072), device="cuda").post_filter
+    b, n = filt.block, 190512
+    xr, xi, tr, ti = _planes(rng, 4, n) + _planes(rng, 4, b)
+    with pytest.raises(NotImplementedError, match="overlap_save_fft"):
+        kernels.osfft_apply(xr, xi, filt._h, b, tail=(tr, ti))
+    before = kernels.launch_counts()
+    got = filt.apply_planar(xr, xi, tr, ti)
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "overlap_save_fft": 1}
+    windows = kernels.Windows.build(*filters.osfft_windows(n, b, (b,)), "cuda")
+    want = kernels.osfft_apply_ref(xr, xi, filt._h, b, windows=windows, tail=(tr, ti))
+    assert _snr(want[0], got[0]) >= 100.0 and _snr(want[1], got[1]) >= 100.0
 
 
 def test_graph_capture_needs_warm_scratch(monkeypatch):

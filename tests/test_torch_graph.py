@@ -29,6 +29,7 @@ from iq_tool_tpu.pipeline.folded import FoldedChain as JaxFolded  # noqa: E402
 from iq_tool_tpu_torch.cli import choose_time_fold, fold_chain  # noqa: E402
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
 from iq_tool_tpu_torch.parallel import ShardedChain, make_mesh  # noqa: E402
+from iq_tool_tpu_torch.parallel.sharded import Mesh  # noqa: E402
 from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig  # noqa: E402
 from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint  # noqa: E402
 from iq_tool_tpu_torch.pipeline.folded import FoldedChain  # noqa: E402
@@ -235,11 +236,17 @@ def test_graph_reset_is_the_eager_reset(rng):
 
 
 def test_graph_refuses_what_it_cannot_take(rng):
-    """A sharded chain stays eager; an input of another shape or device
-    type, or a carry of another layout, raises."""
+    """A sharded chain on a mesh the rule keeps eager (positions in
+    another process, a time row over two devices) and what is no chain
+    raise; so do an input of another shape or device type, or a carry of
+    another layout."""
     _, pcfg = _configs(FLAGSHIP, 4096)
-    with pytest.raises(TypeError, match="Chain or a FoldedChain"):
-        GraphedStep(ShardedChain(pcfg, make_mesh(["cpu"] * 2, 2, 1)))
+    with pytest.raises(TypeError, match=r"steps eagerly \(multi-process\)"):
+        GraphedStep(ShardedChain(pcfg, Mesh([["cpu"], ["cpu"]], ranks=[[0], [1]], rank=0)))
+    with pytest.raises(TypeError, match=r"steps eagerly \(time shards span devices\)"):
+        GraphedStep(ShardedChain(pcfg, make_mesh(["cpu", "cpu:0"], 1, 2)))
+    with pytest.raises(TypeError, match="Chain, a FoldedChain or a ShardedChain"):
+        GraphedStep(pcfg)
     g = GraphedStep(Chain(pcfg, device="cpu"))
     carry = g.init_carry()
     with pytest.raises(ValueError, match="the step takes"):
