@@ -15,13 +15,20 @@ first failure:
    pass alone; the two-launch route it replaced, the DC prologue then K2
    over its planes, timed in turns with it; K2 decoding the wire and NCO
    in its loader against K2 over planes at stage 0; the DC prologue
-   alone with a bit-for-bit repeat, K2 stage 1 packed) and at the strides
-   224, 400 and 144 (planar and packed), each timed twin, kernel,
-   kernel, twin with CUDA events (K2 beside one float32 matmul of the
-   unfolded windows);
+   alone with a bit-for-bit repeat, K2 stage 1 packed, with a
+   bit-for-bit repeat, on the wgmma core its rule gives and on the
+   mma.sync core, timed in turns) and at the strides 224, 400 and 144
+   and config #4's stages 512 and 256 (planar and packed, with
+   bit-for-bit repeats, on both product cores, the rule's first; K2mma,
+   K2 on the mma.sync core, at #4's stage 0), the banded core's design
+   and launch geometry printed beside K1 and K2 (its bound counts the
+   band's own operations, the padded products beside them), each timed
+   twin, kernel, kernel, twin with CUDA events (K2 beside one float32
+   matmul of the unfolded windows);
 4. the slice: the flagship Chain (128 channels x 262144 frames) for 6
-   steps; K1, its carry pass and K2 must each count 6, the DC prologue
-   0; output against the CPU twin
+   steps; K1, its carry pass and K2 (on the wgmma core) must each count
+   6, the DC prologue and K2 on the mma.sync core 0; output against the
+   CPU twin
    chain on 2 channels and a tone SNR check; steady-state Msps and peak
    device memory;
 5. the general step's kernels vs their twins at BASELINE config #4's
@@ -144,11 +151,44 @@ def bound(nbytes: float, ops: float, rate: float):
 
 
 def tf32x3_ops(band, channels: int, nb: int) -> float:
-    """Tensor-core operations of K2's 3xTF32 products: three m16n8k8
-    products per 8x8 block of every column tile's span, two planes (four
-    products with complex taps), 2 operations per multiply-add."""
+    """The band's own work in 3xTF32: three products for every non-zero
+    tap of every column (K a column, the band's longest), two planes (four
+    products with complex taps), 2 operations per multiply-add.  The
+    kernel's tile padding is not the function's work."""
     planes = 4 if band.taps_i is not None else 2
-    return 3 * 2 * planes * channels * nb * band.n_tiles * 8 * band.span
+    return 3 * 2 * planes * channels * nb * band.g * band.k
+
+
+def tf32x3_padded(band, channels: int, nb: int, core: str) -> float:
+    """The 3xTF32 operations the kernel issues: every column tile's
+    whole span for every window of its window groups (a ragged last group
+    multiplies a whole one), the padding included; on the wgmma core
+    32-window groups and 32-column tiles, on the mma.sync core 16 and 16."""
+    planes = 4 if band.taps_i is not None else 2
+    if core == "mma":
+        win, cols, tiles, span = 16, 16, band.frag_tiles, band.frag_span
+    else:
+        win, cols, tiles, span = 32, 32, band.n_tiles, band.span
+    return 3 * 2 * planes * channels * -(-nb // win) * win * tiles * cols * span
+
+
+def plan_line(kernels, band, stride: int, hist: int, n: int, channels: int,
+              dc_kind=None, core=None) -> str:
+    """The banded kernel's design and launch geometry at these shapes (the
+    core kernels.banded_core picks, or ``core``)."""
+    p = kernels.banded_plan(band, stride, hist, n, channels, dc_kind, core)
+    if p["core"] == "mma":
+        return (f"design: mma.sync m16n8k8 3xTF32 (csrc/banded_mma.cu), 16 windows "
+                f"x tiles of 16 columns, taps split in the loop; span {band.frag_span}, "
+                f"{band.frag_tiles} tiles; grid {p['grid']} x {p['threads']} threads, "
+                f"{p['ctas_per_sm']} CTA(s) an SM, {p['smem']} B shared, {p['groups']} "
+                f"groups a channel")
+    return (f"design: wgmma m64n{kernels.TILE_COLS}k8 3xTF32 (csrc/banded.cu), A = 32 "
+            f"windows x 2 planes from registers, B = host-split taps in shared memory; "
+            f"tiles of {kernels.TILE_COLS} columns, span {band.span}, {band.n_tiles} tiles; "
+            f"grid {p['grid']} x {p['threads']} threads, {p['ctas_per_sm']} CTA(s) "
+            f"an SM, {p['smem']} B shared, {p['nbuf']} staged group(s), ring "
+            f"{p['ring']} x {p['cs']} steps, {p['groups']} groups a channel")
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -254,7 +294,8 @@ def main() -> int:
     _build.library()
     say(f"[build] {time.perf_counter() - t0:.1f} s -> {_build.build_dir()}")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "wgmma" in line):
             say(f"[build] {line.strip()}")
 
     dev = torch.device("cuda")
@@ -265,13 +306,11 @@ def main() -> int:
                            input_rate=2_400_000.0, target_rate=OUT_RATE,
                            dc_block=True, target_block=block)
 
-    def time_pair(run_kernel, run_twin, reps=5, run_library=None):
-        """(kernel ms, twin ms) per call, interleaved twin, kernel,
-        kernel, twin after one warm-up of each; with ``run_library`` also
-        its ms, timed in the same turns (twin, library, kernel, kernel,
-        library, twin).  A spin kernel ahead of each run lets the host
-        queue all its launches first, so the events time the card, not
-        the wrappers' host code."""
+    def time_turns(fns, reps=5):
+        """ms per call of each of ``fns``, timed in turns (in order, then
+        in reverse, the two averaged) after one warm-up of each.  A spin
+        kernel ahead of each run lets the host queue all its launches
+        first, so the events time the card, not the wrappers' host code."""
         def timed(fn):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -282,13 +321,19 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             return start.elapsed_time(end) / reps
-        fns = [run_twin] + ([run_library] if run_library else []) + [run_kernel]
         for fn in fns:
             fn()
         torch.cuda.synchronize()
         first = [timed(fn) for fn in fns]
         second = [timed(fn) for fn in reversed(fns)][::-1]
-        ms = [(x + y) / 2 for x, y in zip(first, second)]
+        return [(x + y) / 2 for x, y in zip(first, second)]
+
+    def time_pair(run_kernel, run_twin, reps=5, run_library=None):
+        """(kernel ms, twin ms) per call, interleaved twin, kernel,
+        kernel, twin (time_turns); with ``run_library`` also its ms, timed
+        in the same turns (twin, library, kernel, kernel, library, twin)."""
+        fns = [run_twin] + ([run_library] if run_library else []) + [run_kernel]
+        ms = time_turns(fns, reps)
         if run_library:
             return ms[2], ms[0], ms[1]
         return ms[1], ms[0]
@@ -299,6 +344,7 @@ def main() -> int:
     def launch_counts():
         return {"K1": kernels.banded_apply_dc.launches,
                 "K2": kernels.banded_apply.launches,
+                "K2mma": kernels.banded_apply_mma.launches,
                 "K3": kernels.dc_block_apply.launches,
                 "K4": kernels.post_apply.launches,
                 "K5": kernels.osfft_apply.launches,
@@ -387,9 +433,11 @@ def main() -> int:
         f"route's {old_ms:.3f}), twin {k1_plain:.3f} ms; band product "
         f"{fl0 / 1e9:.2f} GFLOP -> {fl0 / k1_ms / 1e9:.2f} TFLOP/s; bound "
         f"{k1_bound[0]:.4f} ms ({k1_bound[1]}: {k1_bytes / 1e6:.1f} MB, "
-        f"{tf32x3_ops(st0.band, CH, nb0) / 1e9:.2f} GFLOP of 3xTF32) -> "
+        f"{tf32x3_ops(st0.band, CH, nb0) / 1e9:.2f} GFLOP of 3xTF32; the kernel "
+        f"issues {tf32x3_padded(st0.band, CH, nb0, 'wgmma') / 1e9:.2f} with its padding) -> "
         f"{100 * k1_bound[0] / k1_ms:.1f}% of bound; the design's floor (the wire "
         f"read twice) {k1_floor:.4f} ms")
+    say(f"[k1] {plan_line(kernels, st0.band, st0.stride, st0.hist, BLOCK, CH, 'cs16')}")
     report["K1"] = dict(err=k1_err, ms=k1_ms, plain=k1_plain, lib=None, bound=k1_bound)
 
     # the carry pass alone (the DC kernel over the wire, no planes)
@@ -476,6 +524,8 @@ def main() -> int:
     planar_ref = kernels.banded_apply_ref(*k2_args)
     packed = kernels.banded_apply(*k2_args, pack_fmt="cs16")
     packed_ref = kernels.banded_apply_ref(*k2_args, pack_fmt="cs16")
+    same_k2 = (all(torch.equal(x, y) for x, y in zip(planar, kernels.banded_apply(*k2_args)))
+               and torch.equal(packed, kernels.banded_apply(*k2_args, pack_fmt="cs16")))
     torch.cuda.synchronize()
     s_k2 = min(snr_db(w.cpu().numpy(), g.cpu().numpy())
                for w, g in zip(planar_ref, planar))
@@ -486,9 +536,12 @@ def main() -> int:
     say(f"[k2] C={CH} n={x1r.shape[1]} s={st1.stride} hist={st1.hist} "
         f"G={st1.band.g} K={st1.band.k}: SNR planar {s_k2:.1f} dB, max |err| "
         f"{k2_err:.3e}; packed cs16 max |dcode| {int(dcode.max())} on "
-        f"{100 * frac:.4f}% of samples")
+        f"{100 * frac:.4f}% of samples; two launches "
+        f"{'bit-identical' if same_k2 else 'DIFFER'}")
     if s_k2 < 100.0 or int(dcode.max()) > 1 or frac > 0.01:
         fail("K2 disagrees with its twin at the flagship stage-1 shape")
+    if not same_k2:
+        fail("two launches of K2 on the same input differ")
     # the yardstick: one float32 matmul of the unfolded windows (both
     # planes) by the dense A, TF32 off
     ext1 = torch.cat([torch.cat([s1r, x1r], -1), torch.cat([s1i, x1i], -1)])
@@ -504,19 +557,44 @@ def main() -> int:
     k2_bytes = CH * (x1r.shape[1] + st1.hist) * 8 + CH * nb1 * st1.band.g * 4
     k2_ops = tf32x3_ops(st1.band, CH, nb1)
     k2_bound = bound(k2_bytes, k2_ops, PEAK_TF32_S)
+    core1 = kernels.banded_core(st1.band)
+    if core1 != "wgmma":
+        fail(f"K2 at the flagship's stage 1 takes the {core1} core, not the wgmma core")
     say(f"[k2] packed kernel {k2_ms:.3f} ms, twin {k2_plain:.3f} ms, one matmul "
         f"{k2_lib:.3f} ms; band product {fl1 / 1e9:.2f} GFLOP -> "
         f"{fl1 / k2_ms / 1e9:.2f} TFLOP/s; bound {k2_bound[0]:.4f} ms "
         f"({k2_bound[1]}: {k2_bytes / 1e6:.1f} MB, {k2_ops / 1e9:.2f} GFLOP of "
-        f"3xTF32) -> {100 * k2_bound[0] / k2_ms:.1f}% of bound")
+        f"3xTF32; the kernel issues {tf32x3_padded(st1.band, CH, nb1, core1) / 1e9:.2f} "
+        f"with its padding) -> {100 * k2_bound[0] / k2_ms:.1f}% of bound")
+    say(f"[k2] {plan_line(kernels, st1.band, st1.stride, st1.hist, x1r.shape[1], CH)}")
     report["K2"] = dict(err=k2_err, ms=k2_ms, plain=k2_plain, lib=k2_lib, bound=k2_bound)
+    # the other core at the same shape, against the twin and timed in turns
+    mma_p = kernels.banded_apply(*k2_args, pack_fmt="cs16", core="mma")
+    (gi, gq) = codes(mma_p)
+    dcode_m = torch.maximum((gi - wi).abs(), (gq - wq).abs())
+    s_m = min(snr_db(w.cpu().numpy(), g.cpu().numpy())
+              for w, g in zip(planar_ref, kernels.banded_apply(*k2_args, core="mma")))
+    wg_ms, mma_ms = time_turns(
+        [lambda: kernels.banded_apply(*k2_args, pack_fmt="cs16"),
+         lambda: kernels.banded_apply(*k2_args, pack_fmt="cs16", core="mma")])
+    say(f"[k2] the mma.sync core at the same shape: SNR planar {s_m:.1f} dB, packed max "
+        f"|dcode| {int(dcode_m.max())}; packed {mma_ms:.3f} ms against the wgmma core's "
+        f"{wg_ms:.3f} in the same turns; "
+        f"{plan_line(kernels, st1.band, st1.stride, st1.hist, x1r.shape[1], CH, core='mma')}")
+    if s_m < 100.0 or int(dcode_m.max()) > 1 or float((dcode_m > 0).float().mean()) > 0.01:
+        fail("K2's mma.sync core disagrees with its twin at the flagship stage-1 shape")
+    del mma_p
     del ext1
     del got, want, planar, planar_ref, packed, packed_ref, wire
 
-    # K2 at the strides the TPU sent to XLA
+    # K2 at the strides the TPU sent to XLA and at config #4's stages
+    # (narrow bands): both cores against the twin, timed in turns; the
+    # rule's core first
     for label, cfg, idx in (("flagship@16384 stage 1", config("flagship", 1, 16384), 1),
                             ("nrsc5@16384 stage 0", nrsc5(16384), 0),
-                            ("nrsc5@16384 stage 1", nrsc5(16384), 1)):
+                            ("nrsc5@16384 stage 1", nrsc5(16384), 1),
+                            ("#4 stage 0", config("4", 1), 0),
+                            ("#4 stage 1", config("4", 1), 1)):
         st = Chain(cfg, device=dev).resampler.stages[idx]
         n = (BLOCK // st.stride) * st.stride
         xr, xi = (0.2 * torch.randn((CH, n), generator=gen, device=dev)
@@ -524,27 +602,58 @@ def main() -> int:
         sr, si = (0.2 * torch.randn((CH, st.hist), generator=gen, device=dev)
                   for _ in range(2))
         args = (sr, si, xr, xi, st.band, None, st.stride, st.hist)
-        before = kernels.banded_apply.launches
-        g_ = kernels.banded_apply(*args)
         w_ = kernels.banded_apply_ref(*args)
-        gp = kernels.banded_apply(*args, pack_fmt="cs16")
         wp = kernels.banded_apply_ref(*args, pack_fmt="cs16")
-        torch.cuda.synchronize()
-        if kernels.banded_apply.launches != before + 2:
-            fail(f"K2 did not launch at stride {st.stride}")
-        s_ = min(snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(w_, g_))
-        (gi, gq), (wi, wq) = codes(gp), codes(wp)
-        dcode = torch.maximum((gi - wi).abs(), (gq - wq).abs())
-        frac = float((dcode > 0).float().mean())
-        ms, plain = time_pair(lambda: kernels.banded_apply(*args),
-                              lambda: kernels.banded_apply_ref(*args))
-        say(f"[k2] {label}: s={st.stride} hist={st.hist} G={st.band.g} "
-            f"K={st.band.k} n={n}: SNR {s_:.1f} dB, packed cs16 max |dcode| "
-            f"{int(dcode.max())} on {100 * frac:.4f}% of samples; planar kernel "
-            f"{ms:.3f} ms, twin {plain:.3f} ms")
-        if s_ < 100.0 or int(dcode.max()) > 1 or frac > 0.01:
-            fail(f"K2 disagrees with its twin at stride {st.stride}")
-        del g_, w_, gp, wp
+        rule = kernels.banded_core(st.band)
+        cores = (rule, "mma" if rule == "wgmma" else "wgmma")
+        res = {}
+        for core in cores:
+            before = (kernels.banded_apply.launches, kernels.banded_apply_mma.launches)
+            g_ = kernels.banded_apply(*args, core=core)
+            gp = kernels.banded_apply(*args, pack_fmt="cs16", core=core)
+            same = (all(torch.equal(x, y) for x, y in
+                        zip(g_, kernels.banded_apply(*args, core=core)))
+                    and torch.equal(gp, kernels.banded_apply(*args, pack_fmt="cs16",
+                                                             core=core)))
+            torch.cuda.synchronize()
+            mma_n = 4 if core == "mma" else 0
+            if (kernels.banded_apply.launches, kernels.banded_apply_mma.launches) != (
+                    before[0] + 4, before[1] + mma_n):
+                fail(f"K2 on the {core} core did not launch as counted at stride {st.stride}")
+            s_ = min(snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(w_, g_))
+            (gi, gq), (wi, wq) = codes(gp), codes(wp)
+            dcode = torch.maximum((gi - wi).abs(), (gq - wq).abs())
+            frac = float((dcode > 0).float().mean())
+            say(f"[k2] {label} on the {core} core{' (the rule)' if core == rule else ''}: "
+                f"s={st.stride} hist={st.hist} G={st.band.g} K={st.band.k} n={n}: SNR "
+                f"{s_:.1f} dB, max |err| {max_abs(w_, g_):.3e}, packed cs16 max |dcode| "
+                f"{int(dcode.max())} on {100 * frac:.4f}% of samples; two launches "
+                f"{'bit-identical' if same else 'DIFFER'}")
+            say(f"[k2] {label}: {plan_line(kernels, st.band, st.stride, st.hist, n, CH, core=core)}")
+            if s_ < 100.0 or int(dcode.max()) > 1 or frac > 0.01:
+                fail(f"K2 on the {core} core disagrees with its twin at stride {st.stride}")
+            if not same:
+                fail(f"two launches of K2 on the {core} core differ at stride {st.stride}")
+            res[core] = max_abs(w_, g_)
+            del g_, gp
+        ext = torch.cat([torch.cat([sr, xr], -1), torch.cat([si, xi], -1)])
+        plain, lib, t_rule, t_other = time_turns(
+            [lambda: kernels.banded_apply_ref(*args),
+             lambda: torch.matmul(ext.unfold(-1, st.stride + st.hist, st.stride), st.band.a_r),
+             lambda: kernels.banded_apply(*args, core=cores[0]),
+             lambda: kernels.banded_apply(*args, core=cores[1])])
+        nb_ = n // st.stride
+        # planes and states in, planes out
+        b_ = CH * (n + st.hist) * 8 + CH * nb_ * st.band.g * 8
+        bnd = bound(b_, tf32x3_ops(st.band, CH, nb_), PEAK_TF32_S)
+        say(f"[k2] {label}: planar {cores[0]} core {t_rule:.3f} ms (the rule), {cores[1]} "
+            f"core {t_other:.3f} ms, in the same turns; twin {plain:.3f} ms, one matmul "
+            f"{lib:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if label == "#4 stage 0":
+            if rule != "mma":
+                fail(f"K2 at config #4's stage 0 takes the {rule} core, not the mma.sync core")
+            report["K2mma"] = dict(err=res["mma"], ms=t_rule, plain=plain, lib=lib, bound=bnd)
+        del ext, w_, wp
 
     # ------------------------------------------------------------ 4. slice
     stream = tone_wire(CH, STEPS * BLOCK, gen)
@@ -564,6 +673,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"K1": kernels.banded_apply_dc.launches,
                 "K2": kernels.banded_apply.launches,
+                "K2mma": kernels.banded_apply_mma.launches,
                 "K1pro": kernels.dc_prologue.launches,
                 "K1carry": kernels.dc_carry.launches}
     step_ms = ev[0].elapsed_time(ev[1]) / (STEPS - 2)
@@ -572,9 +682,9 @@ def main() -> int:
     say(f"[slice] {STEPS} eager steps of {CH} x {BLOCK}: launches {launches}, "
         f"{step_ms:.3f} ms/step over steps 3-{STEPS} -> {msps:.1f} Msps in, "
         f"peak device memory {peak / 2 ** 20:.1f} MiB")
-    if launches != {"K1": STEPS, "K2": STEPS, "K1pro": 0, "K1carry": STEPS}:
+    if launches != {"K1": STEPS, "K2": STEPS, "K2mma": 0, "K1pro": 0, "K1carry": STEPS}:
         fail(f"launch counters {launches}, expected {STEPS} each of K1, its carry "
-             f"pass and K2, the DC prologue none")
+             f"pass and K2 (on the wgmma core), the DC prologue none")
     got_wire = torch.cat(outs, dim=-1).cpu().numpy()
     if got_wire.shape != (2, STEPS * 2 * big.n_out) or got_wire.dtype != np.int16:
         fail(f"chain output {got_wire.shape} {got_wire.dtype}")
@@ -1002,29 +1112,34 @@ def main() -> int:
 
     step_ms_of = {"[slice]": step_ms}
     general_launches = run_general("4", STEPS)
-    want_counts = {"K1": 0, "K2": 2 * STEPS, "K3": STEPS, "K4": STEPS,
+    # K2's launches, and of them those on the mma.sync core (kernels.
+    # banded_core: the narrow bands, K < 96)
+    want_counts = {"K1": 0, "K2": 2 * STEPS, "K2mma": 2 * STEPS, "K3": STEPS, "K4": STEPS,
                    "K5": STEPS, "AGC": STEPS, "IQest": STEPS, "K1pro": 0, "K1carry": 0,
                    "OSfft": 0}
     if general_launches != want_counts:
         fail(f"config #4 launch counters {general_launches}, expected {want_counts}")
     s5 = run_general("5", GENERAL_STEPS)
-    if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
+    if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": GENERAL_STEPS, "K3": GENERAL_STEPS,
               "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQest": 0,
               "K1pro": 0, "K1carry": 0, "OSfft": 0}:
         fail(f"config #5 launch counters {s5}")
     s3 = run_general("3", GENERAL_STEPS)
-    if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K3": GENERAL_STEPS,
+    if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K2mma": 3 * GENERAL_STEPS,
+              "K3": GENERAL_STEPS,
               "K4": 0, "K5": 0, "AGC": 0, "IQest": 0, "K1pro": 0, "K1carry": 0,
               "OSfft": 0}:
         fail(f"config #3 launch counters {s3}")
     s4k = run_general("4k32", GENERAL_STEPS)
-    if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
+    if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": 2 * GENERAL_STEPS,
+               "K3": GENERAL_STEPS,
                "K4": GENERAL_STEPS, "K5": GENERAL_STEPS, "AGC": GENERAL_STEPS,
                "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": 0}:
         fail(f"config #4 at nfft 32768 launch counters {s4k}")
     # above K5's sizes: the torch.fft route in its place, once a step
     s4r = run_general("4k128", GENERAL_STEPS)
-    if s4r != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K3": GENERAL_STEPS,
+    if s4r != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": 2 * GENERAL_STEPS,
+               "K3": GENERAL_STEPS,
                "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS,
                "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": GENERAL_STEPS}:
         fail(f"config #4 at nfft 131072 launch counters {s4r}")
@@ -1212,7 +1327,8 @@ def main() -> int:
     from iq_tool_tpu_torch.parallel import ShardedChain, make_mesh
     from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves
     from iq_tool_tpu_torch.profile_steps import graph_kernels_differ, profile
-    wrapper_key = {"banded_apply_dc": "K1", "banded_apply": "K2", "dc_block_apply": "K3",
+    wrapper_key = {"banded_apply_dc": "K1", "banded_apply": "K2", "banded_apply_mma": "K2mma",
+                   "dc_block_apply": "K3",
                    "post_apply": "K4", "osfft_apply": "K5", "rms_gains": "AGC",
                    "iq_estimate": "IQest", "dc_prologue": "K1pro", "dc_carry": "K1carry",
                    "segment_energies": "AGCenergy", "agc_chain": "AGCchain",
@@ -1374,10 +1490,10 @@ def main() -> int:
         fail(f"[shard] 1x1 flagship launches per step {counts}")
     shard_report["1x1 flagship"] = counts
     want_counts = {
-        ("flagship", 1, 4): {"K2": 8, "K3": 4, "K1pro": 4},
-        ("4", 1, 4): {"K2": 8, "K3": 8, "K4": 4, "K5": 4, "IQest": 1, "AGCenergy": 4,
-                      "AGCchain": 1},
-        ("flagship", 2, 2): {"K2": 8, "K3": 4, "K1pro": 4},
+        ("flagship", 1, 4): {"K2": 8, "K2mma": 4, "K3": 4, "K1pro": 4},
+        ("4", 1, 4): {"K2": 8, "K2mma": 8, "K3": 8, "K4": 4, "K5": 4, "IQest": 1,
+                      "AGCenergy": 4, "AGCchain": 1},
+        ("flagship", 2, 2): {"K2": 8, "K2mma": 4, "K3": 4, "K1pro": 4},
         ("flagship", 4, 1): {"K1": 4, "K2": 4, "K1carry": 4}}
     for (name, c_, t_), want_c in want_counts.items():
         sh_ms, ch_ms, sh_wall, ch_wall, counts, dmax, snr, d_twin = run_shard(
@@ -1534,8 +1650,8 @@ def main() -> int:
     # reset at the fifth and, at the eighth, a carry handed in from
     # carry_from_numpy as a resume hands it; then both forms timed in turns
     k1_path = {"banded_apply": 1, "banded_apply_dc": 1, "dc_carry": 1}
-    general_path = {"banded_apply": 2, "dc_block_apply": 1, "post_apply": 1,
-                    "rms_gains": 1, "osfft_apply": 1, "iq_estimate": 1}
+    general_path = {"banded_apply": 2, "banded_apply_mma": 2, "dc_block_apply": 1,
+                    "post_apply": 1, "rms_gains": 1, "osfft_apply": 1, "iq_estimate": 1}
     graph_kernels = {}
     for name, label, path in (("flagship", "flagship", k1_path),
                               ("4", "config #4", general_path),
@@ -1791,6 +1907,7 @@ def main() -> int:
     # ------------------------------------------------------------ result
     src = {"K1": "iq_tool_tpu_torch/csrc/banded.cu",
            "K2": "iq_tool_tpu_torch/csrc/banded.cu",
+           "K2mma": "iq_tool_tpu_torch/csrc/banded_mma.cu",
            "K3": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "K4": "iq_tool_tpu_torch/csrc/post.cu",
            "K5": "iq_tool_tpu_torch/csrc/osfft.cu",
@@ -1803,6 +1920,7 @@ def main() -> int:
            "OSfft": "iq_tool_tpu_torch/ops/filters.py"}
     rep = {"K1": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "K2": "iq_tool_tpu/ops/pallas_kernels.py:492",
+           "K2mma": "iq_tool_tpu/ops/pallas_kernels.py:492",
            "K3": "iq_tool_tpu/ops/pallas_kernels.py:1121",
            "K4": "iq_tool_tpu/ops/pallas_kernels.py:1506",
            "K5": "iq_tool_tpu/ops/pallas_kernels.py:1324",
@@ -1815,13 +1933,14 @@ def main() -> int:
            # no TPU kernel: the reference's XLA overlap-save, where its
            # Pallas kernel declines the size
            "OSfft": "iq_tool_tpu/ops/filters.py:265"}
-    # K1/K1carry/K2 launches from the flagship slice, the rest from config
-    # #4's run, K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
+    # K1/K1carry/K2 launches from the flagship slice (K2 there on the wgmma
+    # core), the rest from config #4's run (K2mma: its K2 on the mma.sync core), K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
     # config #3's, the DC prologue from the 1x4 flagship's sharded run, all
     # host launches of eager steps, the torch.fft route's from the [full128k]
     # run; and each phase's launches per step, the graphs' as their
     # captured kernels times their replays
-    counts = {**general_launches, **launches, "K5@32768": s4k["K5"], "K3@cu8": s3["K3"],
+    counts = {**general_launches, **launches, "K2mma": general_launches["K2mma"],
+              "K5@32768": s4k["K5"], "K3@cu8": s3["K3"],
               "OSfft": s4r["OSfft"],
               **{k: int(shard_report["1x4 config #4"][k] * SHARD_STEPS)
                  for k in ("AGCenergy", "AGCchain")},

@@ -28,7 +28,7 @@
 // What bounds it on the card: bytes.  Per sample it reads one packed
 // wire element (4 B for 16-bit wires, 2 B for 8-bit) or two float32
 // planes (8 B) and writes two float32 planes (8 B); the carry pass writes
-// ~0.8 % of that (33 floats a group of 16 s samples).
+// ~0.4 % of that (33 floats a group of 32 s samples).
 //
 // The TPU kernels carry the DC state from one time tile to the next in
 // scratch memory, which relies on the TPU walking tiles in order.  Here
@@ -140,7 +140,7 @@ struct DcArgs {
   unsigned seq;   // this launch's sequence number, never 0
   int vec;        // rows 16-byte aligned and n % 8 == 0: vector loads/stores
   // the carry pass only: the fused banded kernel's window groups, each bw
-  // = 16 s samples wide, `groups` a channel
+  // = 32 s samples wide (ops/kernels.py BAND_WIN), `groups` a channel
   int bw;
   int groups;
   double* bound;  // (C, groups, 4) [yr, yi, xr, xi] before each group
@@ -662,7 +662,7 @@ extern "C" int iq_dc_prologue(const void* wire, int kind, float norm,
 
 // K1's carry pass: the prologue's recurrence over the packed wire, writing
 // no planes.  For the fused banded kernel's window groups (group g starts
-// at sample g * bw, bw = 16 s; groups = ceil((n / s) / 16)) it writes the
+// at sample g * bw, bw = 32 s; groups = ceil((n / s) / 32)) it writes the
 // state just before each group (bound, float64 [yr, yi, xr, xi]; group 0's
 // is dc_in's) and the `hist` processed samples before it (halo; entries
 // before the block are zeroed), and, as the prologue, the block's last

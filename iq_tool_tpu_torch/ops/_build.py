@@ -22,7 +22,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "iq_tool_tpu_torch"
-_SOURCES = ("banded.cu", "banded_dc.cu", "post.cu", "osfft.cu", "iq_est.cu")
+_SOURCES = ("banded.cu", "banded_mma.cu", "banded_dc.cu", "post.cu", "osfft.cu",
+            "iq_est.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +39,11 @@ _SIGNATURES = {
     "iq_banded_apply": [_P, _P, _P, _I, _F, _F, _P, _U, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _F,
                         _F, _P],
+    "iq_banded_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "iq_banded_mma_apply": [_P, _P, _P, _I, _F, _F, _P, _U, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _F,
+                            _F, _P],
+    "iq_banded_mma_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     "iq_dc_scratch_bytes": [_I, _I],
     "iq_dc_geometry": [_P],
     "iq_dc_prologue": [_P, _I, _F, _F, _P, ctypes.c_double, _P, _U, _I, _I, _I,

@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels of the chain and their plain PyTorch twins
 (the port of ``iq_tool_tpu.ops.pallas_kernels``).
 
-* K2 ``banded_apply`` (``csrc/banded.cu``): one resampler stage, the
-  strided-window banded map, with optional packed-wire + NCO prologue and
-  quantize-and-pack epilogue.
+* K2 ``banded_apply`` (``csrc/banded.cu``, the wgmma core; over a band
+  of fewer than 96 taps a column ``csrc/banded_mma.cu``, the mma.sync
+  core: ``banded_core``): one resampler stage, the strided-window banded
+  map, with optional packed-wire + NCO prologue and quantize-and-pack
+  epilogue.
 * K1 ``banded_apply_dc``: stage 0 with the wire decode, DC block and NCO
   mix in front, as two launches that write no processed planes: the DC
   kernel's carry pass ``dc_carry`` (``csrc/banded_dc.cu``: each window
@@ -72,27 +74,78 @@ def pack_wire_ref(yr: torch.Tensor, yi: torch.Tensor, fmt_name: str) -> torch.Te
     return (packed - ((packed >> (2 * bits - 1)) << (2 * bits))).to(dt)
 
 
-TILE_COLS = 16     # output columns of one column tile: two mma n-blocks
+TILE_COLS = 32     # output columns of one column tile: the wgmma products' N
+BAND_STEP = 8      # span rows of one product step: the products' K
+FRAG_COLS = 16     # the mma.sync core's column tile: two n-blocks of 8
+
+
+def tf32_split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """x = hi + lo in float32, as csrc/banded.cu split() cuts its
+    operands: hi is x rounded to TF32 (half a TF32 ulp added to the bit
+    pattern, the low 13 bits cleared: to nearest, ties away from zero),
+    lo = x - hi, exact."""
+    x = np.ascontiguousarray(x, np.float32)
+    bits = x.view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    return hi, (x - hi).astype(np.float32)
+
+
+def _tile_blocks(mats, lo, hi, cols):
+    """Cut each (L, G) matrix of ``mats`` into tiles of ``cols`` columns
+    over the rows that hold their non-zeros (band rows lo..hi a column):
+    (first row of each tile, even; span, the widest tile's rounded up to
+    8; [(T, span, cols) dense blocks, zeros outside the band and past the
+    edges])."""
+    rows, g = mats[0].shape
+    n_tiles = -(-g // cols)
+    pad = n_tiles * cols - g
+    lo_t = np.concatenate([lo, np.full(pad, rows)]).reshape(n_tiles, -1).min(axis=1)
+    hi_t = np.concatenate([hi, np.full(pad, -1)]).reshape(n_tiles, -1).max(axis=1)
+    first = np.where(hi_t >= lo_t, lo_t, 0) & ~1
+    span = BAND_STEP * -(-max(1, int((hi_t - first + 1).max())) // BAND_STEP)
+    take = first[:, None] + np.arange(span)[None, :]               # (T, span)
+    col = np.arange(n_tiles * cols).reshape(n_tiles, 1, cols)
+    blocks = []
+    for a in mats:
+        dense = np.zeros((rows + span, n_tiles * cols), np.float32)
+        dense[:rows, :g] = a
+        blocks.append(dense[take[:, :, None], col])
+    return first.astype(np.int32), span, blocks
 
 
 @dataclasses.dataclass(frozen=True)
 class Band:
     """A banded matrix A (L, G) ready for both paths: the dense float32
-    tensors for the twin, and for the kernel A cut into tiles of 16
-    columns.  Tile t covers the rows [tile_first[t], tile_first[t] +
-    span) that hold its columns' non-zeros (tile_first even, span the
-    widest tile's rounded up to 8), as a dense (span, 16) block B_t of A
-    (zeros outside the band and past A's edges), stored in the order the
-    tensor cores' B fragments take with k paired: taps[t, kc, lane] =
+    tensors for the twin, and for the kernels A cut into column tiles
+    over the rows that hold their columns' non-zeros, once for each
+    product core (``banded_core`` picks one by geometry).
+
+    For the wgmma core (csrc/banded.cu), tiles of TILE_COLS = 32
+    columns: tile t covers the rows [tile_first[t], tile_first[t] +
+    span) (tile_first even, span the widest tile's rounded up to 8) as a
+    dense (span, 32) block B_t of A (zeros outside the band and past A's
+    edges), split once into its TF32 hi and lo parts (``tf32_split``) and
+    stored as the kernel's tensor-core operand reads it from shared
+    memory: taps[t, h, j] (h = 0 hi, 1 lo) is the 8-row step j, 256
+    floats in core-matrix order with the k pair permutation, B_t[8 j + 2
+    kq + kh, 8 ng + nr] at float ng * 64 + kh * 32 + nr * 4 + kq.
+
+    For the mma.sync core (csrc/banded_mma.cu), tiles of FRAG_COLS = 16
+    columns cut the same way (frag_first, frag_span), unsplit, in the
+    order its B fragments take with k paired: frag[t, kc, lane] =
     (B_t[r, c], B_t[r + 1, c], B_t[r, c + 8], B_t[r + 1, c + 8]) for
-    r = 8 kc + 2 (lane % 4), c = lane // 4 (csrc/banded.cu)."""
+    r = 8 kc + 2 (lane % 4), c = lane // 4."""
     a_r: torch.Tensor
     a_i: torch.Tensor | None
     tile_first: torch.Tensor     # (n_tiles,) int32
-    taps_r: torch.Tensor         # (n_tiles, span // 8, 32, 4) float32
+    taps_r: torch.Tensor         # (n_tiles, 2, span // 8, 256) float32
     taps_i: torch.Tensor | None
     k: int                       # the longest column band (non-zero taps)
     span: int
+    frag_first: torch.Tensor     # (frag_tiles,) int32
+    frag_r: torch.Tensor         # (frag_tiles, frag_span // 8, 32, 4) float32
+    frag_i: torch.Tensor | None
+    frag_span: int
 
     @staticmethod
     def build(a_r: np.ndarray, a_i: np.ndarray | None, device) -> "Band":
@@ -104,29 +157,35 @@ class Band:
         lo = np.where(has, nz.argmax(axis=0), rows)
         hi = np.where(has, rows - 1 - nz[::-1].argmax(axis=0), -1)
         k = max(1, int((hi - lo + 1).max()))
-        n_tiles = -(-g // TILE_COLS)
-        pad = n_tiles * TILE_COLS - g
-        lo_t = np.concatenate([lo, np.full(pad, rows)]).reshape(n_tiles, -1).min(axis=1)
-        hi_t = np.concatenate([hi, np.full(pad, -1)]).reshape(n_tiles, -1).max(axis=1)
-        first = np.where(hi_t >= lo_t, lo_t, 0) & ~1
-        span = 8 * -(-max(1, int((hi_t - first + 1).max())) // 8)
-        take = first[:, None] + np.arange(span)[None, :]               # (T, span)
-        cols = np.arange(n_tiles * TILE_COLS).reshape(n_tiles, 1, TILE_COLS)
+        mats = [a_r] if a_i is None else [a_r, a_i]
+
+        first, span, blocks = _tile_blocks(mats, lo, hi, TILE_COLS)
+        steps = span // BAND_STEP
+
+        def operand(b):
+            # (T, step, kq, kh, ng, nr) -> (T, step, ng, kh, nr, kq)
+            parts = [p.reshape(-1, steps, 4, 2, TILE_COLS // 8, 8)
+                     .transpose(0, 1, 4, 3, 5, 2).reshape(-1, steps, 8 * TILE_COLS)
+                     for p in tf32_split(b)]
+            return np.stack(parts, axis=1)
+
+        f_first, f_span, f_blocks = _tile_blocks(mats, lo, hi, FRAG_COLS)
         lane = np.arange(32)
         r, c = 2 * (lane % 4), lane // 4
 
-        def tiles(a):
-            dense = np.zeros((rows + span, n_tiles * TILE_COLS), np.float32)
-            dense[:rows, :g] = a
-            b = dense[take[:, :, None], cols].reshape(n_tiles, span // 8, 8, TILE_COLS)
+        def fragments(b):
+            b = b.reshape(b.shape[0], f_span // BAND_STEP, BAND_STEP, FRAG_COLS)
             return np.stack([b[:, :, r, c], b[:, :, r + 1, c],
                              b[:, :, r, c + 8], b[:, :, r + 1, c + 8]], axis=-1)
 
         dev = torch.device(device)
         t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        imag = lambda f, blk: None if a_i is None else t(f(blk[1]))
         return Band(a_r=t(a_r), a_i=None if a_i is None else t(a_i),
-                    tile_first=t(first.astype(np.int32)), taps_r=t(tiles(a_r)),
-                    taps_i=None if a_i is None else t(tiles(a_i)), k=k, span=span)
+                    tile_first=t(first), taps_r=t(operand(blocks[0])),
+                    taps_i=imag(operand, blocks), k=k, span=span,
+                    frag_first=t(f_first), frag_r=t(fragments(f_blocks[0])),
+                    frag_i=imag(fragments, f_blocks), frag_span=f_span)
 
     @property
     def rows(self) -> int:
@@ -139,6 +198,29 @@ class Band:
     @property
     def n_tiles(self) -> int:
         return self.tile_first.shape[0]
+
+    @property
+    def frag_tiles(self) -> int:
+        return self.frag_first.shape[0]
+
+
+# K2 over a band of fewer non-zero taps a column takes the mma.sync core
+WIDE_BAND = 96
+
+
+def banded_core(band: Band, dc: bool = False) -> str:
+    """The product core a banded launch takes, a static rule by geometry:
+    "wgmma" (csrc/banded.cu) for K1's banded launch (``dc``) and for K2
+    over a wide band (band.k >= WIDE_BAND: the flagship's stage 1 with
+    its lowpass composed in, as configs #2 and #5 have it, and FIR bands
+    of 96 taps or more, whose longest, 2048 taps, held 98 dB from the
+    twin summed in one accumulator, as the mma.sync core sums, and 100+
+    in the wgmma core's two); "mma" (csrc/banded_mma.cu, the sm_80
+    mma.sync core) for K2 over a narrower band (stage 0 of every
+    configuration, stage 1 without the lowpass, the NRSC5 stages, FIRs
+    of fewer taps), where on an H100 the wgmma core measured 10-22 %
+    slower (PERF.md)."""
+    return "wgmma" if dc or band.k >= WIDE_BAND else "mma"
 
 
 def _band(a_r, a_i, device) -> Band:
@@ -221,9 +303,10 @@ def banded_apply_ref(state_r, state_i, xr, xi, a_r, a_i, stride: int, hist: int,
 
 def _launch_banded(lib, band: Band, state_r, state_i, xr, xi, wire, kind: int,
                    wire_norm, wire_gain, nco_dtheta, nco_phase, stride, hist,
-                   pack_fmt, dc=None):
-    """K2's launch, or with ``dc`` = (pole, bound, halo_r, halo_i), the
-    carry pass's outputs, K1's banded kernel with the DC-wire loader."""
+                   pack_fmt, dc=None, core="wgmma"):
+    """K2's launch on ``core``, or with ``dc`` = (pole, bound, halo_r,
+    halo_i), the carry pass's outputs, K1's banded kernel with the
+    DC-wire loader (the wgmma core)."""
     x0 = wire if wire is not None else xr
     ch, n = x0.shape
     nb = n // stride
@@ -244,10 +327,13 @@ def _launch_banded(lib, band: Band, state_r, state_i, xr, xi, wire, kind: int,
         packed = None
         out_r = torch.empty((ch, out_len), dtype=torch.float32, device=dev)
         out_i = torch.empty_like(out_r)
-    geo = (_ptr(state_r), _ptr(state_i), _ptr(band.taps_r), _ptr(band.taps_i),
-           _ptr(band.tile_first), band.n_tiles, band.span, ch, n, stride, hist,
-           band.g, _ptr(out_r), _ptr(out_i), _ptr(packed), *_pack_args(pack_fmt),
-           _stream())
+    if core == "mma":
+        tiles = (band.frag_r, band.frag_i, band.frag_first, band.frag_tiles, band.frag_span)
+    else:
+        tiles = (band.taps_r, band.taps_i, band.tile_first, band.n_tiles, band.span)
+    geo = (_ptr(state_r), _ptr(state_i), *map(_ptr, tiles[:3]), *tiles[3:], ch, n,
+           stride, hist, band.g, _ptr(out_r), _ptr(out_i), _ptr(packed),
+           *_pack_args(pack_fmt), _stream())
     norm, gain = convert._f32(wire_norm), convert._f32(wire_gain)
     dth = int(nco_dtheta) & 0xFFFFFFFF
     with torch.cuda.device(dev):
@@ -257,16 +343,44 @@ def _launch_banded(lib, band: Band, state_r, state_i, xr, xi, wire, kind: int,
                 _ptr(wire), kind, norm, gain, _ptr(nco_phase), dth, float(pole),
                 _ptr(bound), _ptr(halo_r), _ptr(halo_i), bound.shape[1], *geo)
         else:
-            rc = lib.iq_banded_apply(_ptr(xr), _ptr(xi), _ptr(wire), kind, norm, gain,
-                                     _ptr(nco_phase), dth, *geo)
+            launch = lib.iq_banded_mma_apply if core == "mma" else lib.iq_banded_apply
+            rc = launch(_ptr(xr), _ptr(xi), _ptr(wire), kind, norm, gain,
+                        _ptr(nco_phase), dth, *geo)
     _check(rc, "banded kernel")
     return packed if pack_fmt else (out_r, out_i)
+
+
+def banded_plan(band: Band, stride: int, hist: int, n: int, channels: int,
+                dc_kind: str | None = None, core: str | None = None) -> dict:
+    """The launch geometry of K2 (with ``dc_kind``, of K1's banded launch
+    over that wire) at these shapes on the current card, from the
+    launchers' own rules: the core (``banded_core``, or ``core``), grid,
+    threads and shared bytes a CTA, CTAs an SM, window groups a channel,
+    and on the wgmma core steps a ring slot, slots a ring and staged
+    groups (2: the next one's copy in flight).  Launches nothing."""
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    core = core or banded_core(band, dc_kind is not None)
+    cplx = int(band.taps_i is not None)
+    if core == "mma":
+        out = (ctypes.c_int * 5)()
+        rc = lib.iq_banded_mma_plan(cplx, band.frag_tiles, band.frag_span, channels, n,
+                                    stride, hist, band.g, out)
+        keys = ("grid", "threads", "smem", "ctas_per_sm", "groups")
+    else:
+        out = (ctypes.c_int * 8)()
+        rc = lib.iq_banded_plan(cplx, int(dc_kind is not None),
+                                _WIRE_KINDS[dc_kind] if dc_kind else _PLANAR, band.n_tiles,
+                                band.span, channels, n, stride, hist, band.g, out)
+        keys = ("grid", "threads", "smem", "cs", "ring", "ctas_per_sm", "groups", "nbuf")
+    _check(rc, "banded plan")
+    return {"core": core, **dict(zip(keys, out))}
 
 
 def banded_apply(state_r, state_i, xr, xi, a_r, a_i, stride: int, hist: int,
                  pack_fmt=None, wire_i32=None, wire_norm: float = 0.0,
                  wire_gain: float = 1.0, nco_dtheta: int = 0, nco_phase=None,
-                 wire_kind: str = "cs16"):
+                 wire_kind: str = "cs16", core: str | None = None):
     """K2: strided-window banded map over one block.
 
     state_*: (C, hist) carried history (processed, pre-rotated);
@@ -275,7 +389,10 @@ def banded_apply(state_r, state_i, xr, xi, a_r, a_i, stride: int, hist: int,
     ``nco_dtheta``, NCO-mixed at each sample's index after ``nco_phase``
     ((C,) int64 uint32 values); a_r/a_i: (stride + hist, G) numpy
     matrix, or a_r a prepared Band.  Returns (yr, yi) (C, (n//stride)*G)
-    float32, or with ``pack_fmt`` one packed-wire tensor."""
+    float32, or with ``pack_fmt`` one packed-wire tensor.  On CUDA the
+    product core is ``banded_core``'s, or ``core`` ("wgmma" | "mma");
+    ``launches`` counts every launch, ``banded_apply_mma.launches`` those
+    on the mma.sync core."""
     _check_args(wire_i32, wire_norm, nco_dtheta, nco_phase, pack_fmt)
     x0 = wire_i32 if wire_i32 is not None else xr
     if x0.device.type == "cpu":
@@ -286,14 +403,29 @@ def banded_apply(state_r, state_i, xr, xi, a_r, a_i, stride: int, hist: int,
     lib = _build.library()
     band = _band(a_r, a_i, x0.device)
     kind = _WIRE_KINDS[wire_kind] if wire_i32 is not None else _PLANAR
+    core = core or banded_core(band)
+    if core not in ("wgmma", "mma"):
+        raise ValueError(f"unknown product core {core!r}")
     out = _launch_banded(lib, band, state_r, state_i, xr, xi, wire_i32, kind,
                          wire_norm, wire_gain, nco_dtheta if wire_i32 is not None else 0,
-                         nco_phase, stride, hist, pack_fmt)
+                         nco_phase, stride, hist, pack_fmt, core=core)
     banded_apply.launches += 1
+    if core == "mma":
+        banded_apply_mma.launches += 1
     return out
 
 
 banded_apply.launches = 0
+
+
+def banded_apply_mma(*args, **kwargs):
+    """K2 on the mma.sync core whatever the rule says: banded_apply(...,
+    core="mma").  Its ``launches`` counts K2's launches on that core,
+    through either name."""
+    return banded_apply(*args, **kwargs, core="mma")
+
+
+banded_apply_mma.launches = 0
 
 
 # ------------------------------ K1 --------------------------------------------
@@ -441,10 +573,10 @@ def dc_prologue(wire_i32, dc_state, dc_alpha: float, hist: int,
 dc_prologue.launches = 0
 
 
-# csrc/banded.cu's window group: a CTA stages and multiplies 16 windows of
-# one channel at a time (the mma's M), so K1's carry pass cuts the block
-# at every 16 strides
-BAND_WIN = 16
+# csrc/banded.cu's window group: a CTA stages and multiplies 32 windows of
+# one channel at a time (the products' M: 32 windows x 2 planes), so K1's
+# carry pass cuts the block at every 32 strides
+BAND_WIN = 32
 
 
 def dc_groups(n: int, stride: int) -> int:
@@ -1180,7 +1312,7 @@ def iq_estimate(xr, xi, factors, counter, interval: int = 0, advance: int = 0,
 iq_estimate.launches = 0
 
 
-_COUNTED = [banded_apply, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
+_COUNTED = [banded_apply, banded_apply_mma, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
             post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
             iq_estimate]
 

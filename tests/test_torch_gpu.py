@@ -77,6 +77,18 @@ def _random_wire(rng, fmt, ch, n):
     return convert.wire_pack(_cuda(raw.astype(dt)), fmt)
 
 
+CORES = ["wgmma", "mma"]     # csrc/banded.cu, csrc/banded_mma.cu
+
+
+def _counts():
+    return kernels.banded_apply.launches, kernels.banded_apply_mma.launches
+
+
+def _counted(before, core, n=1):
+    """K2's counters moved by n launches on ``core``."""
+    return _counts() == (before[0] + n, before[1] + (n if core == "mma" else 0))
+
+
 def _packed_codes_close(want, got, fmt):
     bits = 16 if want.dtype == torch.int32 else 8
     mask = (1 << bits) - 1
@@ -91,7 +103,8 @@ def _packed_codes_close(want, got, fmt):
     ("nrsc5", 0, 400),      # NRSC5 2.4 -> 1.488375 Msps at the CLI block
     ("nrsc5", 1, 144),
 ])
-def test_k2_engages_at_any_stride(rng, which):
+@pytest.mark.parametrize("core", CORES)
+def test_k2_engages_at_any_stride(rng, which, core):
     _need_card()
     name, idx, stride = which
     st = _stage(name, 16384, idx)
@@ -99,17 +112,18 @@ def test_k2_engages_at_any_stride(rng, which):
     ch, n = 4, 40 * st.stride
     xr, xi = _planes(rng, ch, n)
     sr, si = _planes(rng, ch, st.hist)
-    before = kernels.banded_apply.launches
-    got = kernels.banded_apply(sr, si, xr, xi, st.band, None, st.stride, st.hist)
+    before = _counts()
+    got = kernels.banded_apply(sr, si, xr, xi, st.band, None, st.stride, st.hist, core=core)
     torch.cuda.synchronize()
-    assert kernels.banded_apply.launches == before + 1
+    assert _counted(before, core)
     want = kernels.banded_apply_ref(sr, si, xr, xi, st.band, None, st.stride, st.hist)
     for w, g in zip(want, got):
         assert _snr(w, g) >= 100.0
 
 
 @pytest.mark.parametrize("fmt", ["cs16", "sc16q11", "cu16", "cu8", "cs8"])
-def test_k2_wire_nco_packed_formats(rng, fmt):
+@pytest.mark.parametrize("core", CORES)
+def test_k2_wire_nco_packed_formats(rng, fmt, core):
     _need_card()
     st = _stage("flagship", 131072, 0)
     ch, n = 3, 24 * st.stride
@@ -118,12 +132,13 @@ def test_k2_wire_nco_packed_formats(rng, fmt):
     ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64))
     args = (sr, si, None, None, st.band, None, st.stride, st.hist)
     kw = dict(wire_i32=wire, wire_norm=get_format(fmt).normalizer,
-              wire_gain=0.7, nco_dtheta=DTHETA, nco_phase=ph, wire_kind=kind)
+              wire_gain=0.7, nco_dtheta=DTHETA, nco_phase=ph, wire_kind=kind, core=core)
     got = kernels.banded_apply(*args, pack_fmt=fmt, **kw)
+    kw.pop("core")
     want = kernels.banded_apply_ref(*args, pack_fmt=fmt, **kw)
     assert got.dtype == want.dtype
     assert _packed_codes_close(want, got, fmt)
-    got_p = kernels.banded_apply(*args, **kw)
+    got_p = kernels.banded_apply(*args, **kw, core=core)
     want_p = kernels.banded_apply_ref(*args, **kw)
     for w, g in zip(want_p, got_p):
         assert _snr(w, g) >= 100.0
@@ -131,10 +146,13 @@ def test_k2_wire_nco_packed_formats(rng, fmt):
 
 @pytest.mark.parametrize("case", [(1155, False), (1155, True), (3 * 1009, False)],
                          ids=["stride-231", "stride-231-complex", "stride-3"])
-def test_k2_odd_strides(rng, case):
+@pytest.mark.parametrize("core", CORES)
+def test_k2_odd_strides(rng, case, core):
     """A FIR filter's Toeplitz band at the stride its block length gives:
     odd (the kernel's single-word loads, pairs straddling staged rows)
-    and below 8 (spans crossing several rows per chunk)."""
+    and below 8 (spans crossing several rows per chunk); the filter's own
+    call takes the rule's core (mma.sync: 75 taps), and each core is held
+    against the twin on the same inputs."""
     _need_card()
     from iq_tool_tpu_torch.ops.filters import StreamingFilter
     n, cplx = case
@@ -144,19 +162,24 @@ def test_k2_odd_strides(rng, case):
     f = StreamingFilter(taps, "fir")
     xr, xi = _planes(rng, 2, n)
     sr, si = _planes(rng, 2, f.block)
-    before = kernels.banded_apply.launches
+    before = _counts()
     got = f.apply_planar(xr, xi, sr, si)
     torch.cuda.synchronize()
-    assert kernels.banded_apply.launches == before + 1
+    assert _counted(before, "mma")
     stride = n // 5 if n == 1155 else 3
     band = f._band(stride, "cuda")
     assert (band.taps_i is not None) == cplx
-    want = kernels.banded_apply_ref(sr, si, xr, xi, band, None, stride, 74)
+    st_r, st_i = sr[:, -74:].contiguous(), si[:, -74:].contiguous()
+    want = kernels.banded_apply_ref(st_r, st_i, xr, xi, band, None, stride, 74)
     for w, g in zip(want, got[:2]):
+        assert _snr(w, g) >= 100.0
+    forced = kernels.banded_apply(st_r, st_i, xr, xi, band, None, stride, 74, core=core)
+    for w, g in zip(want, forced):
         assert _snr(w, g) >= 100.0
 
 
-def test_k2_complex_taps(rng):
+@pytest.mark.parametrize("core", CORES)
+def test_k2_complex_taps(rng, core):
     _need_card()
     st = Chain(_chain_cfg("flagship", 16384), device="cpu").resampler.stages[1]
     st.compose_output_fir(np.exp(2j * np.pi * 0.1 * np.arange(9)) / 9)
@@ -165,24 +188,106 @@ def test_k2_complex_taps(rng):
     ch, n = 2, 30 * st.stride
     xr, xi = _planes(rng, ch, n)
     sr, si = _planes(rng, ch, st.hist)
-    got = kernels.banded_apply(sr, si, xr, xi, st.band, None, st.stride, st.hist)
+    before = _counts()
+    got = kernels.banded_apply(sr, si, xr, xi, st.band, None, st.stride, st.hist, core=core)
+    torch.cuda.synchronize()
+    assert _counted(before, core)
     want = kernels.banded_apply_ref(sr, si, xr, xi, st.band, None, st.stride, st.hist)
     for w, g in zip(want, got):
         assert _snr(w, g) >= 100.0
 
 
+def test_k2_fir_2048_taps(rng):
+    """The longest FIR that runs banded (2048 taps, past the overlap-save
+    cut): its Toeplitz tile spans 2064 rows, more than the taps' shared
+    memory holds, so the producers stream each tile through the ring;
+    planar and packed against the twin."""
+    _need_card()
+    from iq_tool_tpu_torch.ops.filters import StreamingFilter
+    taps = (np.hanning(2050)[1:-1] / 1024).astype(np.complex64)
+    f = StreamingFilter(taps, "fft")
+    n = 40 * 256       # stride 256 (BANDED_STRIDE_CAP): 1.25 window groups
+    xr, xi = _planes(rng, 3, n)
+    sr, si = _planes(rng, 3, f.block)
+    before = _counts()
+    got = f.apply_planar(xr, xi, sr, si)
+    torch.cuda.synchronize()
+    assert _counted(before, "wgmma")
+    band = f._band(256, "cuda")
+    assert band.span >= 2048 and band.taps_i is None
+    hist = 2047
+    st_r, st_i = sr[:, -hist:].contiguous(), si[:, -hist:].contiguous()
+    want = kernels.banded_apply_ref(st_r, st_i, xr, xi, band, None, 256, hist)
+    for w, g in zip(want, got[:2]):
+        assert _snr(w, g) >= 100.0
+    got_p = kernels.banded_apply(st_r, st_i, xr, xi, band, None, 256, hist, pack_fmt="cs16")
+    want_p = kernels.banded_apply_ref(st_r, st_i, xr, xi, band, None, 256, hist,
+                                      pack_fmt="cs16")
+    assert _packed_codes_close(want_p, got_p, "cs16")
+
+
+@pytest.mark.parametrize("core", CORES)
+def test_k2_is_deterministic(rng, core):
+    """Two launches of K2 on the same input give the same bits, planar
+    and packed, at the flagship's stage 1 (the wgmma core: two CTAs an
+    SM) and stage 0 (one), on either core."""
+    _need_card()
+    for idx in (1, 0):
+        st = _stage("flagship", 131072, idx)
+        ch, n = 16, 65536 + 3 * st.stride
+        xr, xi = _planes(rng, ch, n)
+        sr, si = _planes(rng, ch, st.hist)
+        args = (sr, si, xr, xi, st.band, None, st.stride, st.hist)
+        a = kernels.banded_apply(*args, core=core)
+        b = kernels.banded_apply(*args, core=core)
+        pa = kernels.banded_apply(*args, pack_fmt="cs16", core=core)
+        pb = kernels.banded_apply(*args, pack_fmt="cs16", core=core)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b)) and torch.equal(pa, pb)
+
+
+@pytest.mark.parametrize("which", [("flagship", 1, "wgmma"), ("flagship", 0, "mma"),
+                                   ("nrsc5", 1, "mma"), ("narrow", 1, "mma")],
+                         ids=["flagship-1", "flagship-0", "nrsc5-1", "narrow-1"])
+def test_k2_core_rule_on_card(rng, which):
+    """Both sides of the rule that picks K2's core (kernels.banded_core:
+    the wgmma core over 96 or more taps a column, the mma.sync core
+    below): a call without ``core`` takes the rule's core, counted as
+    such, and gives the bits that core gives when asked for."""
+    _need_card()
+    name, idx, core = which
+    if name == "narrow":      # stage 1 without the lowpass (configs #1, #3, #4)
+        cfg = ChainConfig(input_format="cs16", output_format="cs16", input_rate=2_048_000.0,
+                          target_rate=1_488_375.0, channels=1, target_block=131072)
+        st = Chain(cfg, device="cpu").resampler.stages[idx]
+        st.bind("cuda")
+    else:
+        st = _stage(name, 131072, idx)
+    assert kernels.banded_core(st.band) == core
+    ch, n = 4, 40 * st.stride + 7
+    xr, xi = _planes(rng, ch, n)
+    sr, si = _planes(rng, ch, st.hist)
+    args = (sr, si, xr, xi, st.band, None, st.stride, st.hist)
+    before = _counts()
+    got = kernels.banded_apply(*args, pack_fmt="cs16")
+    torch.cuda.synchronize()
+    assert _counted(before, core)
+    assert torch.equal(got, kernels.banded_apply(*args, pack_fmt="cs16", core=core))
+    assert _packed_codes_close(kernels.banded_apply_ref(*args, pack_fmt="cs16"), got, "cs16")
+
+
 @pytest.mark.parametrize("case", [
     ("flagship", "cs16", DTHETA, 3 * 4096 + 7 * 512),
     ("nrsc5", "cu8", 0, 3 * 4096 + 7 * 400),
-    ("flagship", "cs16", DTHETA, 40 * 512 + 77),   # 2.5 window groups, ragged
+    ("flagship", "cs16", DTHETA, 40 * 512 + 77),   # 1.25 window groups, ragged
     ("nrsc5", "cu8", DTHETA, 37 * 400 + 123),      # boundaries inside DC tiles
 ], ids=["flagship", "nrsc5", "flagship-ragged", "nrsc5-ragged"])
 def test_k1_matches_twin(rng, case):
     """K1 on the card, the carry pass then the banded kernel with the
     DC-wire loader, over 3 carried blocks (each path carrying its own
     stage history and DC state) against the twin at >= 100 dB; n is not
-    a multiple of the 16-window group and, at nrsc5's stride 400, the
-    group boundaries (every 6400 samples) fall inside the DC kernel's
+    a multiple of the 32-window group and, at nrsc5's stride 400, the
+    group boundaries (every 12800 samples) fall inside the DC kernel's
     4096-sample tiles."""
     _need_card()
     name, fmt, dth, n = case
@@ -231,18 +336,18 @@ def test_k1_is_deterministic(rng):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("case", [("cs16", DTHETA, 512, 262144 + 77),
-                                  ("cu8", 0, 400, 37 * 400 + 123),
-                                  ("cs16", DTHETA, 1, 200)],
+@pytest.mark.parametrize("case", [("cs16", DTHETA, 512, 262144 + 77, 31),
+                                  ("cu8", 0, 400, 37 * 400 + 123, 31),
+                                  ("cs16", DTHETA, 1, 200, 70)],
                          ids=["flagship", "nrsc5", "stride-1"])
 def test_dc_carry_matches_twin(rng, case):
     """K1's carry pass alone against its twin: the float64 states before
     each window group within 1e-9 of the states' scale, the halos, tail
-    and new DC state at >= 100 dB; at stride 1 the halos (31 samples)
-    are wider than a group (16) and overlap."""
+    and new DC state at >= 100 dB; at stride 1 the halos (70 samples)
+    are wider than a group (32) and overlap."""
     _need_card()
-    fmt, dth, stride, n = case
-    ch, hist = 3, 31
+    fmt, dth, stride, n, hist = case
+    ch = 3
     wire, kind = _dc_wire(rng, fmt, ch, n)
     dc = _cuda((rng.standard_normal((ch, 4)) * 0.05).astype(np.float32))
     ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64)) if dth else None
@@ -922,8 +1027,10 @@ def test_graph_replays_equal_eager(rng, name, fold):
     if name == "flagship":
         assert g.kernels == {"banded_apply": 1, "banded_apply_dc": 1, "dc_carry": 1}
     elif name == "general":
-        assert g.kernels == {"banded_apply": 2, "dc_block_apply": 1, "post_apply": 1,
-                             "rms_gains": 1, "osfft_apply": 1, "iq_estimate": 1}
+        # both K2 stages on the mma.sync core (narrow bands)
+        assert g.kernels == {"banded_apply": 2, "banded_apply_mma": 2, "dc_block_apply": 1,
+                             "post_apply": 1, "rms_gains": 1, "osfft_apply": 1,
+                             "iq_estimate": 1}
     elif name == "4k128":
         assert g.kernels["overlap_save_fft"] == 1 and "osfft_apply" not in g.kernels
 

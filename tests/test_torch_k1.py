@@ -21,8 +21,8 @@ sums (rounded once to float32) and of float32 products, so K1's outputs,
 tails and DC state are held to >= 100 dB; against the JAX package (its
 Pallas K1 in interpret mode multiplies in 3-term split bf16, ~88 dB) to
 >= 80 dB, as tests/test_torch_kernels.py holds the twins.  Blocks are
-ragged: n is not a multiple of the 16-window group, and at nrsc5's
-stride 400 the group boundaries (every 6400 samples) fall inside the DC
+ragged: n is not a multiple of the 32-window group, and at nrsc5's
+stride 400 the group boundaries (every 12800 samples) fall inside the DC
 kernel's 4096-sample tiles.  Three blocks are carried.
 """
 
@@ -45,7 +45,7 @@ CH = 4
 DC_ALPHA = 3.0679615757712826e-05        # 10 Hz pole at 2.048 Msps
 DTHETA = 209715200                       # +100 kHz at 2.048 Msps
 BLOCKS = 3
-THREADS = 512                            # csrc/banded.cu's CTA at stage 0
+THREADS = 512                            # csrc/banded.cu K1: four warpgroups
 
 
 def _stage0(name):
@@ -134,7 +134,7 @@ def _carry_writes_emulated(n, bw, groups, hist, per=kernels.DC_PER,
 
 
 @pytest.mark.parametrize("geo", [(40 * 512 + 77, 512, 31), (37 * 400 + 123, 400, 31),
-                                 (200, 1, 31), (6 * 32 + 5, 2, 31), (300, 2, 32),
+                                 (200, 1, 70), (6 * 64 + 5, 2, 63), (300, 2, 64),
                                  (16 * 16 * 3, 16, 0), (70 * 4096 + 9, 512, 31),
                                  (9 * 4096, 16, 0)],
                          ids=["flagship", "nrsc5", "halo-over-groups", "halo-near-group",
@@ -144,8 +144,8 @@ def test_carry_pass_writes_every_entry_once_in_place(geo):
     """Every group state is the sample just before its group, every halo
     and tail entry the sample it stands for (zero before the block): the
     carry pass leaves nothing of its outputs unwritten, also where the
-    halo (31 or 32 samples) is as wide as or wider than a group (16 or
-    32)."""
+    halo (70, 63 or 64 samples) is wider than a group (32), nearly as
+    wide or as wide (64)."""
     n, s, hist = geo
     bw, groups = kernels.BAND_WIN * s, kernels.dc_groups(n, s)
     bound, halo, tail = _carry_writes_emulated(n, bw, groups, hist)
@@ -224,12 +224,14 @@ def _k1_emulated(state_r, state_i, carry, wire, kind, norm, st, dth, phase, thre
 def test_group_scan_is_the_recurrence(rng):
     """The loader's decomposition against the direct recurrence within
     1e-12 of the output's scale, at 512 threads (rows of 17 and 13
-    samples at the strides 512 and 400), 256 (25) and 64 (129), for
-    whole groups and a ragged one."""
+    samples at the strides 512 and 400 over 16-window groups; the
+    kernel's 33 and 25 over its 32-window groups), 256 (25, and a ragged
+    group) and 64 (129), for whole groups and ragged ones."""
     import scipy.signal
     a = 1.0 - DC_ALPHA
     for threads, length in ((512, 16 * 512), (512, 16 * 400), (256, 16 * 400),
-                            (512, 5 * 400 + 3), (64, 16 * 512)):
+                            (512, 5 * 400 + 3), (64, 16 * 512), (512, 32 * 512),
+                            (512, 32 * 400), (256, 9 * 400 + 3)):
         per = -(-length // threads) | 1
         x = rng.standard_normal((2, length)) * 0.3 + 0.05
         xp, yp = rng.standard_normal(2) * 0.05, rng.standard_normal(2) * 0.05
@@ -286,7 +288,7 @@ def test_carry_and_fused_loader_match_k1_twin(rng, case, threads):
                          ids=["flagship-nco", "flagship", "nrsc5"])
 def test_carry_and_fused_loader_match_jax(rng, case):
     """The same composition against the JAX package over 3 carried
-    blocks of 40 strides (2.5 window groups), >= 80 dB: at the flagship
+    blocks of 40 strides (1.25 window groups), >= 80 dB: at the flagship
     stage 0 its Pallas K1 in interpret mode; at nrsc5's stride 400, which
     its K1 does not take, its Pallas K3 (decode and DC block, interpret
     mode) and the plain banded map."""

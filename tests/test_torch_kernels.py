@@ -196,50 +196,90 @@ def _stage_matrix(which):
     return band.a_r.numpy(), None
 
 
-def _dense_from_tiles(band, taps):
-    """Invert the B-fragment layout (16-column tiles, k paired): the
-    (L, G) matrix the tiles hold, checking that nothing lies past A's
-    edges and that the tiles do not overlap."""
+def _tile_blocks(band, taps):
+    """Invert the wgmma core's operand layout: (T, span, 32) hi and lo
+    of each tile's dense block B_t, step j's float ng * 64 + kh * 32 + nr
+    * 4 + kq holding B_t[8 j + 2 kq + kh, 8 ng + nr]."""
+    t = taps.numpy()
+    w = kernels.TILE_COLS
+    n_tiles, parts, steps, width = t.shape
+    assert (parts, width, steps) == (2, 8 * w, band.span // 8)
+    b = t.reshape(n_tiles, 2, steps, w // 8, 2, 8, 4).transpose(0, 1, 2, 6, 4, 3, 5)
+    hi, lo = b.reshape(n_tiles, 2, band.span, w).transpose(1, 0, 2, 3)
+    return hi, lo
+
+
+def _frag_blocks(band, taps):
+    """Invert the mma.sync core's B-fragment layout (16-column tiles, k
+    paired): (T, frag_span, 16) dense blocks."""
     t = taps.numpy()
     n_tiles, n_chunks = t.shape[:2]
+    assert t.shape[2:] == (32, 4) and n_chunks == band.frag_span // 8
     lane = np.arange(32)
     r, c = 2 * (lane % 4), lane // 4
-    b = np.zeros((n_tiles, n_chunks, 8, kernels.TILE_COLS), np.float32)
+    b = np.zeros((n_tiles, n_chunks, 8, kernels.FRAG_COLS), np.float32)
     b[:, :, r, c], b[:, :, r + 1, c] = t[..., 0], t[..., 1]
     b[:, :, r, c + 8], b[:, :, r + 1, c + 8] = t[..., 2], t[..., 3]
-    b = b.reshape(n_tiles, band.span, kernels.TILE_COLS)
-    w = kernels.TILE_COLS
-    dense = np.zeros((band.rows + band.span, n_tiles * w), np.float32)
-    for i, f in enumerate(band.tile_first.numpy()):
+    return b.reshape(n_tiles, band.frag_span, kernels.FRAG_COLS)
+
+
+def _dense_from_blocks(band, blocks, first, span, w):
+    """The (L, G) matrix the tiles hold, checking that nothing lies past
+    A's edges and that the tiles do not overlap."""
+    dense = np.zeros((band.rows + span, len(first) * w), np.float32)
+    for i, f in enumerate(first):
         assert f % 2 == 0
-        assert not dense[f:f + band.span, w * i:w * (i + 1)].any()
-        dense[f:f + band.span, w * i:w * (i + 1)] = b[i]
+        assert not dense[f:f + span, w * i:w * (i + 1)].any()
+        dense[f:f + span, w * i:w * (i + 1)] = blocks[i]
     assert not dense[band.rows:].any() and not dense[:, band.g:].any()
     return dense[:band.rows, :band.g]
+
+
+def _dense_from_tiles(band, taps):
+    """The (L, G) matrix the wgmma core's tiles hold (hi + lo, exact in
+    float32)."""
+    hi, lo = _tile_blocks(band, taps)
+    return _dense_from_blocks(band, hi + lo, band.tile_first.numpy(), band.span,
+                              kernels.TILE_COLS)
+
+
+def _dense_from_frags(band, taps):
+    """The (L, G) matrix the mma.sync core's tiles hold."""
+    return _dense_from_blocks(band, _frag_blocks(band, taps), band.frag_first.numpy(),
+                              band.frag_span, kernels.FRAG_COLS)
 
 
 @pytest.mark.parametrize("which", ["flagship-16384-0", "flagship-16384-1",
                                    "flagship-262144-0", "flagship-262144-1",
                                    "nrsc5-0", "nrsc5-1", "complex-taps", "fir-toeplitz"])
 def test_band_compression_is_the_same_map(which):
-    """The kernel's column tiles (16 columns over the rows that hold their
-    non-zeros, in B-fragment order) rebuild the dense A exactly, at every
-    stage geometry the tests run: the flagship stages at both block sizes
-    (strides 512, 224 and 256), the NRSC5 strides 400 and 144, complex
-    taps, and a FIR filter's Toeplitz band."""
+    """Both cores' column tiles rebuild the dense A exactly, at every
+    stage geometry the tests run (the flagship stages at both block sizes,
+    strides 512, 224 and 256; the NRSC5 strides 400 and 144; complex taps;
+    a FIR filter's Toeplitz band): the wgmma core's 32 columns over the
+    rows that hold their non-zeros, split into TF32 hi and lo parts in the
+    order its shared-memory operand takes, and the mma.sync core's 16
+    columns in B-fragment order."""
     a_r, a_i = _stage_matrix(which)
     band = kernels.Band.build(a_r, a_i, "cpu")
-    assert band.span % 8 == 0 and band.n_tiles == -(-band.g // kernels.TILE_COLS)
+    cplx = a_i is not None and np.any(a_i)
+    assert (band.taps_i is not None) == cplx and (band.frag_i is not None) == cplx
+    w = kernels.TILE_COLS
+    assert band.span % 8 == 0 and band.n_tiles == -(-band.g // w)
     np.testing.assert_array_equal(_dense_from_tiles(band, band.taps_r), a_r)
-    if a_i is not None and np.any(a_i):
+    if cplx:
         np.testing.assert_array_equal(_dense_from_tiles(band, band.taps_i), a_i)
-    else:
-        assert band.taps_i is None
+    f = kernels.FRAG_COLS
+    assert band.frag_span % 8 == 0 and band.frag_tiles == -(-band.g // f)
+    np.testing.assert_array_equal(_dense_from_frags(band, band.frag_r), a_r)
+    if cplx:
+        np.testing.assert_array_equal(_dense_from_frags(band, band.frag_i), a_i)
     # the span is the band plus the tile's spread of band starts, a
     # fraction of the window
-    assert band.k <= band.span < band.k + 8 + 2 * 16 * 4
+    assert band.k <= band.span < band.k + 8 + 2 * w * 4
+    assert band.k <= band.frag_span < band.k + 8 + 2 * f * 4
     if not which.startswith("fir"):
-        assert band.span < a_r.shape[0] // 2
+        assert band.span < a_r.shape[0] and band.frag_span < a_r.shape[0] // 2
 
 
 def _tf32(x: torch.Tensor, rounded: bool) -> torch.Tensor:
@@ -256,10 +296,42 @@ def _split(x: torch.Tensor):
     return hi, _tf32(x - hi, False)
 
 
+@pytest.mark.parametrize("which", ["flagship-262144-0", "flagship-262144-1",
+                                   "complex-taps", "fir-toeplitz"])
+def test_band_split_is_the_kernels_split(which):
+    """The taps Band.build splits on the host are, bit for bit, what the
+    kernel's split() makes of them (hi: the float's bits plus 0x1000 with
+    the low 13 cleared, in int32 arithmetic; lo = x - hi in float32), also
+    on values whose rounding carries into the exponent."""
+    a_r, a_i = _stage_matrix(which)
+    band = kernels.Band.build(a_r, a_i, "cpu")
+    for taps in (band.taps_r, band.taps_i):
+        if taps is None:
+            continue
+        hi, lo = _tile_blocks(band, taps)
+        x = torch.from_numpy(np.ascontiguousarray(hi + lo))
+        want_hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+        want_lo = x - want_hi
+        assert torch.equal(torch.from_numpy(np.ascontiguousarray(hi)).view(torch.int32),
+                           want_hi.view(torch.int32))
+        assert torch.equal(torch.from_numpy(np.ascontiguousarray(lo)).view(torch.int32),
+                           want_lo.view(torch.int32))
+    edge = np.array([1.0, 1.0 - 2.0 ** -24, 2.0 - 2.0 ** -12, -(2.0 - 2.0 ** -11),
+                     3.0e-39, 0.0, -0.0], np.float32)
+    hi, lo = kernels.tf32_split(edge)
+    t = torch.from_numpy(edge)
+    want_hi = ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    assert torch.equal(torch.from_numpy(hi).view(torch.int32), want_hi.view(torch.int32))
+    assert torch.equal(torch.from_numpy(lo).view(torch.int32),
+                       (t - want_hi).view(torch.int32))
+    np.testing.assert_array_equal(hi + lo, edge)
+
+
 def test_3xtf32_split_precision(rng):
     """The precision argument for K2's tensor-core products, before any
     chip run: the windows of the flagship's stage-1 input times its band
-    matrix with both operands split in two TF32 parts and the three
+    matrix, the windows split in two TF32 parts as the kernel splits them
+    and the taps as Band.build split them on the host, and the three
     leading products summed in float32 (x_lo a_hi + x_hi a_lo + x_hi
     a_hi, as csrc/banded.cu accumulates them) agree with the float64
     product to >= 110 dB; one TF32 product falls short of the kernels'
@@ -267,20 +339,220 @@ def test_3xtf32_split_precision(rng):
     st1 = _flagship_stages(262144)[1]
     s, hist = st1.stride, st1.hist
     assert (s, hist) == (256, 287)
+    band = kernels.Band.build(st1._a, None, "cpu")
     a = torch.from_numpy(np.ascontiguousarray(st1._a, np.float32))
+    # the host's parts, back in the dense (L, G) layout
+    w = kernels.TILE_COLS
+    ah, al = (torch.zeros((band.rows + band.span, band.n_tiles * w)) for _ in range(2))
+    for part, dense in zip(_tile_blocks(band, band.taps_r), (ah, al)):
+        for i, f in enumerate(band.tile_first.numpy()):
+            dense[f:f + band.span, w * i:w * (i + 1)] = torch.from_numpy(part[i])
+    ah, al = ah[:band.rows, :band.g], al[:band.rows, :band.g]
+    assert torch.equal(ah + al, a)
     x = torch.from_numpy((rng.standard_normal((4, 64 * s + hist)) * 0.3).astype(np.float32))
     win = x.unfold(-1, s + hist, s)                              # (4, 64, 543)
     exact = torch.matmul(win.double(), a.double())
-    (xh, xl), (ah, al) = _split(win), _split(a)
+    xh, xl = _split(win)
     # the two parts hold x to 2^-21 relative (lo keeps 11 of x's 13
     # remaining bits)
     assert bool(((xh + xl - win).abs() <= win.abs() * 2.0 ** -21).all())
-    got = torch.matmul(xl, ah) + torch.matmul(xh, al) + torch.matmul(xh, ah)
+    # the tensor cores read the taps' lo part truncated to TF32
+    got = torch.matmul(xl, ah) + torch.matmul(xh, _tf32(al, False)) + torch.matmul(xh, ah)
     one = torch.matmul(xh, ah)
     snr3 = _snr(exact.numpy(), got.numpy())
     snr1 = _snr(exact.numpy(), one.numpy())
     assert snr3 >= 110.0, snr3
     assert snr1 < 80.0, snr1
+
+
+def _stage_geometry(which):
+    """(A_r, A_i, stride, hist) of a stage geometry."""
+    if which == "fir-2048":
+        taps = (np.hanning(2050)[1:-1] / 1024).astype(np.complex64)
+        band = StreamingFilter(taps, "fft")._band(256, "cpu")
+        return band.a_r.numpy(), None, 256, 2047
+    a_r, a_i = _stage_matrix(which)
+    if which == "fir-toeplitz":
+        stride = 256
+    elif which.startswith("nrsc5"):
+        cfg = ChainConfig(input_format="cu8", output_format="cu8", input_rate=2_400_000.0,
+                          target_rate=1_488_375.0, dc_block=True, target_block=16384)
+        stride = Chain(cfg, device="cpu").resampler.stages[int(which[-1])].stride
+    elif which == "complex-taps":
+        stride = _flagship_stages(16384)[1].stride
+    else:
+        stride = _flagship_stages(int(which.split("-")[1]))[int(which[-1])].stride
+    return a_r, a_i, stride, a_r.shape[0] - stride
+
+
+def _banded_core_emulated(band, ext_r, ext_i, s, hist, nb, grid, cs, ring, wgs):
+    """csrc/banded.cu's product core in float64, by its own index
+    arithmetic: CTA b takes items [I b / grid, I (b + 1) / grid) of the I
+    = C x ceil(nb / 32) window groups; the consumers stage a group's 32 s
+    + hist samples at (e // s) * pitch + e % s of two planes (whatever
+    else the planes hold is finite garbage, 1e30 here, which only zero
+    taps may meet); warpgroup w of ``wgs`` multiplies the tiles t = w mod
+    wgs, its producer warp copying each chunk of `cs` steps of a tile's hi and lo
+    taps into the next of its `ring` slots; lane (warp q, gid, tig) feeds
+    rows 16 q + gid (window 8 q + gid, real plane) and 16 q + gid + 8
+    (imaginary plane) at k = tig, tig + 4 from span rows 8 j + 2 tig and
+    8 j + 2 tig + 1; the B operand is read through the descriptor's
+    addressing (LBO 128 bytes between k halves, SBO 256 between column
+    octets) from the slot; accumulator v of lane (q, gid, tig) is row 16 q
+    + gid + 8 ((v >> 1) & 1), column 8 (v >> 2) + 2 tig + (v & 1).  hi +
+    lo is summed exactly, so this holds the index map, not the rounding.
+    Returns (yr, yi) (C, nb * G) float64."""
+    ch = ext_r.shape[0]
+    g_cols, n_tiles, steps = band.g, band.n_tiles, band.span // 8
+    parts = [band.taps_r.numpy().astype(np.float64)]
+    if band.taps_i is not None:
+        parts.append(band.taps_i.numpy().astype(np.float64))
+    first = band.tile_first.numpy()
+    pitch = s + ((8 - s % 16) + 16) % 16
+    assert pitch % 16 == 8
+    buf_len = -(-(32 * s + hist + band.span) // s) * pitch
+    groups = -(-nb // 32)
+    items = ch * groups
+    out = np.full((2, ch, nb * g_cols), np.nan)
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    wq = np.arange(4)[:, None]
+    win = 8 * wq + gid[None, :]                                   # (4, 32)
+    # B (8 k, 32 n) of one step: the float the descriptor's addressing
+    # reads, and the span row of each physical k (the k pair permutation)
+    cols = kernels.TILE_COLS
+    kk, nn = np.arange(8)[:, None], np.arange(cols)[None, :]
+    b_float = ((nn % 8) * 16 + (nn // 8) * 256 + (kk % 4) * 4 + (kk // 4) * 128) // 4
+    step = 8 * cols
+    slot_floats = len(parts) * 2 * cs * step
+    rings = [np.full((ring, slot_floats), np.nan) for _ in range(wgs)]
+    slots = [0] * wgs
+    for cta in range(grid):
+        planes = np.full((2, buf_len), 1e30)
+        for item in range(items * cta // grid, items * (cta + 1) // grid):
+            c, g = divmod(item, groups)
+            b0, nw = 32 * g, min(32, nb - 32 * g)
+            e = np.arange(nw * s + hist)
+            off = (e // s) * pitch + e % s
+            assert off.max() < buf_len
+            planes[0, off] = ext_r[c, b0 * s + e]
+            planes[1, off] = ext_i[c, b0 * s + e]
+            for w in range(wgs):
+                for t in range(w, n_tiles, wgs):
+                    acc = np.zeros((len(parts), 64, cols))
+                    for j in range(steps):
+                        chunk, jc = divmod(j, cs)
+                        if jc == 0:             # the producer's copy of this chunk
+                            n = min(cs, steps - chunk * cs)
+                            slot = rings[w][slots[w]]
+                            for p, taps in enumerate(parts):
+                                for h in (0, 1):
+                                    at = (2 * p + h) * cs * step
+                                    slot[at:at + n * step] = taps[
+                                        t, h, chunk * cs:chunk * cs + n].ravel()
+                            slots[w] = (slots[w] + 1) % ring
+                        x = first[t] + 8 * j + 2 * tig                # (32,)
+                        o = (x // s) * pitch + x % s + win * pitch     # (4, 32)
+                        o_next = ((x + 1) // s) * pitch + (x + 1) % s + win * pitch
+                        if s % 2 == 0:
+                            assert (o_next == o + 1).all()
+                        assert max(o.max(), o_next.max()) < buf_len
+                        a = np.zeros((64, 8))
+                        rows = 16 * wq + gid[None, :]                  # (4, 32)
+                        for plane in (0, 1):
+                            a[rows + 8 * plane, tig] = planes[plane, o]
+                            a[rows + 8 * plane, tig + 4] = planes[plane, o_next]
+                        for p in range(len(parts)):
+                            at = 2 * p * cs * step + jc * step
+                            b = (slot[at + b_float] + slot[at + cs * step + b_float])
+                            acc[p] += a @ b
+                    # the epilogue: a lane's accumulators v and v + 2 hold
+                    # the real and imaginary rows of one (window, column)
+                    rows = 16 * wq + gid[None, :]
+                    keep_w = b0 + win < nb
+                    for v in (v for v in range(cols // 2) if not v & 2):
+                        lc = 8 * (v >> 2) + 2 * tig + (v & 1)            # (32,)
+                        col = cols * t + lc
+                        keep = keep_w & (col < g_cols)[None, :]
+                        yr, yi = acc[0, rows, lc], acc[0, rows + 8, lc]
+                        if len(parts) == 2:
+                            yr = acc[0, rows, lc] - acc[1, rows + 8, lc]
+                            yi = acc[1, rows, lc] + acc[0, rows + 8, lc]
+                        idx = (b0 + win) * g_cols + col
+                        assert np.isnan(out[0, c, idx[keep]]).all()
+                        out[0, c, idx[keep]] = yr[keep]
+                        out[1, c, idx[keep]] = yi[keep]
+    assert not np.isnan(out).any()
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("which,grid,cs,ring,wgs", [
+    ("flagship-262144-0", 3, 4, 3, 2), ("flagship-262144-1", 3, 4, 4, 2),
+    ("flagship-262144-0", 2, 1, 3, 4), ("flagship-262144-1", 4, 4, 2, 2),
+    ("nrsc5-0", 2, 2, 2, 2), ("nrsc5-1", 5, 1, 3, 4),
+    ("complex-taps", 3, 2, 4, 2), ("complex-taps", 5, 1, 2, 2),
+    ("fir-toeplitz", 4, 4, 4, 4), ("fir-2048", 2, 4, 4, 4)])
+def test_banded_core_index_map(rng, which, grid, cs, ring, wgs):
+    """An emulation of the wgmma product core's index map (the grid's
+    items, the two or four warpgroups' tiles, the staged rows, each lane's A
+    offsets, the producers' ring copies and each step's descriptor
+    offset, the accumulators' rows and columns) in float64 equals the
+    plain banded map (banded.apply_planar) within 1e-12 of its scale, at
+    the flagship's stages 0 and 1 (strides 512 and 256), nrsc5's (400 and
+    144), complex taps (four products), a 75-tap FIR's Toeplitz band and
+    a 2048-tap one, on a ragged block (the last window group short) and
+    grids that cut the items unevenly."""
+    from iq_tool_tpu_torch.ops import banded
+    a_r, a_i, s, hist = _stage_geometry(which)
+    assert a_r.shape[0] == s + hist
+    band = kernels.Band.build(a_r, a_i, "cpu")
+    ch, nb = 3, 45
+    n = nb * s + (s // 3)
+    xr, xi, sr, si = (rng.standard_normal(shape) * 0.3
+                      for shape in ((ch, n), (ch, n), (ch, hist), (ch, hist)))
+    ext_r, ext_i = np.concatenate([sr, xr], -1), np.concatenate([si, xi], -1)
+    got = _banded_core_emulated(band, ext_r, ext_i, s, hist, nb, grid, cs, ring, wgs)
+    t = lambda v: torch.from_numpy(v)
+    want = banded.apply_planar(t(sr), t(si), t(xr), t(xi), band.a_r.double(),
+                               None if band.a_i is None else band.a_i.double(), s, hist)
+    for w, g in zip(want, got):
+        w = w.numpy()
+        assert np.abs(w - g).max() <= 1e-12 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("which,core", [
+    ("flagship-262144-0", "mma"), ("flagship-262144-1", "wgmma"),
+    ("flagship-16384-1", "wgmma"), ("nrsc5-0", "mma"), ("nrsc5-1", "mma"),
+    ("complex-taps", "wgmma"), ("fir-toeplitz", "mma"), ("fir-2048", "wgmma"),
+    ("narrow-stage-1", "mma")])
+def test_banded_core_rule(rng, which, core):
+    """The static rule that picks K2's product core: the wgmma core over
+    a band of 96 or more taps a column (the flagship's stage 1 with its
+    lowpass at both block sizes, complex taps, a 2048-tap FIR band), the
+    mma.sync core below (every stage 0, nrsc5's stage 1, config #4's
+    stage 1 without the lowpass, a 75-tap FIR band); K1's banded launch
+    takes the wgmma core at
+    every geometry.  On the CPU either core's wrapper runs the twin and
+    counts no launch."""
+    if which == "narrow-stage-1":
+        cfg = ChainConfig(input_format="cs16", output_format="cs16", input_rate=2_048_000.0,
+                          target_rate=1_488_375.0, channels=2, target_block=262144)
+        st = Chain(cfg, device="cpu").resampler.stages[1]
+        a_r, a_i, s, hist = st._a, st._a_i, st.stride, st.hist
+    else:
+        a_r, a_i, s, hist = _stage_geometry(which)
+    band = kernels.Band.build(a_r, a_i, "cpu")
+    assert (band.k >= kernels.WIDE_BAND) == (core == "wgmma")
+    assert kernels.banded_core(band) == core
+    assert kernels.banded_core(band, dc=True) == "wgmma"
+    x = [_t((rng.standard_normal((2, 3 * s)) * 0.3).astype(np.float32)) for _ in range(2)]
+    st_ = [_t((rng.standard_normal((2, hist)) * 0.3).astype(np.float32)) for _ in range(2)]
+    before = kernels.launch_counts()
+    want = kernels.banded_apply_ref(*st_, *x, band, None, s, hist)
+    for forced in ("wgmma", "mma"):
+        got = kernels.banded_apply(*st_, *x, band, None, s, hist, core=forced)
+        assert all(torch.equal(w, g) for w, g in zip(want, got))
+    assert kernels.launch_counts() == before
 
 
 def test_wrappers_refuse_bad_inputs(rng):
