@@ -43,8 +43,9 @@ first failure:
    energies) and the I/Q estimator ([iq]: the whole estimator of a step
    in one launch, on config #4's cs16 wire with the DC prefix, on a due
    step, factors within 2 moves, gate within 1e-3 dB and the counter
-   equal, and on one that is not, factors bit-identical and the counter
-   exact), timed the same way;
+   equal, the same over 64 seeded draws of tone, imbalance, noise, start
+   factors and DC state (``iq_draws``), and on one that is not, factors
+   bit-identical and the counter exact), timed the same way;
 6. the general step: config #4 (DC + I/Q + pre-shift, resampler,
    2175-tap overlap-save notch, post-shift, local AGC) at 128 x 262144
    for 6 steps with exact launch counters (the estimator one launch a
@@ -108,6 +109,21 @@ first failure:
 11. [profile]: the CLI with --profile-dir: the trace names K1's two
    kernels, the DC kernel's carry pass and the banded kernel with the
    DC-wire loader, replayed in the step's graph;
+12. [bench]: ``python -m iq_tool_tpu_torch.bench --flagship-only``: the
+   flagship as a GraphedStep at 128 x 262144, CUDA events over 3 and 13
+   queued replays, and the C baseline on this host: bench.py's JSON line;
+13. [host]: ``python -m iq_tool_tpu_torch.host_budget`` at 128 x 262144
+   (the native ring built first where cmake can): every stage of the
+   host's feed path timed alone, and the serial host Msps beside the
+   device step's;
+14. [cli128]: the CLI file to file at 128 channels (the flagship's flags,
+   --channels 128 --block-size 262144) on 128 '{ch}'-templated cs16
+   files of a seeded tone, 4.5 blocks each (576 MiB): every channel's
+   output byte-identical to a GraphedStep of the flagship stepped over
+   the same blocks (the last zero-padded, the output trimmed to
+   expected_out_frames); the run cut after its second block and resumed
+   from its checkpoint, byte-identical to the uncut run; wall, start-up,
+   streaming seconds and Msps beside the device step's ([bench]);
 
 then one JSON line per the kernels (each with its bound, the bytes or
 operations that set it, the library call's time where there is one, and
@@ -136,6 +152,7 @@ GRAPH_STEPS = 10            # graph replays against eager steps ([graph])
 GRAPH_RESET = 4             # the step (from 0) that takes a reset
 GRAPH_MORE_STEPS = 6        # replays of the other chains ([graph], 16 channels)
 GRAPH_MORE_CH = 16
+IQ_DRAWS = 64               # seeded draws of the I/Q estimator's due step ([iq])
 # NVIDIA's data sheet for the H100 SXM (dense): the bounds below divide by
 # these
 PEAK_BYTES_S = 3.35e12
@@ -250,6 +267,58 @@ def cli_times(stderr: str) -> tuple[float, float, int]:
 def cs16_iq(wire: np.ndarray) -> np.ndarray:
     w = wire.astype(np.float64).reshape(-1, 2) / 32768.0
     return w[:, 0] + 1j * w[:, 1]
+
+
+def iq_draws(dev, draws: int = IQ_DRAWS, channels: int = 128, seed: int = 20261017) -> dict:
+    """The I/Q estimator's due step, kernel against twin, over ``draws``
+    seeded draws of config #4's estimator input (its cs16 wire decoded and
+    DC-blocked from a carried state; 2048 frames a channel, the estimator
+    reads the first 1024): per channel a tone at +-0.03 to 0.45 of the rate
+    (inside the estimator's band) of amplitude 0.1 to 0.6, an imbalance of
+    up to +-2 % and +-0.02 rad, white noise at 1e-5 to 1e-3, start factors
+    of 1e-3 and a DC state of 0.01.  Returns the largest distance in
+    smoothed moves (0.05 x 1e-4 a move), the draws and channels that differ
+    at all, the gate's largest difference and the draws whose counter
+    differs."""
+    import torch
+    from iq_tool_tpu_torch.ops import kernels
+    from iq_tool_tpu_torch.pipeline.chain import Chain
+    from iq_tool_tpu_torch.profile_steps import BLOCK, config
+    ch4 = Chain(config("4", channels, 16384), device=dev)
+    worst, n_draws, n_ch, gate_err, bad_counter = 0.0, 0, 0, 0.0, 0
+    n = 2048
+    for d in range(draws):
+        gen = torch.Generator(device=dev).manual_seed(seed + d)
+
+        def u(lo, hi, shape=(channels, 1)):
+            return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev,
+                                               dtype=torch.float64)
+        k = torch.arange(n, device=dev, dtype=torch.float64)
+        sign = torch.where(u(0, 1) < 0.5, -1.0, 1.0)
+        ph = 2 * np.pi * (sign * u(0.03, 0.45) * k[None, :] + u(0, 1))
+        amp, eg, ep, noise = u(0.1, 0.6), u(-0.02, 0.02), u(-0.02, 0.02), 10 ** u(-5, -3)
+        xr, xi = amp * torch.cos(ph), amp * torch.sin(ph)
+        pairs = torch.stack([xr * (1 + eg), xi + ep * xr], dim=-1)
+        pairs = pairs + noise[..., None] * torch.randn(pairs.shape, generator=gen, device=dev,
+                                                        dtype=torch.float64)
+        wire = torch.clamp(torch.round(pairs * 32767), -32768, 32767).to(torch.int16)
+        wire = wire.reshape(channels, -1).view(torch.int32)
+        f0 = (1e-3 * torch.randn((channels, 2), generator=gen, device=dev)).float()
+        dc = (0.01 * torch.randn((channels, 4), generator=gen, device=dev)).float()
+        cnt = torch.tensor(0xFFFFFFFF, dtype=torch.int64, device=dev)
+        args = (None, None, f0, cnt, ch4.iq_interval, BLOCK)
+        kw = dict(dc_state=dc, dc_alpha=ch4.dc_alpha, wire_i32=wire,
+                  wire_norm=ch4.fmt_in.normalizer, wire_gain=1.0, wire_kind="cs16")
+        got = kernels.iq_estimate(*args, **kw)
+        want = kernels.iq_estimate_ref(*args, **kw)
+        moves = (got[0] - want[0]).abs().amax(-1) / (1e-4 * 0.05)
+        worst = max(worst, float(moves.max()))
+        n_ch += int((moves > 0).sum())
+        n_draws += bool((moves > 0).any())
+        gate_err = max(gate_err, float((got[2] - want[2]).abs().max()))
+        bad_counter += int(got[1]) != int(want[1])
+    return dict(draws=draws, channels=channels, moves=worst, draws_differ=n_draws,
+                channels_differ=n_ch, gate_err=gate_err, counter_differs=bad_counter)
 
 
 def main() -> int:
@@ -980,6 +1049,17 @@ def main() -> int:
              f"{int(want[1])}")
     got_s, want_s, _, skip_ms, skip_plain, _ = iq_results["not due"]
     same = torch.equal(got_s[0], f0) and torch.equal(got_s[0], want_s[0])
+    t0 = time.perf_counter()
+    dr = iq_draws(dev)
+    say(f"[iq] {dr['draws']} seeded draws x {dr['channels']} channels of a due step (tone, "
+        f"imbalance, noise, start factors, DC state): largest distance {dr['moves']:.2f} "
+        f"moves, {dr['draws_differ']} draws ({dr['channels_differ']} channels) differ at "
+        f"all, gate within {dr['gate_err']:.2e} dB, counters differ in "
+        f"{dr['counter_differs']} draws ({time.perf_counter() - t0:.1f} s)")
+    if dr["moves"] > 2.001 or dr["gate_err"] > 1e-3 or dr["counter_differs"]:
+        fail(f"the I/Q estimator parts from its twin over {dr['draws']} draws: "
+             f"{dr['moves']:.2f} moves (> 2), gate {dr['gate_err']:.2e} dB (> 1e-3) or "
+             f"{dr['counter_differs']} counters differ")
     say(f"[iq] a step that is not due: factors {'bit-identical' if same else 'DIFFER'}, "
         f"counter {int(got_s[1])} (twin {int(want_s[1])})")
     if not same or int(got_s[1]) != int(want_s[1]) or int(want_s[1]) != BLOCK:
@@ -1002,7 +1082,7 @@ def main() -> int:
         f"{iq_plain:.3f} / {skip_plain:.3f} ms; bound {iq_bound[0]:.5f} ms "
         f"({iq_bound[1]}) -> {100 * iq_bound[0] / iq_ms:.1f}%, not due "
         f"{skip_bound[0]:.6f} ms; a due step without the descent (prefix, "
-        f"spectra, gate) {pre_ms:.4f} ms")
+        f"spectra, gate) {pre_ms:.4f} ms ({smi_line})")
     report["IQest"] = dict(err=max(float((got[0] - want[0]).abs().max()), gate_err),
                            ms=iq_ms, plain=iq_plain, lib=None, bound=iq_bound)
     report["IQest@skip"] = dict(err=float((got_s[0] - want_s[0]).abs().max()),
@@ -1903,6 +1983,121 @@ def main() -> int:
         fail(f"[profile] the trace does not name K1's kernels {k1_names}")
     for p_ in (inp, half, full, part, ck, traces[0]):
         os.remove(p_)
+
+    # ------------------------------------------------------------ 12. bench
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "iq_tool_tpu_torch.bench", "--flagship-only"],
+                         cwd=HERE, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"[bench] exited {res.returncode}: {res.stderr[-2000:]}")
+    bench_line = json.loads(res.stdout.strip().splitlines()[-1])
+    missing = {"metric", "value", "unit", "vs_baseline", "configs", "device"} - set(bench_line)
+    bench_msps = bench_line.get("value")
+    say(f"[bench] {json.dumps(bench_line)} ({time.perf_counter() - t0:.1f} s)")
+    if missing or not bench_msps or bench_msps <= 0 or bench_line["device"] != smi_line:
+        fail(f"[bench] the JSON line lacks {missing} or a flagship value, or names another "
+             f"card: {bench_line}")
+    step_ms = CH * BLOCK / bench_msps / 1e3
+
+    # ------------------------------------------------------------- 13. host
+    from iq_tool_tpu_torch import native
+    t0 = time.perf_counter()
+    ring_built = native.ensure_built()
+    res = subprocess.run([sys.executable, "-m", "iq_tool_tpu_torch.host_budget",
+                          "--channels", str(CH), "--block", str(BLOCK)],
+                         cwd=HERE, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"[host] exited {res.returncode}: {res.stderr[-2000:]}")
+    host_lines = [json.loads(x) for x in res.stdout.strip().splitlines()]
+    stages = {r["stage"]: r for r in host_lines if "stage" in r}
+    host_sum = host_lines[-1]
+    for name_, r in stages.items():
+        say(f"[host] {name_}: " + (f"{r['ns_per_sample']:.4f} ns a sample, "
+                                   f"{r['standalone_Msps']:.1f} Msps alone"
+                                   if "error" not in r else r["error"]))
+    want_stages = {"file_read", "frombuffer+stack", "pin_copy", "h2d_pageable", "h2d_pinned",
+                   "pinned_out_alloc", "d2h_pinned", "out_tobytes", "sink_write"}
+    say(f"[host] {json.dumps(host_sum)}; the native ring "
+        f"{'built' if ring_built else 'not built (no toolchain)'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if (want_stages - {k for k, r in stages.items() if "error" not in r}
+            or "native_ring" not in stages or "host_Msps" not in host_sum
+            or not host_sum.get("device_step_Msps")):
+        fail(f"[host] a stage or the summary is missing: {sorted(stages)} {host_sum}")
+
+    # ----------------------------------------------------------- 14. cli128
+    import shutil
+    from iq_tool_tpu_torch.pipeline.graphed import GraphedStep
+    cdir = os.path.join(work, "cli128")
+    shutil.rmtree(cdir, ignore_errors=True)
+    os.makedirs(cdir)
+    ref = GraphedStep(Chain(config("flagship"), device=dev))
+    n_in = ref.n_in
+    frames = 4 * n_in + n_in // 2
+    t0 = time.perf_counter()
+    wire_d = tone_wire(CH, frames, torch.Generator(device=dev).manual_seed(SEED + 128))
+    wire_h = wire_d.cpu().numpy()
+    for c in range(CH):
+        wire_h[c].tofile(os.path.join(cdir, f"in_{c}.cs16"))
+        wire_h[c, :4 * n_in].tofile(os.path.join(cdir, f"half_{c}.cs16"))
+    gen_s = time.perf_counter() - t0
+    carry, outs = ref.init_carry(), []
+    for k in range(0, frames, n_in):
+        blk = torch.zeros((CH, 2 * n_in), dtype=torch.int16, device=dev)
+        part_ = wire_d[:, 2 * k:2 * (k + n_in)]
+        blk[:, :part_.shape[1]] = part_
+        carry, out = ref.step(carry, blk)
+        outs.append(out.cpu().numpy().copy())    # the next replay overwrites out
+    n_out_total = ref.expected_out_frames(frames)
+    want_out = np.concatenate(outs, axis=1)[:, :2 * n_out_total]
+    del wire_d, outs, ref, carry, out
+    flags128 = ["-i", "raw-file", "-o", "raw", "--raw-file-input-rate", "2048000",
+                "--raw-file-input-sample-format", "cs16", "--output-rate", "1488375",
+                "--dc-block", "--freq-shift", "100000", "--lowpass", "400000",
+                "--channels", str(CH), "--block-size", str(BLOCK), "--device", "cuda",
+                "--force-overwrite"]
+    ck128 = os.path.join(cdir, "state.ckpt")
+
+    def cli(inp_, out_, *extra):
+        t_ = time.perf_counter()
+        r_ = subprocess.run([sys.executable, "-m", "iq_tool_tpu_torch",
+                             os.path.join(cdir, inp_), os.path.join(cdir, out_),
+                             *flags128, *extra], cwd=HERE, capture_output=True,
+                            text=True, timeout=600)
+        if r_.returncode != 0:
+            fail(f"[cli128] the CLI exited {r_.returncode}: {r_.stderr[-2000:]}")
+        return time.perf_counter() - t_, r_.stderr
+
+    def outputs(stem):
+        return [np.fromfile(os.path.join(cdir, f"{stem}_{c}.cs16"), np.int16)
+                for c in range(CH)]
+
+    wall, err = cli("in_{ch}.cs16", "out_{ch}.cs16")
+    up, streaming, fold = cli_times(err)
+    got_out = outputs("out")
+    same_ref = all(g.tobytes() == w.tobytes() for g, w in zip(got_out, want_out))
+    cut_wall, _ = cli("half_{ch}.cs16", "part_{ch}.cs16", "--checkpoint", ck128)
+    res_wall, _ = cli("in_{ch}.cs16", "part_{ch}.cs16", "--checkpoint", ck128, "--resume")
+    same_cut = all(g.tobytes() == w.tobytes() for g, w in zip(outputs("part"), got_out))
+    in_mib = CH * frames * 4 / 2 ** 20
+    say(f"[cli128] {CH} channels x {frames} frames ({in_mib:.0f} MiB of cs16 in {CH} "
+        f"'{{ch}}' files, written in {gen_s:.1f} s), the flagship's flags at "
+        f"--block-size {BLOCK} (F = {fold}): output "
+        f"{'byte-identical' if same_ref else 'DIFFERS'} to the GraphedStep over the same "
+        f"blocks ({n_out_total} frames a channel); cut after block 2 and resumed "
+        f"({cut_wall:.2f} s + {res_wall:.2f} s): "
+        f"{'byte-identical' if same_cut else 'DIFFERS'} to the uncut run")
+    say(f"[cli128] wall {wall:.2f} s: start-up (kernel build, graph capture) {up:.2f} s, "
+        f"streaming {streaming:.2f} s ({CH * frames / streaming / 1e6:.1f} Msps in), the "
+        f"rest {wall - up - streaming:.2f} s; the device step queued (bench) {step_ms:.3f} ms "
+        f"= {bench_msps:.1f} Msps; host serial path (host_budget) "
+        f"{host_sum['host_Msps']:.1f} Msps ({smi_line})")
+    shutil.rmtree(cdir, ignore_errors=True)
+    if fold != 1 or not same_ref or any(len(g) != 2 * n_out_total for g in got_out):
+        fail(f"[cli128] the CLI at {CH} channels is not the GraphedStep's bytes "
+             f"(F = {fold}, {n_out_total} frames expected)")
+    if not same_cut:
+        fail("[cli128] the cut and resumed run is not byte-identical to the uncut run")
 
     # ------------------------------------------------------------ result
     src = {"K1": "iq_tool_tpu_torch/csrc/banded.cu",

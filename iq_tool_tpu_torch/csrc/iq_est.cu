@@ -60,11 +60,17 @@
 // the same order, so all take the same move.  On a step that is not due
 // the kernel is a launch and a ticket.
 //
-// The sums run in another order than torch's reductions and the FFT
-// rounds otherwise than pocketfft or cuFFT, so the kernel and its plain
-// twin (ops/kernels.py iq_estimate_ref) may part on a near-tie of two
-// candidates: they are held to a few moves.  Decode, window and smoothing
-// round as the twin does (_rn intrinsics: no contraction).
+// The greedy argmax is discontinuous on a near-tie of two candidates, so
+// the plain twin (ops/iq_balance.py: _fft1024, _spectrum_db, _band_sum)
+// rounds as this kernel does, operation for operation: the decode, the
+// window, the 32 x 32 FFT, the corrected spectrum and the smoothing in
+// float32 with _rn intrinsics (no contraction), and the band sums in
+// cta_sum4's fixed tree.  Torch's CUDA hypot and log10 are the CUDA
+// library's hypotf and log10f, so on the card the two hold the same bits
+// and decide alike on a near-tie; only the float64 DC prefix runs in
+// another order.  (Sums in float64 made the due step slower than its
+// budget allows on an H100; in float32 in one shared order the
+// comparisons are exact all the same.)
 
 #include <cuda_runtime.h>
 
@@ -132,14 +138,16 @@ struct Args {
   unsigned long long* ticket;  // zero between launches
 };
 
+// complex arithmetic rounded at each operation, as the twin's tensor ops
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
 }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
+  return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
 }
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+  return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                     __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
 }
 
 __device__ __forceinline__ float2 rot32(float2 z, int k) {
@@ -195,7 +203,7 @@ __device__ __forceinline__ void fft1024(float2* buf, const float2* __restrict__ 
 // the 4 x 32 values are transposed down (lanes 8k..8k+7 end with value
 // k's warp sum), written to `red` (4 x kWarps), then, after the one
 // barrier, every warp sums the 16 warp sums alike.  Each value's sum
-// takes the same tree.
+// takes the same tree (iq_balance._band_sum).
 __device__ __forceinline__ void cta_sum4(float (&v)[4], float* red) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -220,10 +228,19 @@ __device__ __forceinline__ void cta_sum4(float (&v)[4], float* red) {
   for (int q = 0; q < 4; ++q) v[q] = __shfl_sync(full, w, 8 * q);
 }
 
+// 20 log10(|b + (g + i phi) m| / kN + 1e-12), as iq_balance._spectrum_db
 __device__ __forceinline__ float spec_db(float2 b, float2 m, float g, float phi) {
-  const float re = b.x + (g * m.x - phi * m.y);
-  const float im = b.y + (g * m.y + phi * m.x);
-  return 20.0f * log10f(hypotf(re, im) / static_cast<float>(kN) + 1e-12f);
+  const float re = __fadd_rn(b.x, __fsub_rn(__fmul_rn(g, m.x), __fmul_rn(phi, m.y)));
+  const float im = __fadd_rn(b.y, __fadd_rn(__fmul_rn(g, m.y), __fmul_rn(phi, m.x)));
+  // x / kN: a product by 2^-10, exact as the twin's division
+  const float mag = __fadd_rn(__fmul_rn(hypotf(re, im), 1.0f / kN), 1e-12f);
+  return __fmul_rn(20.0f, log10f(mag));
+}
+
+// (pp - pn)^2 where either side is above the floor
+__device__ __forceinline__ float util_term(float pp, float pn, float floor_db) {
+  const float d = __fsub_rn(pp, pn);
+  return (pp > floor_db || pn > floor_db) ? __fmul_rn(d, d) : 0.0f;
 }
 
 // Sample k of one channel's source, decoded (0 past m).
@@ -354,8 +371,7 @@ __global__ void __launch_bounds__(kThreads) iq_estimate_kernel(const Args a) {
     if (own) {
       const float pn = spec_db(bn, mn, g, phi);
       const float pp = spec_db(bp, mp, g, phi);
-      const float d = pp - pn;
-      if (pp > a.floor_db || pn > a.floor_db) v[0] = d * d;
+      v[0] = util_term(pp, pn, a.floor_db);
       v[1] = pp;
       v[2] = pn;
       mx = fmaxf(pp, pn);
@@ -377,14 +393,12 @@ __global__ void __launch_bounds__(kThreads) iq_estimate_kernel(const Args a) {
       float u[4], cg[4], cp[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        cg[k] = g + (k < 2 ? a.step : -a.step);
-        cp[k] = phi + ((k & 1) ? -a.step : a.step);
+        cg[k] = __fadd_rn(g, k < 2 ? a.step : -a.step);
+        cp[k] = __fadd_rn(phi, (k & 1) ? -a.step : a.step);
         u[k] = 0.0f;
         if (own) {
-          const float pn = spec_db(bn, mn, cg[k], cp[k]);
-          const float pp = spec_db(bp, mp, cg[k], cp[k]);
-          const float d = pp - pn;
-          if (pp > a.floor_db || pn > a.floor_db) u[k] = d * d;
+          u[k] = util_term(spec_db(bp, mp, cg[k], cp[k]), spec_db(bn, mn, cg[k], cp[k]),
+                           a.floor_db);
         }
       }
       cta_sum4(u, red[p & 1]);

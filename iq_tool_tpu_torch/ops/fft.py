@@ -2,8 +2,9 @@
 
 The reference computes its FFTs as four-step DFT matmuls because the TPU
 backend has no FFT call.  Here they are ``torch.fft`` (cuFFT on the
-card, pocketfft on the CPU) in complex64.  Used by the I/Q estimator and
-by the overlap-save kernel's plain twin.
+card, pocketfft on the CPU) in complex64.  Used by the overlap-save
+kernel's plain twin; the I/Q estimator's twin takes its kernel's FFT
+(``iq_balance._fft1024``) and the shift.
 """
 
 from __future__ import annotations

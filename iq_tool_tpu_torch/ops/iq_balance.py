@@ -21,6 +21,15 @@ every step and masks the result (``maybe_update``): the descent
 evaluates the 4 candidates of every channel as one batched tensor op per
 pass.
 
+The twin rounds as the kernel does, so the two take the same moves on a
+near-tie of two candidates (the descent's argmax is discontinuous there):
+the spectra are the kernel's 32 x 32 float32 FFT in the same order of
+float32 operations (``_fft1024``), the dB spectrum the same float32
+operations (no complex product, whose rounding differs between torch's
+CPU and CUDA kernels), and each candidate's band sum is taken in the
+kernel's fixed reduction tree (``_band_sum``), so equal terms give equal
+sums.  On the CPU only hypot and log10 may round otherwise than CUDA's.
+
 The state is a small dataclass of tensors; the counter is int64 holding
 the reference's uint32 value, with its saturation.
 """
@@ -87,14 +96,75 @@ def _moves(device: str) -> torch.Tensor:
     return torch.from_numpy(np.float32(C.IQ_EST_STEP) * _DIRS).to(device)
 
 
+def _brev5(j: int) -> int:
+    return int(f"{j:05b}"[::-1], 2)
+
+
+_BREV5 = [_brev5(j) for j in range(32)]
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_consts(device: str):
+    """(w32 re, w32 im, twiddle re, twiddle im) of csrc/iq_est.cu's FFT in
+    float32: exp(-2 pi i k / 32), k < 16, with k = 8 exactly -i (the
+    kernel's rot32 swaps there), and exp(-2 pi i k / 1024) from float64,
+    the table the kernel reads (``kernels._est_consts``)."""
+    w = np.exp(-2j * np.pi * np.arange(16) / 32).astype(np.complex64)
+    w[8] = -1j
+    tw = np.exp(-2j * np.pi * np.arange(C.IQ_FFT_SIZE) / C.IQ_FFT_SIZE).astype(np.complex64)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (w.real, w.imag, tw.real, tw.imag))
+
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _dft32(xr: torch.Tensor, xi: torch.Tensor, w_r, w_i):
+    """csrc/iq_est.cu dft32 along the last axis (32 points): radix-2
+    decimation in frequency, entry r ending as X[brev5(r)]."""
+    lead = xr.shape[:-1]
+    for b in range(4, -1, -1):
+        h = 1 << b
+        xr = xr.reshape(*lead, 32 // (2 * h), 2, h)
+        xi = xi.reshape(*lead, 32 // (2 * h), 2, h)
+        ur, vr, ui, vi = xr[..., 0, :], xr[..., 1, :], xi[..., 0, :], xi[..., 1, :]
+        k = torch.arange(h, device=xr.device) << (4 - b)
+        tr, ti = _cmul(ur - vr, ui - vi, w_r[k], w_i[k])
+        xr = torch.stack([ur + vr, tr], dim=-2).reshape(*lead, 32)
+        xi = torch.stack([ui + vi, ti], dim=-2).reshape(*lead, 32)
+    return xr, xi
+
+
+def _fft1024(xr: torch.Tensor, xi: torch.Tensor):
+    """The 1024-point DFT of (..., 1024) float32 planes as csrc/iq_est.cu
+    fft1024 computes it, operation for operation: a 32-point DFT over each
+    column j of x[j + 32 n1], the twiddles W_1024^(j k1), a 32-point DFT
+    over each row k1; natural order out."""
+    w_r, w_i, t_r, t_i = _fft_consts(str(xr.device))
+    lead = xr.shape[:-1]
+    idx = torch.tensor(_BREV5, device=xr.device)
+    jk = (torch.arange(32, device=xr.device)[:, None]
+          * torch.arange(32, device=xr.device)[None, :]) & (C.IQ_FFT_SIZE - 1)
+    cr, ci = (v.reshape(*lead, 32, 32).transpose(-1, -2) for v in (xr, xi))  # [j, n1]
+    cr, ci = _dft32(cr, ci, w_r, w_i)
+    cr, ci = _cmul(cr[..., idx], ci[..., idx], t_r[jk], t_i[jk])            # [j, k1]
+    rr, ri = _dft32(cr.transpose(-1, -2), ci.transpose(-1, -2), w_r, w_i)   # [k1, r]
+    return tuple(v[..., idx].transpose(-1, -2).reshape(*lead, C.IQ_FFT_SIZE)
+                 for v in (rr, ri))                                        # [k2, k1]
+
+
 def _spectrum_db(base: torch.Tensor, image: torch.Tensor, g: torch.Tensor,
                  phi: torch.Tensor) -> torch.Tensor:
     """dB spectrum of the corrected signal from the precomputed shifted
     spectra base = FFT(w x), image = FFT(w Re x); g/phi may carry leading
-    batch dims in front of the channel dim."""
-    k = torch.complex(g, phi)
-    spec = base + k[..., None] * image
-    mag = torch.abs(spec) / _f32(base.shape[-1])
+    batch dims in front of the channel dim.  In float32 operations, as
+    the kernel's spec_db: base + (g + i phi) image, then
+    20 log10(|.| / nfft + 1e-12)."""
+    g, phi = g[..., None], phi[..., None]
+    re = base.real + (g * image.real - phi * image.imag)
+    im = base.imag + (g * image.imag + phi * image.real)
+    mag = torch.hypot(re, im) / _f32(base.shape[-1])
     return 20.0 * torch.log10(mag + 1e-12)
 
 
@@ -114,35 +184,55 @@ def _band(spec_db: torch.Tensor):
     return p_pos, p_neg
 
 
+def _band_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the band (last axis, at most 512 bins) in the order of
+    csrc/iq_est.cu cta_sum4 with bin t on thread t: within each warp of 32
+    bins the halving tree (t + 16, then + 8, 4, 2, 1), then the 16 warp
+    sums in pairs (2i, 2i + 1) and their halving tree."""
+    v = torch.nn.functional.pad(v, (0, 512 - v.shape[-1]))
+    v = v.reshape(*v.shape[:-1], 16, 32)
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    w = v[..., 0]
+    w = w[..., 0::2] + w[..., 1::2]
+    for off in (4, 2, 1):
+        w = w[..., :off] + w[..., off:2 * off]
+    return w[..., 0]
+
+
 def _utility(spec_db: torch.Tensor) -> torch.Tensor:
     """Sum over the band of (P(+f) - P(-f))^2 where either side is above
-    the -80 dB floor (to be maximized)."""
+    the -80 dB floor (to be maximized), summed by ``_band_sum``."""
     p_pos, p_neg = _band(spec_db)
     d = p_pos - p_neg
     mask = (p_pos > C.IQ_SPECTRUM_FLOOR_DB) | (p_neg > C.IQ_SPECTRUM_FLOOR_DB)
-    return torch.sum(torch.where(mask, d * d, 0.0), dim=-1)
+    return _band_sum(torch.where(mask, d * d, 0.0))
 
 
 def _power_gate(spec_db: torch.Tensor) -> torch.Tensor:
-    """Peak-to-average ratio over the utility band, in dB."""
+    """Peak-to-average ratio over the utility band, in dB (the band's sums
+    by ``_band_sum``)."""
     p_pos, p_neg = _band(spec_db)
     n_band = p_pos.shape[-1]
     mx = torch.maximum(p_pos.amax(dim=-1), p_neg.amax(dim=-1))
-    avg = (p_pos.sum(dim=-1) + p_neg.sum(dim=-1)) / (2.0 * n_band)
-    return mx - avg
+    return mx - (_band_sum(p_pos) + _band_sum(p_neg)) / (2.0 * n_band)
 
 
 def _spectra(x: torch.Tensor):
-    """(base, image) shifted spectra of the windowed (C, nfft) block."""
+    """(base, image) shifted spectra of the windowed (C, nfft) block, by
+    the kernel's FFT (``_fft1024``)."""
     w = _window(x.shape[-1], str(x.device))
-    return (tfft.fftshift(tfft.fft(w * x)),
-            tfft.fftshift(tfft.fft(w * x.real)))
+    wr, wi = w * x.real, w * x.imag
+    return (tfft.fftshift(torch.complex(*_fft1024(wr, wi))),
+            tfft.fftshift(torch.complex(*_fft1024(wr, torch.zeros_like(wi)))))
 
 
 def _optimize_core(base: torch.Tensor, image: torch.Tensor,
                    factors: torch.Tensor, passes: int = 25) -> torch.Tensor:
     """The greedy descent for every channel at once: base/image (C, nfft),
-    factors (C, 2) -> new (C, 2) factors (unsmoothed)."""
+    factors (C, 2) -> new (C, 2) factors (unsmoothed).  A pass takes the
+    first candidate of the largest utility, if it beats the current one;
+    so does the kernel."""
     ch = factors.shape[0]
     step = _moves(str(factors.device))
     rows = torch.arange(ch, device=factors.device)
@@ -151,12 +241,17 @@ def _optimize_core(base: torch.Tensor, image: torch.Tensor,
     for _ in range(passes):
         cands = cur[None, :, :] + step[:, None, :]                 # (4, C, 2)
         us = _utility(_spectrum_db(base, image, cands[..., 0], cands[..., 1]))
-        best = torch.argmax(us, dim=0)                             # (C,)
-        best_u = us[best, rows]
-        better = best_u > cur_u
+        best, better = _best_move(us, cur_u)
         cur = torch.where(better[:, None], cands[best, rows], cur)
-        cur_u = torch.where(better, best_u, cur_u)
+        cur_u = torch.where(better, us[best, rows], cur_u)
     return cur
+
+
+def _best_move(us: torch.Tensor, cur_u: torch.Tensor):
+    """A pass's rule on (4, C) candidate utilities: (C,) the first
+    candidate of the largest utility, and whether it beats ``cur_u``."""
+    best = torch.argmax(us, dim=0)
+    return best, us[best, torch.arange(us.shape[1], device=us.device)] > cur_u
 
 
 def maybe_update_planar(xr, xi, state: IqState, interval_samples: int,

@@ -1190,10 +1190,9 @@ _EST_TICKETS: dict = {}   # (device index, stream) -> the estimator's ticket
 def _est_consts(device: str):
     """(window, twiddles) of the estimator kernel on `device`: the float32
     Hamming window and exp(-2 pi i k / 1024) from float64, made once."""
-    n = C.IQ_FFT_SIZE
-    tw = np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64)
-    return (iq_balance._window(n, device),
-            torch.from_numpy(tw.view(np.float32).copy()).to(device))
+    _, _, t_r, t_i = iq_balance._fft_consts(device)
+    return (iq_balance._window(C.IQ_FFT_SIZE, device),
+            torch.stack([t_r, t_i], dim=-1).contiguous())
 
 
 def _est_ticket(dev: torch.device) -> torch.Tensor:

@@ -106,6 +106,24 @@ def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConf
     raise ValueError(f"unknown configuration {name!r}")
 
 
+# BASELINE's five configs: tools/bench_all.py's long names -> bench.py's
+# short names (the keys of its "configs") and this module's
+BASELINE_CONFIGS = {
+    "1: raw cs16 -> resample -> cs16": ("1_raw_resample", "1"),
+    "2: wav16 -> shift +250k -> resample -> lowpass": ("2_shift_lowpass", "2"),
+    "3: cu8 -> dc -> fft band-pass -> resample -> cs16": ("3_cu8_fft_bandpass", "3"),
+    "4: full chain (shift+iq+notch+resample+shift+agc)": ("4_full_notch", "4"),
+    "5: 64-channel full chain (DP batch)": ("5_dp_batch", "5"),
+}
+
+
+def make_configs(channels: int = CHANNELS, block: int = BLOCK) -> dict:
+    """The five BASELINE configs under tools/bench_all.py's long names
+    (``make_configs`` there), #5 at max(64, channels) channels."""
+    return {long: config(name, max(64, channels) if name == "5" else channels, block)
+            for long, (_, name) in BASELINE_CONFIGS.items()}
+
+
 def make_chain(name: str, device="cuda"):
     """The chain a profile name stands for: a CONFIGS name, "c1"/"4c1"
     the flagship/config #4 as one stream at STREAM_BLOCK frames a row,

@@ -10,7 +10,10 @@ Bounds, each with its reason:
   greedy descent's argmax can pick another diagonal move: 2 moves of
   1e-4, times the 0.05 smoothing, per update so far; the counter exact;
 * against the former composition: byte-identical (the same tensor ops);
-* the emulations: float64, to 1e-9 of the spectrum's peak or exact.
+* the emulations: float64, to 1e-9 of the spectrum's peak or exact;
+  the twin's FFT and band sums against float32 and float64 emulations of
+  the kernel's operations: bit for bit (the two must decide alike on a
+  near-tie of two candidates).
 """
 
 import numpy as np
@@ -311,3 +314,170 @@ def test_estimate_wrapper_on_cpu_is_the_twin():
     assert kernels.iq_estimate.launches == before and cnt is None
     assert torch.equal(fac, iq_balance.calibrate(x))
     assert (gate > C.IQ_POWER_GATE_DB).all()
+
+
+# ------------------------------------------- near-ties: the twin rounds as the kernel
+
+def _f32_dft32(xr, xi, w_r, w_i):
+    """csrc/iq_est.cu dft32 over 32 float32 registers (each a numpy array
+    over the channels), each operation rounded: rot32 keeps k = 0, swaps
+    at k = 8 and multiplies by kW32 otherwise."""
+    xr, xi = list(xr), list(xi)
+    for b in range(4, -1, -1):
+        for j in range(32):
+            if j & (1 << b):
+                continue
+            ur, ui, vr, vi = xr[j], xi[j], xr[j + (1 << b)], xi[j + (1 << b)]
+            xr[j], xi[j] = ur + vr, ui + vi
+            dr, di = ur - vr, ui - vi
+            k = (j & ((1 << b) - 1)) << (4 - b)
+            if k == 8:
+                dr, di = di, -dr
+            elif k:
+                dr, di = dr * w_r[k] - di * w_i[k], dr * w_i[k] + di * w_r[k]
+            xr[j + (1 << b)], xi[j + (1 << b)] = dr, di
+    return xr, xi
+
+
+def _f32_fft1024(xr, xi):
+    """csrc/iq_est.cu fft1024 in float32, lane by lane: (C, 1024) planes in,
+    natural order out."""
+    w = np.exp(-2j * np.pi * np.arange(16) / 32).astype(np.complex64)
+    tw = np.exp(-2j * np.pi * np.arange(1024) / 1024).astype(np.complex64)
+    ch = xr.shape[0]
+    br, bi = np.zeros((ch, 1056), np.float32), np.zeros((ch, 1056), np.float32)
+    for j in range(32):
+        rr, ri = _f32_dft32([xr[:, j + 32 * n] for n in range(32)],
+                            [xi[:, j + 32 * n] for n in range(32)], w.real, w.imag)
+        for r in range(32):
+            k1 = _brev5(r)
+            t = tw[(j * k1) & 1023]
+            if k1 == 0:
+                br[:, j * 33], bi[:, j * 33] = rr[r], ri[r]
+            else:
+                br[:, j * 33 + k1] = rr[r] * t.real - ri[r] * t.imag
+                bi[:, j * 33 + k1] = rr[r] * t.imag + ri[r] * t.real
+    out_r, out_i = np.zeros((ch, 1024), np.float32), np.zeros((ch, 1024), np.float32)
+    for j in range(32):
+        rr, ri = _f32_dft32([br[:, i * 33 + j] for i in range(32)],
+                            [bi[:, i * 33 + j] for i in range(32)], w.real, w.imag)
+        for r in range(32):
+            out_r[:, j + 32 * _brev5(r)], out_i[:, j + 32 * _brev5(r)] = rr[r], ri[r]
+    return out_r, out_i
+
+
+def test_twin_fft_is_the_kernels_fft():
+    """iq_balance._fft1024 (the twin's spectra) performs the kernel's
+    float32 operations in the kernel's order: bit-identical to a lane-by-
+    lane float32 emulation of fft1024, and an FFT (numpy.fft within
+    float32 rounding, 1e-6 of the peak)."""
+    rng = np.random.default_rng(15)
+    x = (rng.standard_normal((3, 1024)) + 1j * rng.standard_normal((3, 1024))) \
+        .astype(np.complex64)
+    got_r, got_i = iq_balance._fft1024(torch.from_numpy(x.real.copy()),
+                                       torch.from_numpy(x.imag.copy()))
+    want_r, want_i = _f32_fft1024(x.real.copy(), x.imag.copy())
+    assert np.array_equal(got_r.numpy(), want_r) and np.array_equal(got_i.numpy(), want_i)
+    ref = np.fft.fft(x.astype(np.complex128))
+    assert np.abs(want_r + 1j * want_i - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+def _cta_sum4_f32(v):
+    """csrc/iq_est.cu cta_sum4 on one value's (16 warps, 32 lanes) float32
+    terms, each addition rounded to float32: the lanes' exchanges at 16,
+    8, 4, 2, 1, then the warp sums read in pairs and exchanged at 4, 2, 1
+    (test_cta_sum4_lanes)."""
+    lane = np.arange(32)
+    red = np.zeros(16, np.float32)
+    for w in range(16):
+        s = v[w] + v[w][lane ^ 16]
+        for off in (8, 4, 2, 1):
+            s = s + s[lane ^ off]
+        red[w] = s[0]
+    i = np.arange(8)
+    tot = red[2 * i] + red[2 * i + 1]
+    for off in (4, 2, 1):
+        tot = tot + tot[i ^ off]
+    return tot[0]
+
+
+def test_band_sum_is_the_kernels_tree():
+    """iq_balance._band_sum, which the twin's utility and gate take, sums
+    bin t's float32 term on thread t's lane of the kernel's float64
+    reduction: bit-identical to the emulated tree in float32, zero past
+    the band, and another sum than float32 in bin order."""
+    rng = np.random.default_rng(16)
+    lo, hi = iq_balance.band_edges(1024)
+    terms = (rng.standard_normal((4, hi - lo)) * 10.0 ** rng.uniform(-3, 4, (4, hi - lo))) \
+        .astype(np.float32)
+    got = iq_balance._band_sum(torch.from_numpy(terms)).numpy()
+    assert got.dtype == np.float32
+    flat = np.zeros(4, np.float32)
+    for t in range(hi - lo):
+        flat = flat + terms[:, t]
+    for row, g in zip(terms, got):
+        pad = np.zeros(512, np.float32)
+        pad[:hi - lo] = row
+        assert g == _cta_sum4_f32(pad.reshape(16, 32))
+    assert (got != flat).any()
+
+
+def _db_spectrum(p_pos, p_neg):
+    """A shifted (C, 1024) dB spectrum holding the band's two sides."""
+    lo, hi = iq_balance.band_edges(1024)
+    spec = np.full((len(p_pos), 1024), -120.0, np.float32)
+    spec[:, lo:hi] = p_neg
+    spec[:, 1024 - hi:1024 - lo] = np.asarray(p_pos)[:, ::-1]
+    return torch.from_numpy(spec)
+
+
+def test_near_tie_decided_by_the_kernels_tree():
+    """Two candidates whose order flips between a float32 sum and the
+    kernel's tree: A's terms are one 4096 dB difference squared (2^24)
+    and 200 of 1 (exact 16777416), B's one (4096 + 3/128)^2 (16777408.0005).
+    A float32 sum in bin order drops A's small terms and ranks B first;
+    the twin's sum in the kernel's tree adds them in pairs first, reads
+    16777416 and ranks A first, and the pass takes A.  On an exact tie
+    it takes the first candidate; a candidate equal to the current utility
+    does not move."""
+    lo, hi = iq_balance.band_edges(1024)
+    nb = hi - lo
+    p_neg = np.full((2, nb), -100.0, np.float32)     # both below the floor: no term
+    p_pos = np.full((2, nb), -100.0, np.float32)
+    p_neg[0, :201], p_neg[1, 0] = 0.0, 0.0
+    p_pos[0, 0], p_pos[0, 1:201] = 4096.0, 1.0
+    p_pos[1, 0] = 4096.0 + 3 / 128
+    terms = np.where((p_pos > -80) | (p_neg > -80), (p_pos - p_neg) ** 2, 0).astype(np.float32)
+    flat = [np.float32(0)] * 2
+    for c in range(2):
+        for t in terms[c]:
+            flat[c] = np.float32(flat[c] + t)
+    assert flat[1] > flat[0]                          # float32 in order: B
+    u = iq_balance._utility(_db_spectrum(p_pos, p_neg))
+    assert u[0] == 16777416.0 and u[0] > u[1]
+    # (4 candidates, 2 channels): B, A, A, B from 0, and A four times from A
+    ua, ub = u[0], u[1]
+    us = torch.stack([torch.stack([ub, ua, ua, ub]), ua.expand(4)], dim=1)
+    best, better = iq_balance._best_move(us, torch.stack([torch.zeros_like(ua), ua]))
+    assert best.tolist() == [1, 0] and better.tolist() == [True, False]
+
+
+def test_exact_tie_takes_the_first_candidate():
+    """A descent pass on spectra whose utility is even in phi (real base
+    and image, phi = 0): the candidates (g - s, +s) and (g - s, -s) tie
+    exactly and beat (g + s, +-s); the pass takes the first, (-s, +s), as
+    the kernel's strict comparison does."""
+    lo, hi = iq_balance.band_edges(1024)
+    base = np.zeros((1, 1024), np.complex64)
+    image = np.zeros((1, 1024), np.complex64)
+    base[0, lo:hi] = 1024.0                           # p_neg: 0 dB, no image
+    base[0, 1024 - hi:1024 - lo] = 0.1 * 1024.0        # p_pos: -20 dB ...
+    image[0, 1024 - hi:1024 - lo] = 1024.0             # ... plus (g + i phi)
+    b, m = torch.from_numpy(base), torch.from_numpy(image)
+    f0 = torch.zeros((1, 2))
+    s = np.float32(STEP)
+    cands = f0 + torch.from_numpy(np.float32(STEP) * iq_balance._DIRS)
+    us = iq_balance._utility(iq_balance._spectrum_db(b, m, cands[:, :1], cands[:, 1:]))
+    assert us[2] == us[3] and us[2] > us[0]
+    got = iq_balance._optimize_core(b, m, f0, passes=1)
+    assert got.tolist() == [[-s, s]]
