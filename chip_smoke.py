@@ -89,7 +89,8 @@ first failure:
    (config #4 as one stream at the CLI's automatic fold): 10 replays of
    distinct blocks with a reset at the fifth and a carry handed in from
    carry_from_numpy at the eighth, every output and carry bit-identical
-   to the eager step's; the kernels each capture recorded; then eager
+   to the eager step's; the kernels each capture recorded; its stage map
+   (GraphedStep.stages) counting every device node of the graph; then eager
    and graphed steps timed in turns (eager, graph, graph, eager) by
    profile_steps: wall, busy, kernels and copies a step, idle, and the
    graph's device kernels held against the eager step's; then configs
@@ -1780,6 +1781,12 @@ def main() -> int:
                  f"expected {path} x {GRAPH_STEPS}")
         if name == "4" and not any(k > 0 for k in due):
             fail("[graph] config #4: no I/Q update fell due after the first step")
+        mapped = sum(n for _, n in g.stages)
+        say(f"[graph] {label}: the stage map {g.stages}, {mapped} device nodes of the "
+            f"graph's {g.graph_nodes}")
+        if mapped != g.graph_nodes:
+            fail(f"[graph] {label}: the stage map counts {mapped} device nodes, the graph "
+                 f"holds {g.graph_nodes}")
         graph_kernels[label] = (g.kernels, g.replays)
         del blocks, want, g, carry, out, ch_
         in_turns("graph", name, label)

@@ -12,8 +12,10 @@ without a card is an error; nothing falls back to the CPU.  The mesh
 flags shard the chain over the visible cards (``parallel/sharded.py``);
 with ``--device cpu`` the CPU stands in for CPU_MESH_DEVICES devices, as
 the reference's tests give JAX eight virtual CPU devices.  ``--profile-dir``
-writes a torch.profiler trace (CPU activity, plus the card's kernels on
-CUDA) that Perfetto or chrome://tracing opens.
+writes a torch.profiler trace (CPU activity on every thread, so the
+engine's reader and writer spans too, plus the card's kernels on CUDA)
+that Perfetto or chrome://tracing opens.  The final summary gives the
+median of each of the engine's spans (``pipeline/runtime.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 import os
 import re
 import signal
+import statistics
 import sys
 import time
 
@@ -405,17 +408,30 @@ def _check_preset_pseudo_flags(parser, argv) -> None:
                 f"applied with --preset {name}")
 
 
+def _span_medians(serial: int) -> dict:
+    """{span name: its median ms and count} of the engine's spans of the
+    run ``serial`` (the newest spans the record holds)."""
+    from iq_tool_tpu_torch.pipeline import trace
+    ms: dict = {}
+    for sp in trace.record():
+        if sp.run == serial and sp.name.startswith("engine."):
+            ms.setdefault(sp.name, []).append((sp.end_ns - sp.start_ns) / 1e6)
+    return {name: f"{statistics.median(v):.3f} ms (x{len(v)})" for name, v in ms.items()}
+
+
 def _run(engine, profile_dir, on_cuda: bool, log):
     """engine.run(), under torch.profiler when a profile directory is
-    given: CPU activity, plus CUDA on the card, synchronised before the
-    trace closes so the last steps' kernels are in it."""
+    given: CPU activity on every thread (the engine's reader and writer
+    too), plus CUDA on the card, synchronised before the trace closes so
+    the last steps' kernels are in it."""
     if not profile_dir:
         return engine.run()
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    every_thread = torch.profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=acts, experimental_config=every_thread) as prof:
         s = engine.run()
         if on_cuda:
             torch.cuda.synchronize()
@@ -560,6 +576,9 @@ def main(argv=None) -> int:
                 "Average Speed": f"{s.avg_mb_per_sec:.2f} MB/s",
                 "Status": "interrupted" if s.interrupted else "complete",
             })
+            if engine.serial is not None:
+                _print_summary_table("Engine Spans (median, count)",
+                                     _span_medians(engine.serial))
         return 130 if s.interrupted else 0
     except (ValueError, OSError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)

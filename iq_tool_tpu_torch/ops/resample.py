@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.ops import banded, kernels
 from iq_tool_tpu_torch.ops.fir_design import kaiser_beta as _kaiser_beta
+from iq_tool_tpu_torch.pipeline.trace import span
 
 
 def rationalize(ratio: float, max_denom: int = C.RESAMP_MAX_DENOM) -> tuple[int, int]:
@@ -361,7 +362,8 @@ class Resampler:
         last = len(self.stages) - 1
         y = (xr, xi)
         for i, (stage, (sr, si)) in enumerate(zip(self.stages, state)):
-            y, nr, ni = stage.apply_planar(*y, sr, si,
-                                           pack_fmt=pack_fmt if i == last else None)
+            with span(f"chain.resample.{i}"):
+                y, nr, ni = stage.apply_planar(*y, sr, si,
+                                               pack_fmt=pack_fmt if i == last else None)
             new_states.append((nr, ni))
         return y, tuple(new_states)

@@ -53,6 +53,7 @@ from iq_tool_tpu_torch.ops.filters import StreamingFilter
 from iq_tool_tpu_torch.ops.fir_design import (FilterRequest, design_chain,
                                               max_filter_freq_hz)
 from iq_tool_tpu_torch.ops.resample import Resampler, _MatmulStage
+from iq_tool_tpu_torch.pipeline.trace import span
 
 _PACKED_INPUTS = ("cs16", "sc16q11", "cu16", "cu8", "cs8")
 
@@ -283,7 +284,8 @@ class Chain:
             return new, self._wire_resample_step(raw, carry, new)
         xr, xi = self._pre(raw, carry, new)
         if self.pre_filter is not None:
-            xr, xi, nr, ni = self.pre_filter.apply_planar(xr, xi, *carry["pre_f"])
+            with span("chain.pre_filter"):
+                xr, xi, nr, ni = self.pre_filter.apply_planar(xr, xi, *carry["pre_f"])
             new["pre_f"] = (nr, ni)
         convert_only = not self.dtheta_post and self.agc_cfg is None
         if self.resampler is not None:
@@ -294,33 +296,41 @@ class Chain:
                 return new, convert.packed_to_wire(y, self.fmt_out)
             (xr, xi), new["rs"] = self.resampler.apply_planar(xr, xi, carry["rs"])
         if self.post_filter is not None:
-            if convert_only and self.pack_fmt:
-                res = self.post_filter.apply_planar_packed(
-                    xr, xi, *carry["post_f"], out_fmt=self.pack_fmt)
-                if res is not None:
+            with span("chain.post_filter"):
+                res = None
+                if convert_only and self.pack_fmt:
+                    res = self.post_filter.apply_planar_packed(
+                        xr, xi, *carry["post_f"], out_fmt=self.pack_fmt)
+                if res is None:
+                    xr, xi, nr, ni = self.post_filter.apply_planar(xr, xi, *carry["post_f"])
+                else:
                     y, nr, ni = res
-                    new["post_f"] = (nr, ni)
-                    return new, convert.packed_to_wire(y, self.fmt_out)
-            xr, xi, nr, ni = self.post_filter.apply_planar(xr, xi, *carry["post_f"])
             new["post_f"] = (nr, ni)
-        if self.pack_fmt and not convert_only:
-            return new, self._fused_post(xr, xi, carry, new, rows)
-        return new, self._plain_post(xr, xi, carry, new, rows)
+            if res is not None:
+                return new, convert.packed_to_wire(y, self.fmt_out)
+        with span("chain.post"):
+            if self.pack_fmt and not convert_only:
+                return new, self._fused_post(xr, xi, carry, new, rows)
+            return new, self._plain_post(xr, xi, carry, new, rows)
 
     def _pre(self, raw, carry: dict, new: dict):
         """Convert + [DC block + I/Q + pre-NCO]: contiguous (xr, xi)."""
         cfg = self.cfg
         if cfg.dc_block:
             return self._fused_pre(raw, carry, new)
-        xr, xi = convert.to_planar(raw, self.fmt_in, cfg.gain)
+        with span("chain.pre"):
+            xr, xi = convert.to_planar(raw, self.fmt_in, cfg.gain)
         if cfg.iq_correction:
-            new["iq"] = iq_balance.maybe_update_planar(xr, xi, carry["iq"],
-                                                       self.iq_interval)
-            xr, xi = iq_balance.apply_planar(xr, xi, new["iq"].factors)
-        if self.dtheta_pre:
-            xr, xi, new["nco_pre"] = nco.apply_planar(xr, xi, carry["nco_pre"],
-                                                      self.dtheta_pre)
-        return xr.contiguous(), xi.contiguous()
+            with span("chain.iq_estimate"):
+                new["iq"] = iq_balance.maybe_update_planar(xr, xi, carry["iq"],
+                                                           self.iq_interval)
+        with span("chain.pre"):
+            if cfg.iq_correction:
+                xr, xi = iq_balance.apply_planar(xr, xi, new["iq"].factors)
+            if self.dtheta_pre:
+                xr, xi, new["nco_pre"] = nco.apply_planar(xr, xi, carry["nco_pre"],
+                                                          self.dtheta_pre)
+            return xr.contiguous(), xi.contiguous()
 
     def _fused_pre(self, raw, carry: dict, new: dict):
         """K3: DC block + I/Q apply + pre-NCO in one pass, over the packed
@@ -330,30 +340,33 @@ class Chain:
         block's IQ_FFT_SIZE-frame prefix itself, from the carried DC
         state, ahead of K3."""
         cfg = self.cfg
-        packed = convert.wire_pack(raw, self.fmt_in)
-        if packed is None:
-            xr, xi = (p.contiguous() for p in convert.to_planar(raw, self.fmt_in,
-                                                                 cfg.gain))
-            wire, kind, norm = None, "cs16", 0.0
-        else:
-            (wire, kind), xr, xi = packed, None, None
-            norm = self.fmt_in.normalizer
+        with span("chain.pre"):
+            packed = convert.wire_pack(raw, self.fmt_in)
+            if packed is None:
+                xr, xi = (p.contiguous() for p in convert.to_planar(raw, self.fmt_in,
+                                                                     cfg.gain))
+                wire, kind, norm = None, "cs16", 0.0
+            else:
+                (wire, kind), xr, xi = packed, None, None
+                norm = self.fmt_in.normalizer
         n = (wire if wire is not None else xr).shape[-1]
         state = carry["dc"]
         factors = None
         if cfg.iq_correction:
-            new["iq"] = iq_balance.maybe_update_planar(
-                xr, xi, carry["iq"], self.iq_interval, dc_state=state,
-                dc_alpha=self.dc_alpha, wire_i32=wire, wire_norm=norm,
-                wire_gain=cfg.gain, wire_kind=kind)
+            with span("chain.iq_estimate"):
+                new["iq"] = iq_balance.maybe_update_planar(
+                    xr, xi, carry["iq"], self.iq_interval, dc_state=state,
+                    dc_alpha=self.dc_alpha, wire_i32=wire, wire_norm=norm,
+                    wire_gain=cfg.gain, wire_kind=kind)
             factors = new["iq"].factors
         dth = self.dtheta_pre
-        yr, yi, new["dc"] = kernels.dc_block_apply(
-            xr, xi, state, self.dc_alpha, factors,
-            carry["nco_pre"] if dth else None, dth, wire_i32=wire,
-            wire_norm=norm, wire_gain=cfg.gain, wire_kind=kind)
-        if dth:
-            new["nco_pre"] = nco.advance(carry["nco_pre"], n, dth)
+        with span("chain.pre"):
+            yr, yi, new["dc"] = kernels.dc_block_apply(
+                xr, xi, state, self.dc_alpha, factors,
+                carry["nco_pre"] if dth else None, dth, wire_i32=wire,
+                wire_norm=norm, wire_gain=cfg.gain, wire_kind=kind)
+            if dth:
+                new["nco_pre"] = nco.advance(carry["nco_pre"], n, dth)
         return yr, yi
 
     def _fused_post(self, xr, xi, carry: dict, new: dict, rows: int = 1):
@@ -404,6 +417,27 @@ class Chain:
         """Packed wire -> [DC] -> [NCO] -> resampler -> wire: stage 0
         decodes the wire in its prologue (K1 with the DC block, else K2),
         the last stage packs the output."""
+        stages = self.resampler.stages
+        with span("chain.resample.0"):
+            y, tr, ti = self._wire_stage0(raw, carry, new)
+        new_rs = [(tr, ti)]
+        last = len(stages) - 1
+        for i, stage in enumerate(stages[1:], start=1):
+            s_r, s_i = carry["rs"][i]
+            with span(f"chain.resample.{i}"):
+                y, nr, ni = stage.apply_planar(
+                    *y, s_r, s_i, pack_fmt=self.pack_fmt if i == last else None)
+            new_rs.append((nr, ni))
+        new["rs"] = tuple(new_rs)
+        if self.pack_fmt:
+            return convert.packed_to_wire(y, self.fmt_out)
+        with span("chain.post"):
+            return convert.from_planar(*y, self.fmt_out)
+
+    def _wire_stage0(self, raw, carry: dict, new: dict):
+        """The resampler's stage 0 over the packed wire (K1 with the DC
+        block, else K2 and the carried history's planes): (its output,
+        the new history's planes)."""
         cfg = self.cfg
         wire, kind = convert.wire_pack(raw, self.fmt_in)
         stages = self.resampler.stages
@@ -437,17 +471,7 @@ class Chain:
             tr, ti = tr.contiguous(), ti.contiguous()
         if dth:
             new["nco_pre"] = nco.advance(carry["nco_pre"], n_frames, dth)
-        new_rs = [(tr, ti)]
-        last = len(stages) - 1
-        for i, stage in enumerate(stages[1:], start=1):
-            s_r, s_i = carry["rs"][i]
-            y, nr, ni = stage.apply_planar(
-                *y, s_r, s_i, pack_fmt=self.pack_fmt if i == last else None)
-            new_rs.append((nr, ni))
-        new["rs"] = tuple(new_rs)
-        if self.pack_fmt:
-            return convert.packed_to_wire(y, self.fmt_out)
-        return convert.from_planar(*y, self.fmt_out)
+        return y, tr, ti
 
     # --------------------------- accounting -----------------------------------
 

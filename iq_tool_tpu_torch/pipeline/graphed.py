@@ -21,6 +21,7 @@ small carry tensors are copied; the block never is).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import time
 
@@ -28,6 +29,7 @@ import torch
 
 from iq_tool_tpu_torch.ops import convert
 from iq_tool_tpu_torch.parallel.sharded import ShardedChain, sharded_eager_reason
+from iq_tool_tpu_torch.pipeline import trace
 from iq_tool_tpu_torch.pipeline.chain import Chain
 from iq_tool_tpu_torch.pipeline.folded import FoldedChain
 
@@ -65,6 +67,36 @@ def _copy(pairs) -> None:
         srcs.append(s)
     for dsts, srcs in groups.values():
         torch._foreach_copy_(dsts, srcs)
+
+
+def _capture_nodes(lib, stream) -> int:
+    """The device nodes (kernels, memcpys, memsets) of the graph that
+    ``stream`` is capturing into."""
+    counts = (ctypes.c_longlong * 4)()
+    rc = lib.iq_capture_nodes(ctypes.c_void_p(stream.cuda_stream), counts)
+    if rc != 0:
+        raise RuntimeError(f"reading the capture's nodes: CUDA error {rc}")
+    return counts[0] + counts[1] + counts[2]
+
+
+def _stage_map(marks: list) -> list:
+    """[(span name, device nodes)] in capture order from a capture's marks
+    ((name, opening, nodes so far) as each span opened and closed): each
+    node goes to the innermost span open when it was captured, a node
+    captured outside every span to none."""
+    stages, stack, last = [], [], 0
+    for name, opening, nodes in marks:
+        if stack and nodes > last:
+            if stages and stages[-1][0] == stack[-1] and stages[-1][2] == last:
+                stages[-1][1:] = [stages[-1][1] + nodes - last, nodes]
+            else:
+                stages.append([stack[-1], nodes - last, nodes])
+        last = nodes
+        if opening:
+            stack.append(name)
+        else:
+            stack.pop()
+    return [(name, n) for name, n, _ in stages]
 
 
 def eager_reason(chain) -> str | None:
@@ -138,6 +170,15 @@ class GraphedStep:
     The kernels' ``launches`` counters count host calls, so a replay does
     not move them: ``kernels`` holds their change during the capture
     (the kernels a replay launches), ``replays`` the steps taken.
+
+    ``stages`` is the capture's stage map: [(span name, device nodes)] in
+    capture order, each of the step's spans (``chain.*``, ``graph.carry``;
+    ``pipeline/trace.py``) with the kernels, memcpys and memsets captured
+    inside it, the parts' maps one after another; ``graph_nodes`` counts
+    the graphs' device nodes, so the map covers the step when their
+    totals agree.  A replay runs a one-part step's nodes in capture order
+    (the capture is one stream's), so its k-th device event belongs to
+    the map's k-th node (``profile_steps`` splits a replay's time so).
     """
 
     def __init__(self, chain: Chain | FoldedChain | ShardedChain):
@@ -174,6 +215,8 @@ class GraphedStep:
         self._scratch: list = []
         self._out = None
         self.kernels: dict | None = None
+        self.stages: list = []
+        self.graph_nodes = 0
         self.replays = 0
         self.capture_sec = 0.0
 
@@ -225,7 +268,8 @@ class GraphedStep:
                     or any(_same_storage(o, d) for o in outs)):
                 raise RuntimeError("a step's output or new carry aliases the static "
                                    "carry it overwrites")
-        _copy(moved)
+        with trace.span("graph.carry"):
+            _copy(moved)
         return out
 
     def capture(self) -> None:
@@ -236,7 +280,7 @@ class GraphedStep:
             return
         from iq_tool_tpu_torch.ops import _build, kernels
         t0 = time.perf_counter()
-        _build.library()
+        lib = _build.library()
         self.kernels = {}
         for part in self._parts:
             with torch.cuda.device(part.device):
@@ -248,8 +292,13 @@ class GraphedStep:
                 self._scratch += kernels.stream_scratch(part.device, stream)
                 before = kernels.launch_counts()
                 graph = torch.cuda.CUDAGraph()
+                marks = []
                 with torch.cuda.graph(graph, stream=stream):
-                    part.out = self._body(part)
+                    with trace.observe(lambda name, opening: marks.append(
+                            (name, opening, _capture_nodes(lib, stream)))):
+                        part.out = self._body(part)
+                    self.graph_nodes += _capture_nodes(lib, stream)
+                self.stages += _stage_map(marks)
                 after = kernels.launch_counts()
                 for k in after:
                     if after[k] != before[k]:

@@ -23,6 +23,20 @@ partial block with zeros and trims the output to exactly
 floor(valid_in * P/Q) frames; stream discontinuities set the step's
 reset flag.
 
+Every block's work is a span (``pipeline/trace.py``) under the run's
+serial and the block's index: on the reader thread ``engine.source``
+(the sources' blocks) and ``engine.assemble`` (a block's bytes a channel
+cut from them); on the main thread ``engine.wait_input`` (the reader's
+queue), ``engine.stack``, ``engine.pin``, ``engine.h2d``, ``engine.step``,
+``engine.d2h`` (the pinned output, its copy and event) and
+``engine.wait_output`` (the writer's queue); on the writer thread
+``engine.wait_device`` and ``engine.write``; and ``engine.transit``, from
+the reader's hand-over of the block to the writer's return from its last
+sink.  Around them the main thread's ``engine.start``,
+``engine.checkpoint`` and ``engine.drain`` (the flush and the threads'
+stop after the last block), so that it is inside a span from ``run``'s
+start to its return.
+
 With a checkpoint path the engine saves (carry, frames in, frames out)
 every ``checkpoint_interval_sec`` and at the end, each time after the
 writer has flushed, so the cut is consistent: everything consumed has
@@ -41,6 +55,7 @@ block boundary.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import queue as queue_mod
 import threading
@@ -54,6 +69,7 @@ from iq_tool_tpu_torch.modules.base import OutputClosed
 from iq_tool_tpu_torch.pipeline.chain import Chain
 from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, eager_reason
+from iq_tool_tpu_torch.pipeline.trace import add as add_span, now_ns, new_run, span
 
 
 @dataclasses.dataclass
@@ -72,17 +88,19 @@ class StreamSummary:
 
 
 class _Writer:
-    """Drains (host tensor, ready event, emit_frames) items in FIFO order:
-    waits for the copy-back, splits per channel, writes each sink.  The
-    bounded queue is the device pipeline: up to ``depth`` steps stay in
-    flight before the oldest one is waited on."""
+    """Drains (host tensor, ready event, emit_frames, block, hand-over
+    stamp) items in FIFO order: waits for the copy-back, splits per
+    channel, writes each sink.  The bounded queue is the device pipeline:
+    up to ``depth`` steps stay in flight before the oldest one is waited
+    on."""
 
     def __init__(self, sinks, items_per_frame: int,
-                 summary: StreamSummary, depth: int):
+                 summary: StreamSummary, depth: int, run: int):
         self._sinks = sinks
         self._items = items_per_frame
         self._q = queue_mod.Queue(maxsize=max(1, depth))
         self._summary = summary
+        self._serial = run
         self.closed = False            # an OutputClosed arrived
         self.dropped = False           # items discarded after close
         self.error: BaseException | None = None
@@ -90,8 +108,8 @@ class _Writer:
                                         name="iq-writer")
         self._thread.start()
 
-    def put(self, host: torch.Tensor, ready, emit: int) -> None:
-        self._q.put((host, ready, emit))
+    def put(self, host: torch.Tensor, ready, emit: int, block: int, handed_ns: int) -> None:
+        self._q.put((host, ready, emit, block, handed_ns))
 
     def flush(self) -> None:
         self._q.join()
@@ -111,17 +129,20 @@ class _Writer:
             if item is None:
                 self._q.task_done()
                 return
-            host, ready, emit = item
+            host, ready, emit, block, handed_ns = item
             try:
                 if self.closed:
                     self.dropped = True
                 else:
-                    if ready is not None:
-                        ready.synchronize()
-                    arr = host.numpy()
-                    n_items = emit * self._items
-                    for c, sink in enumerate(self._sinks):
-                        sink.write(arr[c, :n_items].tobytes())
+                    with span("engine.wait_device", block, self._serial):
+                        if ready is not None:
+                            ready.synchronize()
+                    with span("engine.write", block, self._serial):
+                        arr = host.numpy()
+                        n_items = emit * self._items
+                        for c, sink in enumerate(self._sinks):
+                            sink.write(arr[c, :n_items].tobytes())
+                    add_span("engine.transit", handed_ns, now_ns(), self._serial, block)
                     self._summary.frames_out += emit
                     self._summary.bytes_out += (n_items * arr.itemsize
                                                 * len(self._sinks))
@@ -137,9 +158,10 @@ class _Writer:
 
 class _Reader:
     """Pumps assembled chunks from a generator into a bounded queue so
-    source I/O overlaps device work."""
+    source I/O overlaps device work; each chunk goes with the moment it
+    was handed over (``trace.now_ns``)."""
 
-    _EOS = ("eos", None, 0, False)
+    _EOS = ("eos", None, 0, False, 0)
 
     def __init__(self, gen, depth: int = C.HOST_QUEUE_DEPTH):
         self._q = queue_mod.Queue(maxsize=max(1, depth))
@@ -174,10 +196,10 @@ class _Reader:
     def _run(self) -> None:
         try:
             for item in self._gen:
-                if not self._put(("chunk",) + item):
+                if not self._put(("chunk",) + item + (now_ns(),)):
                     return
         except BaseException as e:
-            self._put(("err", e, 0, False))
+            self._put(("err", e, 0, False, 0))
             return
         self._put(self._EOS)
 
@@ -229,6 +251,7 @@ class StreamEngine:
             raise ValueError("raw passthrough is single-stream")
         self.stepper = (GraphedStep(chain) if chain is not None and eager_reason(chain) is None
                         else chain)
+        self.serial: int | None = None     # the newest run's serial (its spans')
 
     def prepare(self) -> None:
         """Build the kernels and capture the step's graph now (the first
@@ -260,161 +283,198 @@ class StreamEngine:
 
     # ----------------------------------------------------- chunk assembly
 
-    def _gen_single(self, block_bytes: int, bpf: int, skip_bytes: int):
+    def _gen_single(self, block_bytes: int, bpf: int, skip_bytes: int, run: int):
         """Single-channel chunk generator; drains the pre-gap remainder of
-        a discontinuity as its own short block."""
+        a discontinuity as its own short block.  A source block that
+        completes several blocks is one ``engine.assemble``, under the
+        first of them; the spans of the end of the stream, which makes
+        no block, have none."""
         buf = bytearray()
         pending_reset = False
         src = self.sources[0].blocks(block_bytes // bpf)
+        k = 0                           # the index of the block being filled
         while True:
-            block = next(src, None)
-            if block is None:
-                if buf:
+            with span("engine.source", k, run) as sp:
+                block = next(src, None)
+                if block is None and len(buf) < bpf:
+                    sp.block = None
+            if block is None or (block.discontinuity and buf):
+                with span("engine.assemble", k, run) as sp:
                     valid = len(buf) // bpf
-                    if valid:
-                        yield ([bytes(buf[:valid * bpf])], valid,
-                               pending_reset)
+                    chunk = bytes(buf[:valid * bpf])
+                    buf.clear()
+                    if not valid:
+                        sp.block = None
+                if valid:
+                    yield [chunk], valid, pending_reset
+                    k += 1
+            if block is None:
                 return
             if block.discontinuity:
-                if buf:
-                    valid = len(buf) // bpf
-                    if valid:
-                        yield [bytes(buf[:valid * bpf])], valid, pending_reset
-                    buf.clear()
                 pending_reset = True
             payload = block.payload
             if skip_bytes:              # resume on a non-seekable source
                 drop = min(skip_bytes, len(payload))
                 payload = payload[drop:]
                 skip_bytes -= drop
-            buf.extend(payload)
-            while len(buf) >= block_bytes:
-                yield [bytes(buf[:block_bytes])], block_bytes // bpf, \
-                    pending_reset
+            with span("engine.assemble", k, run):
+                buf.extend(payload)
+                chunks = []
+                while len(buf) >= block_bytes:
+                    chunks.append(bytes(buf[:block_bytes]))
+                    del buf[:block_bytes]
+            for chunk in chunks:
+                yield [chunk], block_bytes // bpf, pending_reset
                 pending_reset = False
-                del buf[:block_bytes]
+                k += 1
 
-    def _gen_multi(self, block_bytes: int, bpf: int, skip_bytes: int):
+    def _gen_multi(self, block_bytes: int, bpf: int, skip_bytes: int, run: int):
         """Lockstep multi-channel chunk generator; ends at the shortest
-        channel."""
+        channel.  The spans of the end of the stream, which makes no
+        block, have none."""
         n = len(self.sources)
         bufs = [bytearray() for _ in range(n)]
         iters = [s.blocks(block_bytes // bpf) for s in self.sources]
         done = [False] * n
         skips = [skip_bytes] * n
         pending_reset = False
-        while True:
-            for c in range(n):
-                while len(bufs[c]) < block_bytes and not done[c]:
-                    block = next(iters[c], None)
-                    if block is None:
-                        done[c] = True
-                        break
-                    if block.discontinuity:
-                        pending_reset = True
-                    payload = block.payload
-                    if skips[c]:
-                        drop = min(skips[c], len(payload))
-                        payload = payload[drop:]
-                        skips[c] -= drop
-                    bufs[c].extend(payload)
-            if all(len(b) >= block_bytes for b in bufs):
-                yield ([bytes(b[:block_bytes]) for b in bufs],
-                       block_bytes // bpf, pending_reset)
-                pending_reset = False
-                for b in bufs:
-                    del b[:block_bytes]
-                continue
-            valid = min(len(b) // bpf for b in bufs)
+        for k in itertools.count():
+            with span("engine.source", k, run) as sp:
+                got = [[] for _ in range(n)]
+                least = block_bytes
+                for c in range(n):
+                    have = len(bufs[c])
+                    while have < block_bytes and not done[c]:
+                        block = next(iters[c], None)
+                        if block is None:
+                            done[c] = True
+                            break
+                        if block.discontinuity:
+                            pending_reset = True
+                        payload = block.payload
+                        if skips[c]:
+                            drop = min(skips[c], len(payload))
+                            payload = payload[drop:]
+                            skips[c] -= drop
+                        got[c].append(payload)
+                        have += len(payload)
+                    least = min(least, have)
+                if least < bpf:
+                    sp.block = None
+            with span("engine.assemble", k, run) as sp:
+                for b, parts in zip(bufs, got):
+                    for payload in parts:
+                        b.extend(payload)
+                valid = least // bpf
+                chunks = [bytes(b[:valid * bpf]) for b in bufs]
+                full = least == block_bytes
+                if full:
+                    for b in bufs:
+                        del b[:block_bytes]
+                if not valid:
+                    sp.block = None
             if valid:
-                yield ([bytes(b[:valid * bpf]) for b in bufs], valid,
-                       pending_reset)
-            return
+                yield chunks, valid, pending_reset
+            if not full:
+                return
+            pending_reset = False
 
     # ------------------------------------------------------------- chain
 
     def _run_chain(self) -> StreamSummary:
-        ch = self.stepper
-        self.prepare()
-        bpf = ch.fmt_in.bytes_per_frame
-        block_bytes = ch.n_in * bpf
-        n_channels = ch.cfg.channels
-        on_cuda = ch.device.type == "cuda"
-        carry = (self.initial_carry if self.initial_carry is not None
-                 else ch.init_carry(n_channels))
-        s = StreamSummary()
+        run = self.serial = new_run()
+        with span("engine.start", run=run):
+            ch = self.stepper
+            self.prepare()
+            bpf = ch.fmt_in.bytes_per_frame
+            block_bytes = ch.n_in * bpf
+            n_channels = ch.cfg.channels
+            on_cuda = ch.device.type == "cuda"
+            carry = (self.initial_carry if self.initial_carry is not None
+                     else ch.init_carry(n_channels))
+            s = StreamSummary()
 
-        skip_frames = 0
-        if self.resume and self.checkpoint_path and os.path.isfile(self.checkpoint_path):
-            carry, fin, fout, _ = load_checkpoint(self.checkpoint_path, ch, carry)
-            s.frames_in, s.frames_out = fin, fout
-            skip_frames = fin
-            if all(hasattr(src, "seek_frames") for src in self.sources):
-                for src in self.sources:
-                    src.seek_frames(fin)
-                skip_frames = 0
-            # a crash between checkpoints leaves the sink ahead of the
-            # checkpointed cut: truncate, so the resume is sample-exact
-            for snk in self.sinks:
-                if hasattr(snk, "truncate_to_frames"):
-                    snk.truncate_to_frames(fout, ch.fmt_out.bytes_per_frame)
+            skip_frames = 0
+            if self.resume and self.checkpoint_path and os.path.isfile(self.checkpoint_path):
+                carry, fin, fout, _ = load_checkpoint(self.checkpoint_path, ch, carry)
+                s.frames_in, s.frames_out = fin, fout
+                skip_frames = fin
+                if all(hasattr(src, "seek_frames") for src in self.sources):
+                    for src in self.sources:
+                        src.seek_frames(fin)
+                    skip_frames = 0
+                # a crash between checkpoints leaves the sink ahead of the
+                # checkpointed cut: truncate, so the resume is sample-exact
+                for snk in self.sinks:
+                    if hasattr(snk, "truncate_to_frames"):
+                        snk.truncate_to_frames(fout, ch.fmt_out.bytes_per_frame)
 
-        t0 = time.monotonic()
-        last_prog = t0
-        last_ckpt = t0
-        # frames the writer has been asked to emit (>= s.frames_out until
-        # it catches up; equal after a flush)
-        scheduled_out = s.frames_out
-        gen_fn = self._gen_single if n_channels == 1 else self._gen_multi
-        reader = _Reader(gen_fn(block_bytes, bpf, skip_frames * bpf))
-        writer = _Writer(self.sinks, ch.fmt_out.items_per_frame, s,
-                         self.pipeline_depth)
+            t0 = time.monotonic()
+            last_prog = t0
+            last_ckpt = t0
+            # frames the writer has been asked to emit (>= s.frames_out until
+            # it catches up; equal after a flush)
+            scheduled_out = s.frames_out
+            gen_fn = self._gen_single if n_channels == 1 else self._gen_multi
+            reader = _Reader(gen_fn(block_bytes, bpf, skip_frames * bpf, run))
+            writer = _Writer(self.sinks, ch.fmt_out.items_per_frame, s,
+                             self.pipeline_depth, run)
         # the cut before a zero-padded partial block: (host carry, frames
         # in), fetched before that block's step
         pre_partial = None
 
-        def process(chunks: list[bytes], valid_frames: int, reset: bool):
+        def process(chunks: list[bytes], valid_frames: int, reset: bool, k: int,
+                    handed_ns: int):
             nonlocal carry, scheduled_out, pre_partial
             if valid_frames < ch.n_in and self.checkpoint_path:
                 # keep the oldest clean cut: on consecutive partials (a
                 # pre-gap drain, then the EOS tail) the live carry has
                 # already seen padding
                 if pre_partial is None:
-                    pre_partial = (ch.carry_to_numpy(carry), s.frames_in)
+                    with span("engine.checkpoint", run=run):
+                        pre_partial = (ch.carry_to_numpy(carry), s.frames_in)
             else:
                 # a full block makes the live carry consistent again
                 pre_partial = None
-            rows = []
-            for chunk in chunks:
-                if len(chunk) < block_bytes:
-                    chunk = chunk + b"\x00" * (block_bytes - len(chunk))
-                rows.append(np.frombuffer(chunk, dtype=ch.in_wire_dtype))
-            host_in = torch.from_numpy(np.stack(rows, axis=0))
-            if isinstance(ch, GraphedStep):
-                raw = ch.input_buffer
-                raw.copy_(host_in.pin_memory() if on_cuda else host_in,
-                          non_blocking=on_cuda)
-            elif on_cuda:
-                raw = host_in.pin_memory().to(ch.device, non_blocking=True)
-            else:
-                raw = host_in
-            carry, out = ch.step(carry, raw, reset)
-            s.frames_in += valid_frames
-            allowed = ch.expected_out_frames(s.frames_in)
-            emit = max(0, min(allowed - scheduled_out, ch.n_out))
-            scheduled_out += emit
-            ready = None
-            if on_cuda:
-                host_out = torch.empty(out.shape, dtype=out.dtype,
-                                       pin_memory=True)
-                host_out.copy_(out, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record()
-            else:
-                # the next step overwrites a GraphedStep's output while
-                # the writer may still read it
-                host_out = out.clone() if isinstance(ch, GraphedStep) else out
-            writer.put(host_out, ready, emit)   # blocks when the pipe is full
+            with span("engine.stack", k, run):
+                rows = []
+                for chunk in chunks:
+                    if len(chunk) < block_bytes:
+                        chunk = chunk + b"\x00" * (block_bytes - len(chunk))
+                    rows.append(np.frombuffer(chunk, dtype=ch.in_wire_dtype))
+                host_in = torch.from_numpy(np.stack(rows, axis=0))
+            with span("engine.pin", k, run):
+                if on_cuda:
+                    host_in = host_in.pin_memory()
+            with span("engine.h2d", k, run):
+                if isinstance(ch, GraphedStep):
+                    raw = ch.input_buffer
+                    raw.copy_(host_in, non_blocking=on_cuda)
+                elif on_cuda:
+                    raw = host_in.to(ch.device, non_blocking=True)
+                else:
+                    raw = host_in
+            with span("engine.step", k, run):
+                carry, out = ch.step(carry, raw, reset)
+                s.frames_in += valid_frames
+                allowed = ch.expected_out_frames(s.frames_in)
+                emit = max(0, min(allowed - scheduled_out, ch.n_out))
+                scheduled_out += emit
+            with span("engine.d2h", k, run):
+                ready = None
+                if on_cuda:
+                    host_out = torch.empty(out.shape, dtype=out.dtype,
+                                           pin_memory=True)
+                    host_out.copy_(out, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record()
+                else:
+                    # the next step overwrites a GraphedStep's output while
+                    # the writer may still read it
+                    host_out = out.clone() if isinstance(ch, GraphedStep) else out
+            with span("engine.wait_output", k, run):
+                # blocks when the pipe is full
+                writer.put(host_out, ready, emit, k, handed_ns)
 
         def consistent_cut():
             if pre_partial is not None:
@@ -424,47 +484,62 @@ class StreamEngine:
 
         def maybe_checkpoint(now: float, last: float) -> float:
             if self.checkpoint_path and now - last >= self.checkpoint_interval:
-                writer.flush()
-                # a failed sink write sets error without dropped, yet its
-                # block never landed: saving would put frames_in ahead of
-                # the bytes on disk
-                if not writer.dropped and writer.error is None:
-                    save_checkpoint(self.checkpoint_path, *consistent_cut())
+                with span("engine.checkpoint", run=run):
+                    writer.flush()
+                    # a failed sink write sets error without dropped, yet its
+                    # block never landed: saving would put frames_in ahead of
+                    # the bytes on disk
+                    if not writer.dropped and writer.error is None:
+                        save_checkpoint(self.checkpoint_path, *consistent_cut())
                 return now
             return last
 
         try:
-            while True:
-                kind, payload, valid, reset = reader.get()
+            for k in itertools.count():
+                with span("engine.wait_input", k, run) as waited:
+                    kind, payload, valid, reset, handed_ns = reader.get()
+                    if kind != "chunk":
+                        waited.block = None
                 if kind == "eos":
                     break
                 if kind == "err":
                     raise payload
-                process(payload, valid, reset)
+                process(payload, valid, reset, k, handed_ns)
                 if writer.error is not None:
                     raise writer.error
                 if writer.closed:
                     break
                 last_prog = self._progress_tick(s, t0, last_prog)
                 last_ckpt = maybe_checkpoint(time.monotonic(), last_ckpt)
-            writer.flush()
         except KeyboardInterrupt:
             s.interrupted = True
-            try:
-                writer.flush()
-            except Exception:
-                pass                    # still return the summary
-        finally:
+        except BaseException:
             reader.stop()
             writer.stop()
-        if writer.error is not None and not isinstance(writer.error,
-                                                       OutputClosed):
-            raise writer.error
-        # a closed consumer dropped computed blocks: (carry, frames_in) is
-        # ahead of frames_out, so keep the last periodic checkpoint
-        if self.checkpoint_path and not writer.dropped:
-            save_checkpoint(self.checkpoint_path, *consistent_cut())
-        s.duration_sec = time.monotonic() - t0
+            raise
+        with span("engine.drain", run=run):
+            try:
+                if not s.interrupted:
+                    try:
+                        writer.flush()
+                    except KeyboardInterrupt:
+                        s.interrupted = True
+                if s.interrupted:
+                    try:
+                        writer.flush()
+                    except Exception:
+                        pass            # still return the summary
+            finally:
+                reader.stop()
+                writer.stop()
+            if writer.error is not None and not isinstance(writer.error,
+                                                           OutputClosed):
+                raise writer.error
+            # a closed consumer dropped computed blocks: (carry, frames_in) is
+            # ahead of frames_out, so keep the last periodic checkpoint
+            if self.checkpoint_path and not writer.dropped:
+                save_checkpoint(self.checkpoint_path, *consistent_cut())
+            s.duration_sec = time.monotonic() - t0
         return s
 
     def _progress_tick(self, s: StreamSummary, t0: float, last: float) -> float:

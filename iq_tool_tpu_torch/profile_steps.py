@@ -35,8 +35,14 @@ and "graph", the step as one CUDA graph (``pipeline/graphed.py``) over
 its input buffer, filled once (a step's work does not depend on its
 data), a sharded chain's too; a graph's kernels are held against the
 eager step's (the same kernels, plus the graph's memset of the DC
-kernel's status words and its copies into its static carry).  Needs a
-CUDA card.
+kernel's status words and its copies into its static carry).  In the
+graph form ``stage_split`` then splits 8 more profiled replays by the
+capture's stage map (``GraphedStep.stages``): each replay's device
+events (those of its graph launch, by the launch's correlation id) in
+order of start, the k-th to the map's k-th node; a replay whose event
+count is not the map's is not split.  It prints ms a replay by stage
+(``chain.*``, ``graph.carry``), each stage's ops, and how far the
+stages' sum lies from the replay's busy time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -162,6 +168,16 @@ def to_cu8(wire16: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x * 127.5 + 127.5), 0, 255).to(torch.uint8)
 
 
+def device_work(prof) -> list:
+    """The kineto events of a finished profiler's work on the card
+    (kernels, memcpys, memsets): its CUDA events less the card's images of
+    host ranges (a span's ``gpu_user_annotation``, which spans its range's
+    device work and bears the range's name)."""
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.device_type().name != "CUDA"}
+    return [e for e in events if e.device_type().name == "CUDA" and e.name() not in host]
+
+
 def device_events(run, steps: int, attempts: int = 3) -> dict:
     """Run ``run`` ``steps`` times under torch.profiler (CPU and CUDA
     activity, ending in a synchronize): {device event name: [ms,
@@ -176,13 +192,83 @@ def device_events(run, steps: int, attempts: int = 3) -> dict:
                 run()
             torch.cuda.synchronize()
         by_name = collections.defaultdict(lambda: [0.0, 0])
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3
-                by_name[ev.name][1] += 1
+        for ev in device_work(prof):
+            by_name[ev.name()][0] += ev.duration_ns() / 1e6
+            by_name[ev.name()][1] += 1
         if by_name:
             break
     return by_name
+
+
+def stage_split(step, replays: int = STEPS) -> dict:
+    """``replays`` replays of the captured GraphedStep ``step`` under
+    torch.profiler (after one more, whose first node the profiler's start
+    may miss), split by ``split_launches`` over ``step.stages``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(replays + 1):
+            step.step(step._carry, step.input_buffer)
+        torch.cuda.synchronize()
+    events = [(e.correlation_id(), e.start_ns(), e.duration_ns(), e.name())
+              for e in device_work(prof)]
+    return split_launches(events, step.stages, skip=1)
+
+
+def split_launches(events, stages, skip: int = 0) -> dict:
+    """Each graph launch's device events split by a stage map: events
+    [(launch correlation id, start ns, duration ns, name)], grouped by
+    launch, the first ``skip`` launches (by start) left out, each other
+    launch's events in order of start, the k-th to the map's k-th node; a
+    launch whose event count is not the map's is not split.  Returns
+    {replays, split (the launches split), nodes (the map's), events (each
+    launch's count), busy_ms (a split launch's busy time, the union of its
+    events), sum_ms (their durations' sum), stages {name: ms}, ops {name:
+    {op: ms}}}, every ms a split launch."""
+    by_launch = collections.defaultdict(list)
+    for launch, t0, dur, name in events:
+        by_launch[launch].append((t0, dur, name))
+    launches = sorted(by_launch.values(), key=min)[skip:]
+    names = [name for name, n in stages for _ in range(n)]
+    split_stages: dict = {}
+    ops: dict = {}
+    busy = total = 0.0
+    split = 0
+    for launch in launches:
+        if len(launch) != len(names):
+            continue
+        split += 1
+        end = 0
+        for (t0, dur, op), stage in zip(sorted(launch), names):
+            busy += min(dur, max(0, t0 + dur - end))
+            end = max(end, t0 + dur)
+            total += dur
+            split_stages[stage] = split_stages.get(stage, 0.0) + dur
+            by_op = ops.setdefault(stage, {})
+            by_op[_short(op)] = by_op.get(_short(op), 0.0) + dur
+    per = 1e6 * max(split, 1)
+    return dict(replays=len(launches), split=split, nodes=len(names),
+                events=sorted(len(v) for v in launches),
+                busy_ms=busy / per, sum_ms=total / per,
+                stages={k: v / per for k, v in split_stages.items()},
+                ops={k: {op: v / per for op, v in sorted(o.items(), key=lambda kv: -kv[1])}
+                     for k, o in ops.items()})
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its return type, template arguments and
+    parameters."""
+    return name.split("(")[0].split("<")[0].replace("void ", "").strip() or name[:60]
+
+
+def print_split(label: str, sp: dict) -> None:
+    """``stage_split``'s record as lines: ms a replay by stage, its ops."""
+    print(f"[{label} stages] {sp['split']} of {sp['replays']} replays split by the stage "
+          f"map's {sp['nodes']} nodes (device events a replay: {sp['events']}); a replay "
+          f"busy {sp['busy_ms']:.4f} ms, the stages' sum {sp['sum_ms']:.4f} ms "
+          f"({100 * (sp['sum_ms'] / sp['busy_ms'] - 1) if sp['busy_ms'] else 0:+.2f} %)")
+    for stage, ms in sp["stages"].items():
+        top = ", ".join(f"{op[:48]} {v:.4f}" for op, v in list(sp["ops"][stage].items())[:6])
+        print(f"    {ms:8.4f} ms  {stage}: {top}")
 
 
 def is_copy(event_name: str) -> bool:
@@ -249,6 +335,7 @@ def profile(name: str, graphed: bool = False) -> dict:
                if ln.count(",") == 1]
     clock, power = (float(np.mean([x[i] for x in samples])) if samples else float("nan")
                     for i in (0, 1))
+    split = stage_split(chain) if graphed else None
     busy_ms = sum(v[0] for v in by_name.values())
     kernels = sum(v[1] for k, v in by_name.items() if not is_copy(k))
     copies = sum(v[1] for k, v in by_name.items() if is_copy(k))
@@ -259,7 +346,7 @@ def profile(name: str, graphed: bool = False) -> dict:
                 queued_late_ms=ev[2].elapsed_time(ev[3]) / STEPS, sm_mhz=clock,
                 power_w=power,
                 idle=1 - busy_ms / STEPS / wall_ms if busy_ms else None,
-                captured=chain.kernels if graphed else None,
+                captured=chain.kernels if graphed else None, split=split,
                 by_name={k: v[1] / STEPS for k, v in by_name.items()},
                 kernels=sorted(((k, v[0] / STEPS, v[1] / STEPS) for k, v in by_name.items()),
                                key=lambda r: -r[1]))
@@ -313,6 +400,9 @@ def main(argv=None) -> int:
                   f"{r['power_w']:.0f} W)")
             for k, ms, n in r["kernels"][:12]:
                 print(f"    {ms:8.3f} ms {n:5.1f}x  {k[:100]}")
+            if r["split"] is not None:
+                print_split(f"{name} {f}", r["split"])
+                bad += not r["split"]["split"]
         if len(rs) == 2 and None not in (rs["eager"]["idle"], rs["graph"]["idle"]):
             diff = graph_kernels_differ(rs["eager"], rs["graph"])
             bad += bool(diff)

@@ -198,7 +198,8 @@ def test_crash_resume_truncates_stale_output(tmp_path):
 
 def test_profile_dir_writes_a_trace(tmp_path):
     """--profile-dir on the CPU: a Chrome/Perfetto trace JSON naming the
-    chain's torch ops."""
+    chain's torch ops and the engine's spans, the reader's and the
+    writer's among them (the profiler records every thread)."""
     import json
     inp = tmp_path / "in.raw"
     _raw_tone(inp, 16384 * 2 + 100)
@@ -208,6 +209,7 @@ def test_profile_dir_writes_a_trace(tmp_path):
     (trace,) = prof.glob("*.pt.trace.json")
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
     assert any(str(n).startswith("aten::") for n in names), sorted(map(str, names))[:20]
+    assert {"engine.assemble", "engine.write", "engine.step", "chain.resample.0"} <= names
 
 
 def test_cli_gather_ratio_vs_jax(tmp_path, rng):
