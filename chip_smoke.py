@@ -32,8 +32,9 @@ first failure:
    chain on 2 channels and a tone SNR check; steady-state Msps and peak
    device memory;
 5. the general step's kernels vs their twins at BASELINE config #4's
-   shapes (128 channels): K3 dc_block_apply (cs16 and cu8 wire), K4
-   post_apply, K5 osfft_apply (at nfft 16384 and, on the schedule the
+   shapes (128 channels): K3 dc_block_apply (cs16 and cu8 wire), K3pre
+   pre_apply (the pre-stage without the DC block; cs16 wire with I/Q and
+   NCO, cu8 wire bit for bit), K4 post_apply, K5 osfft_apply (at nfft 16384 and, on the schedule the
    chain makes for --filter-fft-size 32768, at nfft 32768, each beside
    the twin's torch.fft core; above K5's sizes, [osfft], the torch.fft
    route that takes nfft 131072 in its place, against K5's twin, timed
@@ -52,9 +53,10 @@ first failure:
    step), against the CPU twin chain on 2 channels, tone SNR, ms per
    step, Msps, peak memory, all device launches a step (torch.profiler)
    and the estimator's call as the step makes it, due and not; then
-   configs #5 and #3, and #4 with --filter-fft-size 32768 ([full32k])
-   and 131072 ([full128k], the torch.fft route once a step), the same
-   way at 4 steps;
+   configs #5 and #3, and #4 with --filter-fft-size 32768 ([full32k]),
+   131072 ([full128k], the torch.fft route once a step) and without the
+   DC block ([full4], the benchmark's chain: K3pre in K3's place), the
+   same way at 4 steps;
 7. [gather]: the gather resampler stage (2.048 Msps -> 25282.56 sps,
    449/36371) behind the DC kernel and in front of K4 (local AGC), 128 x
    254597 frames for 4 steps with exact launch counters, against the CPU
@@ -416,6 +418,7 @@ def main() -> int:
                 "K2": kernels.banded_apply.launches,
                 "K2mma": kernels.banded_apply_mma.launches,
                 "K3": kernels.dc_block_apply.launches,
+                "K3pre": kernels.pre_apply.launches,
                 "K4": kernels.post_apply.launches,
                 "K5": kernels.osfft_apply.launches,
                 "AGC": kernels.rms_gains.launches,
@@ -830,6 +833,37 @@ def main() -> int:
                             bound=k3c_bound)
     del w8
 
+    # K3pre: the same pre-stage without the DC block (the benchmark's full4
+    # chain): cs16 wire + I/Q + NCO, then cu8 wire alone, bit for bit
+    # against the twin without the NCO's sin and cos
+    kp_args = (None, None, fac, phase0, g4.dtheta_pre)
+    got = kernels.pre_apply(*kp_args, **k3_kw)
+    want = kernels.pre_apply_ref(*kp_args, **k3_kw)
+    w8, kind8 = convert.wire_pack(to_cu8(tone_wire(CH, BLOCK, gen)), "cu8")
+    k8_kw = dict(wire_i32=w8, wire_norm=get_format("cu8").normalizer, wire_kind=kind8)
+    got8 = kernels.pre_apply(None, None, **k8_kw)
+    want8 = kernels.pre_apply_ref(None, None, **k8_kw)
+    torch.cuda.synchronize()
+    snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(want, got)]
+    kp_err = max_abs(want, got)
+    same8 = all(torch.equal(w, g) for w, g in zip(want8, got8))
+    say(f"[k3pre] C={CH} n={BLOCK} cs16 wire + I/Q + NCO: SNR planar "
+        f"{snrs[0]:.1f}/{snrs[1]:.1f} dB, max |err| {kp_err:.3e}; cu8 wire alone "
+        f"{'bit-identical to' if same8 else 'DIFFERS from'} the twin")
+    if min(snrs) < 100.0 or not same8:
+        fail(f"K3pre disagrees with its twin: min SNR {min(snrs):.1f} dB, cu8 "
+             f"bit-identical {same8}")
+    kp_ms, kp_plain = time_pair(lambda: kernels.pre_apply(*kp_args, **k3_kw),
+                                lambda: kernels.pre_apply_ref(*kp_args, **k3_kw))
+    # wire in once, planes out once (+ the I/Q factors and phases); ~40
+    # float32 operations a sample (decode, I/Q, sincos, rotate)
+    kp_bound = bound(CH * (12 * BLOCK + 16), 40 * CH * BLOCK, PEAK_FP32_S)
+    say(f"[k3pre] kernel {kp_ms:.4f} ms, twin {kp_plain:.3f} ms; "
+        f"{CH * BLOCK * 12 / kp_ms / 1e6:.1f} GB/s of wire in + planes out; bound "
+        f"{kp_bound[0]:.4f} ms ({kp_bound[1]}) -> {100 * kp_bound[0] / kp_ms:.1f}%")
+    report["K3pre"] = dict(err=kp_err, ms=kp_ms, plain=kp_plain, lib=None, bound=kp_bound)
+    del w8, got8, want8
+
     # K4 and the AGC gains on config #4's output-rate planes (C, 190512):
     # 1488 segments of 128 and a ragged 48
     pr, pi = (0.3 * torch.randn((CH, n_out), generator=gen, device=dev)
@@ -1095,8 +1129,8 @@ def main() -> int:
         """Config `name` at CH x BLOCK for `steps` steps; returns the
         launch counts, and checks output against the CPU twin chain."""
         cfg = config(name)
-        label = {"4": "[full]", "4k32": "[full32k]",
-                 "4k128": "[full128k]"}.get(name, f"[config{name}]")
+        label = {"4": "[full]", "4k32": "[full32k]", "4k128": "[full128k]",
+                 "full4": "[full4]"}.get(name, f"[config{name}]")
         ch_ = Chain(cfg, device=dev)
         stream = tone_wire(CH, steps * BLOCK, gen)
         if cfg.input_format == "cu8":
@@ -1142,7 +1176,7 @@ def main() -> int:
                 st_d = iq_balance.IqState(carry["iq"].factors,
                                           torch.tensor(c0, dtype=torch.int64, device=dev))
                 call = lambda: iq_balance.maybe_update_planar(  # noqa: E731
-                    None, None, st_d, ch_.iq_interval, dc_state=carry["dc"],
+                    None, None, st_d, ch_.iq_interval, dc_state=carry.get("dc"),
                     dc_alpha=ch_.dc_alpha, wire_i32=wire_l, wire_norm=ch_.fmt_in.normalizer,
                     wire_gain=cfg.gain, wire_kind=kind_l)
                 call()
@@ -1176,7 +1210,7 @@ def main() -> int:
         tone = TONE_HZ
         if name != "3":
             tone += nco_hz(SHIFT_HZ, IN_RATE)
-        if name in ("4", "4k32", "4k128"):
+        if name in ("4", "4k32", "4k128", "full4"):
             tone += nco_hz(POST_SHIFT_HZ, OUT_RATE)
         snr_t = tone_snr_db(cs16_iq(got_w[0]), tone, OUT_RATE, 2 * ch_.n_out)
         say(f"{label} vs CPU twin chain (2 channels): max |dcode| {dmax} "
@@ -1195,35 +1229,43 @@ def main() -> int:
     general_launches = run_general("4", STEPS)
     # K2's launches, and of them those on the mma.sync core (kernels.
     # banded_core: the narrow bands, K < 96)
-    want_counts = {"K1": 0, "K2": 2 * STEPS, "K2mma": 2 * STEPS, "K3": STEPS, "K4": STEPS,
-                   "K5": STEPS, "AGC": STEPS, "IQest": STEPS, "K1pro": 0, "K1carry": 0,
-                   "OSfft": 0}
+    want_counts = {"K1": 0, "K2": 2 * STEPS, "K2mma": 2 * STEPS, "K3": STEPS, "K3pre": 0,
+                   "K4": STEPS, "K5": STEPS, "AGC": STEPS, "IQest": STEPS, "K1pro": 0,
+                   "K1carry": 0, "OSfft": 0}
     if general_launches != want_counts:
         fail(f"config #4 launch counters {general_launches}, expected {want_counts}")
     s5 = run_general("5", GENERAL_STEPS)
     if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": GENERAL_STEPS, "K3": GENERAL_STEPS,
-              "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQest": 0,
+              "K3pre": 0, "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQest": 0,
               "K1pro": 0, "K1carry": 0, "OSfft": 0}:
         fail(f"config #5 launch counters {s5}")
     s3 = run_general("3", GENERAL_STEPS)
     if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K2mma": 3 * GENERAL_STEPS,
-              "K3": GENERAL_STEPS,
+              "K3": GENERAL_STEPS, "K3pre": 0,
               "K4": 0, "K5": 0, "AGC": 0, "IQest": 0, "K1pro": 0, "K1carry": 0,
               "OSfft": 0}:
         fail(f"config #3 launch counters {s3}")
     s4k = run_general("4k32", GENERAL_STEPS)
     if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": 2 * GENERAL_STEPS,
-               "K3": GENERAL_STEPS,
+               "K3": GENERAL_STEPS, "K3pre": 0,
                "K4": GENERAL_STEPS, "K5": GENERAL_STEPS, "AGC": GENERAL_STEPS,
                "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": 0}:
         fail(f"config #4 at nfft 32768 launch counters {s4k}")
     # above K5's sizes: the torch.fft route in its place, once a step
     s4r = run_general("4k128", GENERAL_STEPS)
     if s4r != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": 2 * GENERAL_STEPS,
-               "K3": GENERAL_STEPS,
+               "K3": GENERAL_STEPS, "K3pre": 0,
                "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS,
                "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": GENERAL_STEPS}:
         fail(f"config #4 at nfft 131072 launch counters {s4r}")
+    # config #4 without the DC block (the benchmark's full4): K3pre in K3's
+    # place
+    sf4 = run_general("full4", GENERAL_STEPS)
+    if sf4 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": 2 * GENERAL_STEPS, "K3": 0,
+               "K3pre": GENERAL_STEPS, "K4": GENERAL_STEPS, "K5": GENERAL_STEPS,
+               "AGC": GENERAL_STEPS, "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0,
+               "OSfft": 0}:
+        fail(f"config #4 without the DC block launch counters {sf4}")
     say(f"[steps] ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms_of.items()))
 
     # ---------------------------------------------------- 7. the gather stage
@@ -1409,7 +1451,7 @@ def main() -> int:
     from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves
     from iq_tool_tpu_torch.profile_steps import graph_kernels_differ, profile
     wrapper_key = {"banded_apply_dc": "K1", "banded_apply": "K2", "banded_apply_mma": "K2mma",
-                   "dc_block_apply": "K3",
+                   "dc_block_apply": "K3", "pre_apply": "K3pre",
                    "post_apply": "K4", "osfft_apply": "K5", "rms_gains": "AGC",
                    "iq_estimate": "IQest", "dc_prologue": "K1pro", "dc_carry": "K1carry",
                    "segment_energies": "AGCenergy", "agc_chain": "AGCchain",
@@ -1800,7 +1842,8 @@ def main() -> int:
                         ("5", "config #5"), ("gather", "gather"),
                         ("4k32", "config #4 at nfft 32768"),
                         ("4k128", "config #4 at nfft 131072 (the torch.fft route)"),
-                        ("4dx", "config #4, dx AGC"), ("4dig", "config #4, digital AGC")):
+                        ("4dx", "config #4, dx AGC"), ("4dig", "config #4, digital AGC"),
+                        ("full4", "config #4 without the DC block")):
         ch_ = Chain(config(name, GRAPH_MORE_CH), device=dev)
         n = ch_.n_in
         stream = tone_wire(GRAPH_MORE_CH, GRAPH_MORE_STEPS * n, gen,
@@ -2111,6 +2154,7 @@ def main() -> int:
            "K2": "iq_tool_tpu_torch/csrc/banded.cu",
            "K2mma": "iq_tool_tpu_torch/csrc/banded_mma.cu",
            "K3": "iq_tool_tpu_torch/csrc/banded_dc.cu",
+           "K3pre": "iq_tool_tpu_torch/csrc/pre.cu",
            "K4": "iq_tool_tpu_torch/csrc/post.cu",
            "K5": "iq_tool_tpu_torch/csrc/osfft.cu",
            "AGC": "iq_tool_tpu_torch/csrc/post.cu",
@@ -2124,6 +2168,8 @@ def main() -> int:
            "K2": "iq_tool_tpu/ops/pallas_kernels.py:492",
            "K2mma": "iq_tool_tpu/ops/pallas_kernels.py:492",
            "K3": "iq_tool_tpu/ops/pallas_kernels.py:1121",
+           # no TPU kernel: the reference chain's XLA ops without the DC block
+           "K3pre": "iq_tool_tpu/pipeline/chain.py:528",
            "K4": "iq_tool_tpu/ops/pallas_kernels.py:1506",
            "K5": "iq_tool_tpu/ops/pallas_kernels.py:1324",
            "AGC": "iq_tool_tpu/ops/agc.py:116",
@@ -2136,13 +2182,14 @@ def main() -> int:
            # Pallas kernel declines the size
            "OSfft": "iq_tool_tpu/ops/filters.py:265"}
     # K1/K1carry/K2 launches from the flagship slice (K2 there on the wgmma
-    # core), the rest from config #4's run (K2mma: its K2 on the mma.sync core), K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
-    # config #3's, the DC prologue from the 1x4 flagship's sharded run, all
-    # host launches of eager steps, the torch.fft route's from the [full128k]
-    # run; and each phase's launches per step, the graphs' as their
+    # core), the rest from config #4's run (K2mma: its K2 on the mma.sync
+    # core), K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
+    # config #3's, K3pre from [full4]'s, the DC prologue from the 1x4
+    # flagship's sharded run, all host launches of eager steps, the
+    # torch.fft route's from the [full128k] run; and each phase's launches per step, the graphs' as their
     # captured kernels times their replays
     counts = {**general_launches, **launches, "K2mma": general_launches["K2mma"],
-              "K5@32768": s4k["K5"], "K3@cu8": s3["K3"],
+              "K5@32768": s4k["K5"], "K3@cu8": s3["K3"], "K3pre": sf4["K3pre"],
               "OSfft": s4r["OSfft"],
               **{k: int(shard_report["1x4 config #4"][k] * SHARD_STEPS)
                  for k in ("AGCenergy", "AGCchain")},
@@ -2155,6 +2202,7 @@ def main() -> int:
               "#4": (general_launches, STEPS), "#4@32768": (s4k, GENERAL_STEPS),
               "#4@131072": (s4r, GENERAL_STEPS),
               "#5": (s5, GENERAL_STEPS), "#3": (s3, GENERAL_STEPS),
+              "#4 no DC": (sf4, GENERAL_STEPS),
               "gather": (g_counts, GATHER_STEPS),
               "fold flagship C=1 F=8": (fold_counts["flagship"], 3),
               "fold #4 C=1 F=8": (fold_counts["config #4"], 3),

@@ -22,7 +22,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "iq_tool_tpu_torch"
-_SOURCES = ("banded.cu", "banded_mma.cu", "banded_dc.cu", "post.cu", "osfft.cu",
+_SOURCES = ("banded.cu", "banded_mma.cu", "banded_dc.cu", "pre.cu", "post.cu", "osfft.cu",
             "iq_est.cu", "graph_info.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,6 +55,7 @@ _SIGNATURES = {
                            _P, _I, _I, _F, _F, _F, _F, _P],
     "iq_dc_block_apply": [_P, _I, _F, _F, _P, _P, _P, ctypes.c_double, _P, _P,
                           _U, _I, _I, _P, _P, _P, _P, _U, _P],
+    "iq_pre_apply": [_P, _I, _F, _F, _P, _P, _P, _P, _U, _I, _I, _P, _P, _P],
     "iq_post_apply": [_P, _P, _P, _I, _I, _P, _U, _I, _I, _P, _I, _I, _F, _F,
                       _F, _F, _P],
     "iq_agc_rms_gains": [_P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I,

@@ -16,6 +16,8 @@
 * K3 ``dc_block_apply`` (``csrc/banded_dc.cu``, the prologue's kernel):
   the chain's pre-stage, DC block + I/Q apply + NCO mix over packed wire
   or planes.
+* K3pre ``pre_apply`` (``csrc/pre.cu``): the same pre-stage without the
+  DC block (no TPU kernel: XLA ran it as elementwise ops).
 * K4 ``post_apply`` (``csrc/post.cu``): post-NCO + AGC gains + quantize
   and pack; beside it ``rms_gains``, the AGC's segment energies and
   sequential gain loop in one launch, and its two halves alone:
@@ -773,6 +775,76 @@ def dc_block_apply(xr, xi, state, alpha: float, iq_factors=None,
 dc_block_apply.launches = 0
 
 
+# ------------------------------ K3pre -----------------------------------------
+
+def pre_apply_ref(xr, xi, iq_factors=None, phase_acc=None, dtheta: int = 0,
+                  wire_i32=None, wire_norm: float = 0.0, wire_gain: float = 1.0,
+                  wire_kind: str = "cs16"):
+    """Plain twin of pre_apply: decode, I/Q apply, NCO mix in tensor ops
+    (the chain's pre-stage without a DC block as it ran before the kernel)."""
+    if wire_i32 is not None:
+        xr, xi = convert.decode_packed(wire_i32, wire_kind, wire_norm, wire_gain)
+    if iq_factors is not None:
+        xr, xi = iq_balance.apply_planar(xr, xi, iq_factors)
+    if dtheta:
+        xr, xi = nco.mix(xr, xi, phase_acc, dtheta)
+    return xr.contiguous(), xi.contiguous()
+
+
+def pre_apply(xr, xi, iq_factors=None, phase_acc=None, dtheta: int = 0,
+              wire_i32=None, wire_norm: float = 0.0, wire_gain: float = 1.0,
+              wire_kind: str = "cs16"):
+    """K3pre (``csrc/pre.cu``): the chain's pre-stage without a DC block,
+    I/Q apply + NCO mix, in one pass.
+
+    x*: (C, N) float32 planes, or ``wire_i32`` (C, N) packed wire
+    (convert.wire_pack) decoded with wire_norm/wire_gain; iq_factors:
+    (C, 2) [g, phi] or None; phase_acc: (C,) int64 uint32 phases, needed
+    when dtheta != 0.  Any N and any alignment.  Returns (yr, yi)."""
+    if wire_i32 is not None and not wire_norm:
+        raise ValueError("wire_i32 requires wire_norm (the format normalizer)")
+    if dtheta and phase_acc is None:
+        raise ValueError("dtheta needs phase_acc")
+    x0 = wire_i32 if wire_i32 is not None else xr
+    if x0.device.type == "cpu":
+        return pre_apply_ref(xr, xi, iq_factors, phase_acc, dtheta, wire_i32,
+                             wire_norm, wire_gain, wire_kind)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    if wire_i32 is not None:
+        xr = xi = None
+        kind = _WIRE_KINDS[wire_kind]
+    else:
+        kind = _PLANAR
+    dth = int(dtheta) & 0xFFFFFFFF
+    phase = phase_acc if dth else None
+    _require_cuda(wire_i32, xr, xi, iq_factors, phase)
+    _require_dtypes(wire_i32, kind, phase, xr, xi, iq_factors)
+    ch, n = x0.shape
+    dev = x0.device
+    if any(t is not None and t.device != dev for t in (xi, iq_factors, phase)):
+        raise ValueError(f"kernel inputs must all lie on {dev}")
+    if xi is not None and xi.shape != (ch, n):
+        raise ValueError(f"xi must be ({ch}, {n})")
+    if iq_factors is not None and iq_factors.shape != (ch, 2):
+        raise ValueError(f"iq_factors must be ({ch}, 2)")
+    if phase is not None and phase.shape != (ch,):
+        raise ValueError(f"phase_acc must be ({ch},)")
+    yr = torch.empty((ch, n), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    with torch.cuda.device(dev):
+        rc = lib.iq_pre_apply(
+            _ptr(wire_i32), kind, convert._f32(wire_norm), convert._f32(wire_gain),
+            _ptr(xr), _ptr(xi), _ptr(iq_factors), _ptr(phase), dth, ch, n,
+            _ptr(yr), _ptr(yi), _stream())
+    _check(rc, "pre-stage kernel")
+    pre_apply.launches += 1
+    return yr, yi
+
+
+pre_apply.launches = 0
+
+
 # ------------------------------ K4 --------------------------------------------
 
 def _segment_gains(gains: torch.Tensor, seg: int, n: int) -> torch.Tensor:
@@ -1312,7 +1384,7 @@ iq_estimate.launches = 0
 
 
 _COUNTED = [banded_apply, banded_apply_mma, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
-            post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
+            pre_apply, post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
             iq_estimate]
 
 

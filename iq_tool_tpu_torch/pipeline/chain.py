@@ -13,7 +13,8 @@ Two paths, as in the reference:
 * the general step otherwise: the pre-stage is K3
   (``kernels.dc_block_apply``: DC block + I/Q apply + pre-NCO over the
   packed wire or, for other formats, converted planes) when the DC block
-  is on, plain tensor ops when it is off; filters run on K2 (banded) or
+  is on, K3pre (``kernels.pre_apply``: the same without the DC block)
+  when it is off; filters run on K2 (banded) or
   K5 (``kernels.osfft_apply``, overlap-save); the resampler's stages on
   K2, or its one gather stage in plain torch; the post stage is K4
   (``kernels.post_apply``: post-NCO + AGC gains + pack, the RMS gains
@@ -314,31 +315,13 @@ class Chain:
             return new, self._plain_post(xr, xi, carry, new, rows)
 
     def _pre(self, raw, carry: dict, new: dict):
-        """Convert + [DC block + I/Q + pre-NCO]: contiguous (xr, xi)."""
-        cfg = self.cfg
-        if cfg.dc_block:
-            return self._fused_pre(raw, carry, new)
-        with span("chain.pre"):
-            xr, xi = convert.to_planar(raw, self.fmt_in, cfg.gain)
-        if cfg.iq_correction:
-            with span("chain.iq_estimate"):
-                new["iq"] = iq_balance.maybe_update_planar(xr, xi, carry["iq"],
-                                                           self.iq_interval)
-        with span("chain.pre"):
-            if cfg.iq_correction:
-                xr, xi = iq_balance.apply_planar(xr, xi, new["iq"].factors)
-            if self.dtheta_pre:
-                xr, xi, new["nco_pre"] = nco.apply_planar(xr, xi, carry["nco_pre"],
-                                                          self.dtheta_pre)
-            return xr.contiguous(), xi.contiguous()
-
-    def _fused_pre(self, raw, carry: dict, new: dict):
-        """K3: DC block + I/Q apply + pre-NCO in one pass, over the packed
-        wire (decoded in the kernel) or, for formats without one, the
-        converted planes.  The I/Q estimator taps the DC-blocked signal
-        before the correction: its kernel decodes and DC-blocks the
-        block's IQ_FFT_SIZE-frame prefix itself, from the carried DC
-        state, ahead of K3."""
+        """Convert + [DC block] + [I/Q] + [pre-NCO] in one launch over the
+        packed wire (decoded in the kernel) or, for formats without one,
+        the converted planes: K3 (``kernels.dc_block_apply``) with the DC
+        block, else K3pre (``kernels.pre_apply``).  The I/Q estimator taps
+        the (DC-blocked) signal before the correction: its kernel decodes
+        (and DC-blocks, from the carried DC state) the block's
+        IQ_FFT_SIZE-frame prefix itself, ahead of the pre-stage."""
         cfg = self.cfg
         with span("chain.pre"):
             packed = convert.wire_pack(raw, self.fmt_in)
@@ -350,21 +333,25 @@ class Chain:
                 (wire, kind), xr, xi = packed, None, None
                 norm = self.fmt_in.normalizer
         n = (wire if wire is not None else xr).shape[-1]
-        state = carry["dc"]
+        state = carry.get("dc")
+        src = dict(wire_i32=wire, wire_norm=norm, wire_gain=cfg.gain, wire_kind=kind)
         factors = None
         if cfg.iq_correction:
             with span("chain.iq_estimate"):
                 new["iq"] = iq_balance.maybe_update_planar(
                     xr, xi, carry["iq"], self.iq_interval, dc_state=state,
-                    dc_alpha=self.dc_alpha, wire_i32=wire, wire_norm=norm,
-                    wire_gain=cfg.gain, wire_kind=kind)
+                    dc_alpha=self.dc_alpha, **src)
             factors = new["iq"].factors
         dth = self.dtheta_pre
+        phase = carry["nco_pre"] if dth else None
         with span("chain.pre"):
-            yr, yi, new["dc"] = kernels.dc_block_apply(
-                xr, xi, state, self.dc_alpha, factors,
-                carry["nco_pre"] if dth else None, dth, wire_i32=wire,
-                wire_norm=norm, wire_gain=cfg.gain, wire_kind=kind)
+            if cfg.dc_block:
+                yr, yi, new["dc"] = kernels.dc_block_apply(
+                    xr, xi, state, self.dc_alpha, factors, phase, dth, **src)
+            elif wire is None and factors is None and not dth:
+                yr, yi = xr, xi                    # nothing to apply to the planes
+            else:
+                yr, yi = kernels.pre_apply(xr, xi, factors, phase, dth, **src)
             if dth:
                 new["nco_pre"] = nco.advance(carry["nco_pre"], n, dth)
         return yr, yi

@@ -2,18 +2,21 @@
 the card.
 
     python -m iq_tool_tpu_torch.profile_steps [--configs flagship 1 2 4 5 3 4k32 4k128 4dx 4dig
-                                                         c1 c1f8 4c1 4c1f8 gather flagship@1x4
-                                                         4@1x4 flagship@2x2 flagship@4x1]
-                                              [--forms eager graph]
+                                                         full4 c1 c1f8 4c1 4c1f8 gather
+                                                         flagship@1x4 4@1x4 flagship@2x2
+                                                         flagship@4x1]
+                                              [--forms eager graph] [--channels 128]
 
 ``config``, ``make_chain`` and ``tone_wire`` are the one definition of
 the measured chains and their seeded input; ``chip_smoke.py`` runs the
-same.  Run as a module, for each configuration (128 channels x 262144
-frames a step; "1" to "5" BASELINE's configs under bench.py's short
-names, "4k32" and "4k128" config #4 at --filter-fft-size 32768 and
-131072, "4dx" and "4dig" config #4 with the dx and digital AGC
-profiles; "c1" and "4c1" the flagship and config #4 as one stream at
-the CLI's default 16384-frame block, "f8" with --time-fold 8; "gather"
+same.  Run as a module, for each configuration (128 channels, or
+``--channels``, x 262144 frames a step; "1" to "5" BASELINE's configs
+under bench.py's short names, "4k32" and "4k128" config #4 at
+--filter-fft-size 32768 and 131072, "4dx" and "4dig" config #4 with the
+dx and digital AGC profiles, "full4" config #4 without the DC block (the
+benchmark's full4 chain); "c1" and "4c1" the flagship and config #4 as
+one stream at the CLI's default 16384-frame block, "f8" with
+--time-fold 8; "gather"
 128 x 254597 through the gather stage; "<name>@<C>x<T>" the
 ShardedChain of <name> on a C x T mesh repeating the card, each shard a
 128 / C x 262144 block): 3 warm-up steps, then 40 steps timed by the
@@ -70,12 +73,13 @@ POST_SHIFT_HZ = -50_000.0   # config #4: 37 + 100 - 50 -> 87 kHz out
 GATHER_RATE = 25_282.56     # 2469/200000 of 2.048 Msps -> 449/36371: the gather stage
 GATHER_TONE_HZ = 3_000.0
 STREAM_BLOCK = 16384        # the CLI's default --block-size
-CONFIGS = ("flagship", "1", "2", "4", "5", "3", "4k32", "4k128", "4dx", "4dig", "c1",
-           "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4", "4@1x4", "flagship@2x2",
+CONFIGS = ("flagship", "1", "2", "4", "5", "3", "4k32", "4k128", "4dx", "4dig", "full4",
+           "c1", "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4", "4@1x4", "flagship@2x2",
            "flagship@4x1")
-# config #4's variants: --filter-fft-size, --output-agc
+# config #4's variants: --filter-fft-size, --output-agc; "full4" without
+# the DC block (the benchmark's full4 chain)
 _FULL = {"4": (None, "local"), "4k32": (32768, "local"), "4k128": (131072, "local"),
-         "4dx": (None, "dx"), "4dig": (None, "digital")}
+         "4dx": (None, "dx"), "4dig": (None, "digital"), "full4": (None, "local")}
 
 
 def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConfig:
@@ -97,7 +101,8 @@ def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConf
         return ChainConfig(input_format="cs16", iq_correction=True,
                            freq_shift_pre_hz=SHIFT_HZ, freq_shift_post_hz=POST_SHIFT_HZ,
                            filters=(FilterRequest("stop-range", 0.0, 10e3),),
-                           filter_fft_size=fft_size, agc_profile=profile, **base)
+                           filter_fft_size=fft_size, agc_profile=profile,
+                           **{**base, "dc_block": name != "full4"})
     if name == "5":
         return ChainConfig(input_format="cs16", freq_shift_pre_hz=SHIFT_HZ,
                            filters=(FilterRequest("lowpass", 400e3),),
@@ -130,11 +135,12 @@ def make_configs(channels: int = CHANNELS, block: int = BLOCK) -> dict:
             for long, (_, name) in BASELINE_CONFIGS.items()}
 
 
-def make_chain(name: str, device="cuda"):
-    """The chain a profile name stands for: a CONFIGS name, "c1"/"4c1"
-    the flagship/config #4 as one stream at STREAM_BLOCK frames a row,
-    with "f<F>" a FoldedChain of F rows, "<name>@<C>x<T>" a ShardedChain
-    on a C x T mesh that repeats ``device``."""
+def make_chain(name: str, device="cuda", channels: int = CHANNELS):
+    """The chain a profile name stands for: a CONFIGS name (``channels``
+    streams), "c1"/"4c1" the flagship/config #4 as one stream at
+    STREAM_BLOCK frames a row, with "f<F>" a FoldedChain of F rows,
+    "<name>@<C>x<T>" a ShardedChain on a C x T mesh that repeats
+    ``device``."""
     from iq_tool_tpu_torch.parallel.sharded import ShardedChain, make_mesh
     from iq_tool_tpu_torch.pipeline.folded import FoldedChain
     if "@" in name:
@@ -145,7 +151,7 @@ def make_chain(name: str, device="cuda"):
     if base in ("c1", "4c1"):
         cfg = config("flagship" if base == "c1" else "4", 1, STREAM_BLOCK)
         return FoldedChain(cfg, int(fold or 1), device=device)
-    return Chain(config(name), device=device)
+    return Chain(config(name, channels), device=device)
 
 
 def tone_wire(channels: int, frames: int, gen: torch.Generator,
@@ -277,13 +283,13 @@ def is_copy(event_name: str) -> bool:
     return event_name.startswith(("Memcpy", "Memset"))
 
 
-def profile(name: str, graphed: bool = False) -> dict:
+def profile(name: str, graphed: bool = False, channels: int = CHANNELS) -> dict:
     """One configuration's step profiled as above, eagerly or as a CUDA
     graph (``graphed``); the graph's record also holds its kernels per
     replay as counted at the capture (``captured``)."""
     from iq_tool_tpu_torch.pipeline.graphed import GraphedStep
     dev = torch.device("cuda")
-    chain = make_chain(name, dev)
+    chain = make_chain(name, dev, channels)
     cfg, n = chain.cfg, chain.n_in
     # a sharded step's block is T times a chain's: its stream repeats 4
     # blocks, so the input stays as large as the unsharded chains'
@@ -377,13 +383,15 @@ def main(argv=None) -> int:
     ap.add_argument("--configs", nargs="+", default=list(CONFIGS), choices=CONFIGS)
     ap.add_argument("--forms", nargs="+", default=["eager", "graph"],
                     choices=["eager", "graph"])
+    ap.add_argument("--channels", type=int, default=CHANNELS,
+                    help="streams of a CONFIGS chain (the benchmark's cells: 64)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps needs a CUDA card")
     print(f"device {torch.cuda.get_device_name(0)}, torch {torch.__version__}")
     bad = 0
     for name in args.configs:
-        rs = {f: profile(name, f == "graph") for f in args.forms}
+        rs = {f: profile(name, f == "graph", args.channels) for f in args.forms}
         for f, r in rs.items():
             if r["idle"] is None:
                 print(f"[{name} {f}] wall {r['wall_ms']:.3f} ms/step; device time not "

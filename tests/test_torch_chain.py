@@ -385,18 +385,32 @@ def test_chain_attributes_match_jax(case):
         assert pc.filter_stage == jc.filter_stage
 
 
+# config #4's shape without the DC block (the benchmark's full4 chain):
+# I/Q correction, +100 kHz pre-NCO, the 0-10 kHz stop-range after the
+# resampler, -50 kHz post-NCO, local AGC; a case beside the fuzz CASES,
+# which hold no chain with I/Q correction and a pre-NCO but no DC block
+FULL4_CASE = (dict(input_format="cs16", target_rate=1_488_375.0, iq_correction=True,
+                   freq_shift_pre_hz=100e3, freq_shift_post_hz=-50e3,
+                   filters=(JaxFilter("stop-range", 0.0, 10e3),), agc_profile="local"),
+              150e3)
+
+
 @pytest.mark.parametrize("out", ["cf32", "cs16"])
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(9))
 def test_fuzz_cases_vs_jax(case, out):
-    """tests/test_chain_fuzz.py's eight CASES, 2 channels x 4 carried
-    blocks at an 8192-frame target, the same band-limited noise through
-    both packages.  cs16: cases 5 and 6 byte-identical; without the DC
-    blocker within 1 code on <= 0.1 % of the items; with it >= 60 dB and
-    1 code on <= 1 %.  cf32: >= 90 dB."""
+    """tests/test_chain_fuzz.py's eight CASES and FULL4_CASE (case 8), 2
+    channels x 4 carried blocks at an 8192-frame target, the same
+    band-limited noise through both packages.  cs16: cases 5 and 6
+    byte-identical; without the DC blocker within 1 code on <= 0.1 % of
+    the items; with it, or with an AGC past its start-up, >= 60 dB and 1
+    code on <= 1 %.  cf32: >= 90 dB.  The pre-NCO's phase and the I/Q
+    estimator's factors (to 1e-5, as tests/test_torch_general.py holds
+    them) and counter as the JAX chain's."""
     import scipy.signal as sig
 
     from tests.test_chain_fuzz import CASES
-    kw, center = dict(CASES[case][0]), CASES[case][1]
+    kw, center = (CASES + [FULL4_CASE])[case]
+    kw = dict(kw)
     filters = kw.pop("filters")
     base = dict(output_format=out, input_rate=IN_RATE, channels=2, target_block=8192, **kw)
     jc = JaxChain(JaxConfig(filters=filters, **base))
@@ -411,8 +425,16 @@ def test_fuzz_cases_vs_jax(case, out):
     z = (0.4 * z / np.abs(z).max()).astype(np.complex64)
     wire = np.stack([np.asarray(ref_dsp.from_cf32(z[c], jc.cfg.input_format))
                      for c in range(2)])
-    _, want = _run_jax(jc, wire, range(4))
-    _, got = _run_port(pc, wire, range(4))
+    jcarry, want = _run_jax(jc, wire, range(4))
+    pcarry, got = _run_port(pc, wire, range(4))
+    # an AGC starts from gain 1 and lifts the notch's start-up ramp (~1e-5
+    # of full scale) until either package's float32 FFT rounding shows:
+    # its first 4096 output frames are left out (as benchmark/harness/
+    # check.py leaves them out), and past them its gain lifts that
+    # rounding into code flips as the DC blocker's recurrence does
+    skip = 4096 * 2 if kw.get("agc_profile") else 0
+    lifted = kw.get("dc_block") or kw.get("agc_profile")
+    got, want = got[:, skip:], want[:, skip:]
     d = got.astype(np.float64) - want.astype(np.float64)
     snr = 10 * np.log10((want.astype(np.float64) ** 2).mean() / max((d ** 2).mean(), 1e-300))
     if out == "cf32":
@@ -421,6 +443,12 @@ def test_fuzz_cases_vs_jax(case, out):
         np.testing.assert_array_equal(got, want)
     else:
         assert np.abs(d).max() <= 1
-        assert (d != 0).mean() <= (1e-2 if kw.get("dc_block") else 1e-3), (d != 0).mean()
-        if kw.get("dc_block"):
+        assert (d != 0).mean() <= (1e-2 if lifted else 1e-3), (d != 0).mean()
+        if lifted:
             assert snr >= 60.0, snr
+    pnp = carry_to_numpy(pcarry)
+    np.testing.assert_array_equal(pnp["nco_pre"], np.asarray(jcarry["nco_pre"]))
+    if "iq" in pnp:
+        np.testing.assert_allclose(pnp["iq"][0], np.asarray(jcarry["iq"].factors),
+                                   rtol=0, atol=1e-5)
+        assert pnp["iq"][1] == np.asarray(jcarry["iq"].samples_since_opt)

@@ -137,14 +137,28 @@ def test_general_configs_parity(rng, name, block):
                                    rtol=1e-3)
 
 
-@pytest.mark.parametrize("name", ["3", "4", "5", "4k32"])
+@pytest.mark.parametrize("name", ["3", "4", "5", "4k32", "full4"])
 def test_measured_configs_are_baseline(name):
     """The chains chip_smoke.py and the profiler measure are the configs
-    tested here (4k32: #4 with --filter-fft-size 32768)."""
+    tested here (4k32: #4 with --filter-fft-size 32768; full4: #4
+    without the DC block)."""
     cfg = {"3": CONFIG3, "4": CONFIG4, "5": CONFIG5,
-           "4k32": dict(CONFIG4, filter_fft_size=32768)}[name]
+           "4k32": dict(CONFIG4, filter_fft_size=32768),
+           "full4": dict(CONFIG4, dc_block=False)}[name]
     _, want = _configs(16384, **cfg)
     assert profile_steps.config(name, 2, 16384) == want
+
+
+def test_profiled_full4_is_the_benchmarks():
+    """profile_steps' "full4" is the chain of the benchmark's full4
+    configuration (benchmark/configs/full4.json), field for field."""
+    import json
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmark/configs/full4.json"
+    fields = dict(json.loads(path.read_text())["chain"])
+    fields["filters"] = tuple(FilterRequest(*f) for f in fields["filters"])
+    want = ChainConfig(channels=64, target_block=262144, **fields)
+    assert profile_steps.config("full4", 64) == want
 
 
 def test_measured_tone_wire():

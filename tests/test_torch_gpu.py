@@ -464,6 +464,61 @@ def test_k3_matches_twin(rng, case):
         assert _snr(w, g) >= 100.0
 
 
+@pytest.mark.parametrize("n", [16384, 16390, 16391], ids=["n16384", "n16390", "n16391"])
+@pytest.mark.parametrize("dth", [DTHETA, 0], ids=["nco", "no-nco"])
+@pytest.mark.parametrize("iq", [True, False], ids=["iq", "no-iq"])
+@pytest.mark.parametrize("fmt", ["cs16", "cu8", "planar"])
+def test_k3pre_matches_twin(rng, fmt, iq, dth, n):
+    """K3pre (csrc/pre.cu) against its twin: 16390 and 16391 frames a row
+    put every row but the first off 16-byte alignment (its head and tail
+    frames), 16384 is the chain's shape."""
+    _need_card()
+    ch = 5
+    fac = _cuda((rng.standard_normal((ch, 2)) * 0.02).astype(np.float32)) if iq else None
+    ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64)) if dth else None
+    if fmt == "planar":
+        xr, xi = _planes(rng, ch, n, 0.3)
+        args, kw = (xr, xi), {}
+    else:
+        wire, kind = _random_wire(rng, fmt, ch, n)
+        args = (None, None)
+        kw = dict(wire_i32=wire, wire_kind=kind, wire_norm=get_format(fmt).normalizer,
+                  wire_gain=0.9)
+    before = kernels.pre_apply.launches
+    got = kernels.pre_apply(*args, fac, ph, dth, **kw)
+    want = kernels.pre_apply_ref(*args, fac, ph, dth, **kw)
+    torch.cuda.synchronize()
+    assert kernels.pre_apply.launches == before + 1
+    for w, g in zip(want, got):
+        assert _snr(w, g) >= 100.0
+    if not dth:                          # no sin or cos: the twin's bits
+        for w, g in zip(want, got):
+            assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("fmt", ["cs16", "cu8", "planar"])
+def test_k3pre_rows_off_alignment(rng, fmt):
+    """Input views one element past an aligned address: the wire's (or
+    the planes') rows never share the outputs' alignment, so every row
+    takes the kernel's one-frame-a-thread path."""
+    _need_card()
+    ch, n = 3, 8192 + 3
+    fac = _cuda((rng.standard_normal((ch, 2)) * 0.02).astype(np.float32))
+    ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64))
+    if fmt == "planar":
+        bufs = _planes(rng, 1, ch * n + 1, 0.3)
+        args, kw = tuple(b[0, 1:].view(ch, n) for b in bufs), {}
+    else:
+        wire, kind = _random_wire(rng, fmt, 1, ch * n + 1)
+        args = (None, None)
+        kw = dict(wire_i32=wire[0, 1:].view(ch, n), wire_kind=kind,
+                  wire_norm=get_format(fmt).normalizer)
+    got = kernels.pre_apply(*args, fac, ph, DTHETA, **kw)
+    want = kernels.pre_apply_ref(*args, fac, ph, DTHETA, **kw)
+    for w, g in zip(want, got):
+        assert _snr(w, g) >= 100.0
+
+
 def _dc_wire(rng, fmt, ch, n):
     """A wire of a tone behind noise and a DC offset (the pole keeps the
     offset's step for the whole block)."""
@@ -733,6 +788,38 @@ def test_general_chain_on_card_matches_cpu_chain(rng):
                 3, 6, 3, 3, 3, 3, 0, 0)
 
 
+def test_full4_chain_on_card_matches_cpu_chain(rng):
+    """Config #4 without the DC block (the benchmark's full4 chain) at
+    16384 frames, 2 channels, 3 blocks: the pre-stage is K3pre, one
+    launch a step, and no DC kernel runs; the output agrees with the CPU
+    chain to 4 codes past the notch's start-up ramp, as config #4's."""
+    _need_card()
+    from iq_tool_tpu_torch import profile_steps
+    cfg = profile_steps.config("full4", 2, 16384)
+    gpu, cpu = Chain(cfg, device="cuda"), Chain(cfg, device="cpu")
+    t = np.arange(3 * gpu.n_in) / 2.048e6
+    x = 0.4 * np.exp(2j * np.pi * 37e3 * t) + 0.05
+    x = x.real * 1.02 + 1j * (x.imag + 0.03 * x.real)       # I/Q imbalance
+    pairs = np.stack([x.real, x.imag], -1).reshape(1, -1)
+    raw = np.repeat(np.round(pairs * 32767).astype(np.int16), 2, axis=0)
+    gc, cc = gpu.init_carry(), cpu.init_carry()
+    kernels.reset_launch_counts()
+    w = gpu.in_wire_len
+    ramp = 2 * (gpu.post_filter.num_taps // 2)                # wire items
+    for b in range(3):
+        blk = torch.from_numpy(raw[:, b * w:(b + 1) * w])
+        gc, go = gpu.step(gc, blk.cuda())
+        cc, co = cpu.step(cc, blk)
+        d = (go.cpu().to(torch.int64) - co.to(torch.int64)).abs()
+        assert int(d[:, ramp if b == 0 else 0:].max()) <= 4
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"pre_apply": 3, "iq_estimate": 3, "banded_apply": 6,
+                      "banded_apply_mma": 6, "osfft_apply": 3, "post_apply": 3,
+                      "rms_gains": 3}, counts
+    assert torch.equal(gc["nco_pre"].cpu(), cc["nco_pre"])
+    assert torch.equal(gc["iq"].samples_since_opt.cpu(), cc["iq"].samples_since_opt)
+
+
 def test_iq_descent_matches_twin(rng):
     """The estimator kernel's descent, unsmoothed (the calibration mode:
     no counter, always due), against its tensor-op twin on an imbalanced
@@ -996,9 +1083,10 @@ def _graph_against_eager(ch, raws, reset=4, resume=None):
 
 @pytest.mark.parametrize("name,fold", [
     ("flagship", 1), ("general", 1), ("general", 4), ("1", 1), ("2", 1), ("3", 1),
-    ("5", 1), ("gather", 1), ("4k32", 1), ("4k128", 1), ("4dx", 1), ("4dig", 1)],
+    ("5", 1), ("gather", 1), ("4k32", 1), ("4k128", 1), ("4dx", 1), ("4dig", 1),
+    ("full4", 1)],
     ids=["flagship", "general", "general-fold4", "config1", "config2", "config3",
-         "config5", "gather", "4k32", "4k128", "4dx", "4dig"])
+         "config5", "gather", "4k32", "4k128", "4dx", "4dig", "full4"])
 def test_graph_replays_equal_eager(rng, name, fold):
     """The step as one CUDA graph (pipeline/graphed.py), 8 replays with
     distinct inputs, a reset at the fifth and a carry from
@@ -1008,8 +1096,8 @@ def test_graph_replays_equal_eager(rng, name, fold):
     status words its previous replay left would take stale aggregates.
     Every chain profile_steps measures: the flagship, BASELINE configs
     #1-#5 (#3 on cu8), the gather stage, config #4 at nfft 32768 (K5's
-    cluster) and 131072 (the torch.fft route), its dx and digital AGC.
-    The capture records the kernels a replay launches: the eager step's."""
+    cluster) and 131072 (the torch.fft route), its dx and digital AGC,
+    and without its DC block (full4).  The capture records the kernels a replay launches: the eager step's."""
     _need_card()
     from iq_tool_tpu_torch import profile_steps
     from iq_tool_tpu_torch.pipeline.folded import FoldedChain
@@ -1033,6 +1121,11 @@ def test_graph_replays_equal_eager(rng, name, fold):
                              "iq_estimate": 1}
     elif name == "4k128":
         assert g.kernels["overlap_save_fft"] == 1 and "osfft_apply" not in g.kernels
+    elif name == "full4":
+        # without the DC block the pre-stage is K3pre
+        assert g.kernels == {"banded_apply": 2, "banded_apply_mma": 2, "pre_apply": 1,
+                             "post_apply": 1, "rms_gains": 1, "osfft_apply": 1,
+                             "iq_estimate": 1}
 
 
 def test_graph_keeps_its_scratch_when_the_stream_grows(rng):
