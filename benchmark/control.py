@@ -24,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from benchmark.harness import cell as cells, check, drive, signal  # noqa: E402
+from benchmark.harness import cell as cells, check, drive  # noqa: E402
 from benchmark.reference.chain import RefChain, quantize_cs16  # noqa: E402
 
 
@@ -33,12 +33,10 @@ def control_run(cell, seed: int, device, blocks: int) -> drive.Run:
     ring cycled a block a step, the first and last blocks kept."""
     chain = cells.build_chain(cell, device)
     n_in, n_out, rows = chain.n_in, chain.n_out, getattr(chain, "fold", 1)
-    del chain
     c, slots = cell.channels, int(cell.traffic["ring_blocks"])
-    cap = signal.capture(seed, c, slots * n_in, float(cell.chain["input_rate"]),
-                         cell.traffic["signal"], device)
-    ring = cap.view(c, slots, 2 * n_in).transpose(0, 1).contiguous()
-    del cap
+    cap = drive.capture(cell, chain, seed, device)
+    ring = cap.view(c, slots, chain.in_wire_len).transpose(0, 1).contiguous()
+    del cap, chain
     period = cell.due_period(n_in)
     n = -(-max(blocks, drive.least_blocks(n_in)) // period) * period
     run = drive.Run(cell, seed, 0.0, False, str(device), 0.0, mode="control", rows=rows,

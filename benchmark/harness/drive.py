@@ -14,7 +14,9 @@ records of them.  Which one a cell takes is its traffic file's ``mode``:
   idle threads spin on the cores the engine's reader, main and writer
   threads need.
 
-Every mode runs the stream from its first block: set-up builds the
+Both take the capture in the configuration's input format, in the
+chain's wire dtype and length; the output stays cs16.  Every mode runs
+the stream from its first block: set-up builds the
 chain, captures its graph and drives it through its first blocks (kept
 for the check from the stream's start); the window then runs for
 ``seconds``, ending on a block on which the I/Q estimator's update
@@ -77,7 +79,7 @@ class Run:
     start_out: list = dataclasses.field(default_factory=list)   # (C, 2 n_out) int16
     end_out: list = dataclasses.field(default_factory=list)     # the last END_STEPS
     final_factors: object = None      # the program's I/Q factors after its last update
-    inputs: object = None             # k -> (C, 2 n_in) int16 wire of block k
+    inputs: object = None             # k -> block k's (C, in_wire_len) input wire
 
 
 def _profiler(on: bool):
@@ -99,6 +101,22 @@ def _end_setup(run: Run) -> None:
     run.setup_s = time.perf_counter() - run.t_start
 
 
+def capture(cell: Cell, chain, seed: int, device) -> torch.Tensor:
+    """The cell's seeded capture of ``ring_blocks`` blocks a channel on
+    ``device``: (C, ring_blocks * in_wire_len) in the configuration's
+    input format, which has to be the chain's input wire dtype."""
+    slots = int(cell.traffic["ring_blocks"])
+    cap = signal.capture(seed, cell.channels, slots * chain.n_in,
+                         float(cell.chain["input_rate"]), cell.traffic["signal"], device,
+                         cell.chain["input_format"])
+    got = torch.empty(0, dtype=cap.dtype).numpy().dtype
+    if got != np.dtype(chain.in_wire_dtype) or cap.shape[1] != slots * chain.in_wire_len:
+        raise RuntimeError(f"a {cell.chain['input_format']} capture is {got} x "
+                           f"{cap.shape[1]}, the chain reads {chain.in_wire_dtype} x "
+                           f"{slots * chain.in_wire_len}")
+    return cap
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -117,9 +135,8 @@ def resident(run: Run) -> None:
     chain = build_chain(cell, dev)
     step = GraphedStep(chain)
     c, n_in, slots = cell.channels, chain.n_in, int(tr["ring_blocks"])
-    cap = signal.capture(run.seed, c, slots * n_in, float(cell.chain["input_rate"]),
-                         tr["signal"], dev)
-    ring = cap.view(c, slots, 2 * n_in).transpose(0, 1).contiguous()
+    cap = capture(cell, chain, run.seed, dev)
+    ring = cap.view(c, slots, chain.in_wire_len).transpose(0, 1).contiguous()
     del cap
     step.capture()
     out_ring = torch.empty((slots, c, 2 * chain.n_out), dtype=torch.int16, device=dev)
@@ -181,7 +198,7 @@ def _modules():
             self.feed, self.c = feed, c
 
         def initialize(self, config, args):
-            return SourceInfo(sample_rate=self.feed.rate, sample_format="cs16")
+            return SourceInfo(sample_rate=self.feed.rate, sample_format=self.feed.fmt)
 
         def blocks(self, frames_per_block: int):
             for payload in self.feed.payloads(self.c, frames_per_block):
@@ -219,10 +236,11 @@ class ReplayFeed:
     """The capture cycled from host memory, a block at a time: stops after
     ``blocks`` blocks, or at the first block on a due period's boundary
     once ``seconds`` have passed since ``arm`` and the check has its
-    blocks."""
+    blocks.  ``cap`` is (C, slots * wire) of a format of two items a
+    frame, announced to the engine as ``fmt``."""
 
-    def __init__(self, cap: np.ndarray, n_in: int, rate: float, period: int):
-        self.cap, self.n_in, self.rate, self.period = cap, n_in, rate, period
+    def __init__(self, cap: np.ndarray, n_in: int, rate: float, period: int, fmt: str):
+        self.cap, self.n_in, self.rate, self.period, self.fmt = cap, n_in, rate, period, fmt
         self.channels = cap.shape[0]
         self.slots = cap.shape[1] // (2 * n_in)
 
@@ -265,9 +283,9 @@ def engine(run: Run) -> None:
     dev = torch.device(run.device)
     chain = build_chain(cell, dev)
     c, n_in = cell.channels, chain.n_in
-    cap = signal.capture(run.seed, c, int(tr["ring_blocks"]) * n_in,
-                         float(cell.chain["input_rate"]), tr["signal"], dev).cpu().numpy()
-    feed = ReplayFeed(cap, n_in, float(cell.chain["input_rate"]), cell.due_period(n_in))
+    cap = capture(cell, chain, run.seed, dev).cpu().numpy()
+    feed = ReplayFeed(cap, n_in, float(cell.chain["input_rate"]), cell.due_period(n_in),
+                      cell.chain["input_format"])
     Source, Sink = _modules()
     sources = [Source(feed, j) for j in range(c)]
     sinks = [Sink(feed, j) for j in range(c)]
@@ -301,7 +319,8 @@ def engine(run: Run) -> None:
     def stack(attr: str) -> list:
         # a block short of n_out frames (the stream's last, zero-padded)
         # keeps its own length
-        return [torch.from_numpy(np.stack([np.frombuffer(getattr(s, attr)[i], np.int16)
+        return [torch.from_numpy(np.stack([np.frombuffer(getattr(s, attr)[i],
+                                                         chain.out_wire_dtype)
                                            for s in sinks]))
                 for i in range(len(getattr(sinks[0], attr)))]
     run.start_out = stack("first")

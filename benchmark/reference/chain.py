@@ -1,7 +1,7 @@
 """The plain reference of the measured chains: what the program's output
 should be, in float64 PyTorch, one block at a time.
 
-    wire in -> [DC block] -> [I/Q estimate + correct] -> pre-shift
+    wire in (cs16 or cu8) -> [DC block] -> [I/Q estimate + correct] -> pre-shift
             -> [pre-filter] -> resampler stages -> [post-filter]
             -> [AGC] -> post-shift -> wire out
 
@@ -36,6 +36,7 @@ _MASK = 0xFFFFFFFF
 _COUNTER_SAT = 0xF0000000
 _DIRS = ((1, 1), (1, -1), (-1, 1), (-1, -1))
 CS16_NORM = 1.0 / 32768.0        # wire -> float
+CU8_OFFSET, CU8_NORM = 127.5, 1.0 / 128.0    # (x - 127.5) / 128
 CS16_SCALE = 32767.0             # float -> wire, clamped to [-32768, 32767]
 
 
@@ -50,6 +51,15 @@ def decode_cs16(wire: torch.Tensor) -> torch.Tensor:
     """(C, 2N) int16 cs16 wire -> (C, N) complex128."""
     w = wire.double() * CS16_NORM
     return torch.complex(w[:, 0::2], w[:, 1::2])
+
+
+def decode_cu8(wire: torch.Tensor) -> torch.Tensor:
+    """(C, 2N) uint8 cu8 wire -> (C, N) complex128."""
+    w = (wire.double() - CU8_OFFSET) * CU8_NORM
+    return torch.complex(w[:, 0::2], w[:, 1::2])
+
+
+DECODERS = {"cs16": decode_cs16, "cu8": decode_cu8}
 
 
 def scan(coef: float, b: torch.Tensor) -> torch.Tensor:
@@ -68,11 +78,12 @@ class RefChain:
 
     def __init__(self, chain: dict, channels: int, target_block: int, rows: int = 1,
                  device="cpu", precision: str = "float64"):
-        if chain["input_format"] != "cs16" or chain["output_format"] != "cs16":
-            raise NotImplementedError("the reference runs cs16 in and out")
+        if chain["input_format"] not in DECODERS or chain["output_format"] != "cs16":
+            raise NotImplementedError("the reference runs cs16 or cu8 in and cs16 out")
         if precision not in ("float64", "tf32"):
             raise ValueError(f"unknown precision {precision!r}")
         self.cfg = chain
+        self.decode = DECODERS[chain["input_format"]]
         self.ch, self.rows, self.dev, self.prec = channels, rows, torch.device(device), precision
         in_rate, out_rate = float(chain["input_rate"]), float(chain["target_rate"])
         att = float(chain.get("filter_attenuation_db", D.RESAMPLER_ATTENUATION_DB))
@@ -277,13 +288,13 @@ class RefChain:
             due = self.counter >= self.iq_interval
             seg = None
             if due:
-                seg = decode_cs16(block(k)[:, :2 * D.IQ_FFT_SIZE].to(self.dev))
+                seg = self.decode(block(k)[:, :2 * D.IQ_FFT_SIZE].to(self.dev))
                 if self.dc:
                     state = self.dc_x, self.dc_y
                     self.dc_x = torch.zeros_like(self.dc_x)
                     self.dc_y = torch.zeros_like(self.dc_y)
                     for j in range(max(0, k - warm), k):
-                        self._dc_block(decode_cs16(block(j).to(self.dev)))
+                        self._dc_block(self.decode(block(j).to(self.dev)))
                     seg = self._dc_block(seg)
                     self.dc_x, self.dc_y = state
             self._estimate(seg, due)
@@ -325,10 +336,10 @@ class RefChain:
     # -------------------------------------------------------------- step
 
     def step(self, wire: torch.Tensor, estimate: bool = True) -> torch.Tensor:
-        """(C, 2 n_in) int16 wire -> (C, n_out) complex128 output in codes
+        """(C, 2 n_in) input wire -> (C, n_out) complex128 output in codes
         (y * 32767), before rounding and clamping.  ``estimate=False``
         applies the I/Q factors as they stand, without the estimator."""
-        x = decode_cs16(wire.to(self.dev))
+        x = self.decode(wire.to(self.dev))
         if self.dc:
             x = self._dc_block(x)
         if self.iq:

@@ -35,6 +35,8 @@ RESAMP_GROUP_CAP = 256
 FFT_MIN_BLOCK = 2048
 FUSE_MAX_TAPS = 256
 FIR_MAX_TAPS = 1024            # "auto" filters above this run overlap-save
+FFT_BANDED_MAX_TAPS = 2048     # FFT-method filters up to this run banded
+BANDED_STRIDE_CAP = 256        # a banded filter pass's output group
 IQ_FFT_SIZE = 1024
 IQ_UPDATE_INTERVAL_SEC = 0.5
 IQ_EST_STEP = 1e-4
@@ -306,6 +308,22 @@ def compose_output_fir(a: np.ndarray, stride: int, taps: np.ndarray) -> np.ndarr
             d, r = divmod(i - j, gg)
             out[ext + d * stride:ext + d * stride + l_old, i] += taps[j] * a[:, r]
     return out
+
+
+def largest_divisor_leq(n: int, cap: int) -> int:
+    """The largest divisor of n that is at most cap (at least 1)."""
+    return next(d for d in range(min(cap, n), 0, -1) if n % d == 0)
+
+
+def filter_band(taps: np.ndarray, stride: int) -> np.ndarray:
+    """A filter pass as a banded matrix T[stride + K - 1, stride]: column i
+    the reversed taps at rows i .. i + K - 1, after the K - 1 carried
+    inputs."""
+    k = len(taps)
+    t = np.zeros((stride + k - 1, stride), np.complex128)
+    for i in range(stride):
+        t[i:i + k, i] = taps[::-1]
+    return t
 
 
 def column_span(a: np.ndarray) -> int:

@@ -9,7 +9,7 @@ import torch
 
 from benchmark import control
 from benchmark.harness import check, drive
-from benchmark.tests.helpers import small_cell, small_run
+from benchmark.tests.helpers import config3_cell, small_cell, small_run
 
 
 @pytest.mark.parametrize("name", ["baseline1-resident64", "full4-resident64"])
@@ -22,6 +22,17 @@ def test_the_tf32_control_is_not_correct(name):
     assert len(run.start_out) == drive.START_STEPS and len(run.end_out) == drive.END_STEPS
     numbers = check.check(run, "cpu")
     assert not all(v <= lim for _, v, lim in numbers), numbers
+
+
+def test_the_tf32_control_runs_config3():
+    """The control takes config 3's cu8 wire as it is and reads at least
+    three times the sound step's widest gap, the room a limit needs
+    between the two."""
+    torch.set_num_threads(4)
+    cell = config3_cell()
+    ctl = check.check(control.control_run(cell, 2147483651, "cpu", 10), "cpu")
+    sound = check.check(small_run(cell, seed=2147483651), "cpu")
+    assert max(v for _, v, _ in ctl) >= 3 * max(v for _, v, _ in sound), (ctl, sound)
 
 
 def _broken(monkeypatch, fault: str):

@@ -12,9 +12,10 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from benchmark.harness import cell as cells, drive, trace
-from benchmark.tests.helpers import small_run
+from benchmark.tests.helpers import config3_cell, small_run
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "benchmark"
@@ -101,7 +102,7 @@ def test_due_period():
 
 def test_replay_feed_indexes_the_ring_and_stops_in_step(monkeypatch):
     cap = np.arange(3 * 2 * 2 * 4, dtype=np.int16).reshape(3, -1)      # 3 channels, 4 blocks of 2
-    feed = drive.ReplayFeed(cap, 2, 1.0, period=3)
+    feed = drive.ReplayFeed(cap, 2, 1.0, 3, "cs16")
     feed.arm(blocks=6)
     gens = [list(feed.payloads(c, 2)) for c in range(3)]
     assert [len(g) for g in gens] == [6, 6, 6]
@@ -118,9 +119,13 @@ def test_replay_feed_indexes_the_ring_and_stops_in_step(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["baseline1-resident64", "baseline1-engine64",
-                                  "full4-resident64"])
+                                  "full4-resident64", "config3-resident", "config3-engine"])
 def test_a_small_run_through_each_driver(name):
-    run = small_run(name)
+    """Each cell, and config 3's cu8 chain in either mode, through its
+    driver and the check."""
+    run = small_run(config3_cell(name.split("-")[1]) if name.startswith("config3") else name)
+    wire = torch.uint8 if name.startswith("config3") else torch.int16
+    assert run.inputs(0).dtype == wire and run.inputs(0).shape[-1] == 2 * run.n_in
     assert run.steps > 0 and run.window_s > 0 and run.total_steps >= run.steps
     assert len(run.start_out) == drive.START_STEPS and len(run.end_out) == drive.END_STEPS
     assert run.total_steps % run.cell.due_period(run.n_in) == 0
