@@ -419,6 +419,35 @@ def _span_medians(serial: int) -> dict:
     return {name: f"{statistics.median(v):.3f} ms (x{len(v)})" for name, v in ms.items()}
 
 
+def _stage_rows(engine, noted: dict) -> dict:
+    """{stage: its host ms and the kernels it launches, a step} of the
+    engine's run ``engine.serial``: a graphed step's kernels as its
+    capture noted them (a replay runs no span, so its stages have no
+    host time), an eager step's as the run noted them since ``noted``
+    (``trace.launches()`` before it)."""
+    from iq_tool_tpu_torch.pipeline import trace
+    ms: dict = {}
+    blocks = 0
+    for sp in trace.record():
+        if sp.run == engine.serial:
+            blocks += sp.name == "engine.step"
+            if sp.name.startswith("chain."):
+                ms[sp.name] = ms.get(sp.name, 0.0) + (sp.end_ns - sp.start_ns) / 1e6
+    blocks = max(blocks, 1)
+    kern = getattr(engine.stepper, "stage_kernels", None)
+    if kern is None:
+        kern = {st: {sym: n / blocks for sym, n in k.items()}
+                for st, k in trace.stage_launches(noted, trace.launches()).items()}
+    rows = {}
+    for stage in dict.fromkeys([*ms, *kern]):
+        if stage is None:
+            continue
+        t = f"{ms[stage] / blocks:.3f} ms" if stage in ms else "in the graph"
+        k = ", ".join(f"{sym} x{n:g}" for sym, n in kern.get(stage, {}).items())
+        rows[stage] = f"{t}; {k or 'no kernel'}"
+    return rows
+
+
 def _run(engine, profile_dir, on_cuda: bool, log):
     """engine.run(), under torch.profiler when a profile directory is
     given: CPU activity on every thread (the engine's reader and writer
@@ -469,6 +498,7 @@ def main(argv=None) -> int:
     except ValueError:
         pass  # not the main thread (library use)
 
+    from iq_tool_tpu_torch.pipeline import trace
     from iq_tool_tpu_torch.pipeline.runtime import StreamEngine
     watchdog = None
     try:
@@ -549,6 +579,7 @@ def main(argv=None) -> int:
             # the build and the capture, ahead of the stream and of the
             # profiler's window
             engine.prepare()
+            noted = trace.launches()
             s = _run(engine, args.profile_dir,
                      chain is not None and chain.device.type == "cuda", log)
         finally:
@@ -579,6 +610,8 @@ def main(argv=None) -> int:
             if engine.serial is not None:
                 _print_summary_table("Engine Spans (median, count)",
                                      _span_medians(engine.serial))
+                _print_summary_table("Step Stages (host ms, kernels; a step)",
+                                     _stage_rows(engine, noted))
         return 130 if s.interrupted else 0
     except (ValueError, OSError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)

@@ -33,7 +33,9 @@ Each wrapper keeps the reference's signature minus ``interpret`` and the
 TPU tiling, and dispatches on where its input lies: a CPU tensor runs the
 twin (``*_ref``), a CUDA tensor launches the kernel or raises.  There is
 no fallback from one to the other.  ``<wrapper>.launches`` counts kernel
-launches (twin runs do not count).
+launches (twin runs do not count), and each launch is noted in the
+stage record under the CUDA symbol the profiler prints
+(``pipeline/trace.py`` ``note``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.formats import get_format
 from iq_tool_tpu_torch.ops import banded, convert, dc_block, iq_balance, nco
 from iq_tool_tpu_torch.ops import fft as tfft
+from iq_tool_tpu_torch.pipeline import trace
 
 # Formats the kernels quantize and pack in their epilogue: two codes per
 # element, element dtype sized so a bitcast gives the interleaved wire.
@@ -59,6 +62,14 @@ _PACK_INFO = {  # fmt name -> (element dtype, bits per code)
 }
 _WIRE_KINDS = {"cs16": 0, "cu16": 1, "cu8": 2, "cs8": 3}
 _PLANAR = -1
+
+
+def _launched(symbol: str, *wrappers) -> None:
+    """One launch of the CUDA kernel ``symbol``: each wrapper's
+    ``launches`` counts it, and the stage record notes it."""
+    for fn in wrappers:
+        fn.launches += 1
+    trace.note(symbol)
 
 
 def packable_out(fmt_name: str) -> bool:
@@ -411,9 +422,10 @@ def banded_apply(state_r, state_i, xr, xi, a_r, a_i, stride: int, hist: int,
     out = _launch_banded(lib, band, state_r, state_i, xr, xi, wire_i32, kind,
                          wire_norm, wire_gain, nco_dtheta if wire_i32 is not None else 0,
                          nco_phase, stride, hist, pack_fmt, core=core)
-    banded_apply.launches += 1
     if core == "mma":
-        banded_apply_mma.launches += 1
+        _launched("banded_mma_kernel", banded_apply, banded_apply_mma)
+    else:
+        _launched("banded_kernel", banded_apply)
     return out
 
 
@@ -568,7 +580,7 @@ def dc_prologue(wire_i32, dc_state, dc_alpha: float, hist: int,
             _ptr(nco_phase), dth, ch, n, hist, _ptr(yr), _ptr(yi), _ptr(tail_r),
             _ptr(tail_i), _ptr(new_dc), _ptr(look), seq, _stream())
     _check(rc, "dc prologue kernel")
-    dc_prologue.launches += 1
+    _launched("dc_kernel", dc_prologue)
     return yr, yi, tail_r, tail_i, new_dc
 
 
@@ -658,7 +670,7 @@ def dc_carry(wire_i32, dc_state, dc_alpha: float, stride: int, hist: int,
             BAND_WIN * stride, groups, _ptr(bound), _ptr(halo_r), _ptr(halo_i),
             _ptr(tail_r), _ptr(tail_i), _ptr(new_dc), _ptr(look), seq, _stream())
     _check(rc, "dc carry kernel")
-    dc_carry.launches += 1
+    _launched("dc_kernel", dc_carry)
     return bound, halo_r, halo_i, tail_r, tail_i, new_dc
 
 
@@ -695,7 +707,7 @@ def banded_apply_dc(state_r, state_i, dc_state, dc_alpha: float, a_r, a_i,
                          None, None, wire_i32, _WIRE_KINDS[wire_kind], wire_norm,
                          wire_gain, nco_dtheta, nco_phase, stride, hist, pack_fmt,
                          dc=(1.0 - dc_alpha, bound, halo_r, halo_i))
-    banded_apply_dc.launches += 1
+    _launched("banded_kernel", banded_apply_dc)
     return out, tail_r, tail_i, new_dc
 
 
@@ -768,7 +780,7 @@ def dc_block_apply(xr, xi, state, alpha: float, iq_factors=None,
             _ptr(phase_acc if dth else None), dth, ch, n, _ptr(yr), _ptr(yi),
             _ptr(new_state), _ptr(look), seq, _stream())
     _check(rc, "dc block kernel")
-    dc_block_apply.launches += 1
+    _launched("dc_kernel", dc_block_apply)
     return yr, yi, new_state
 
 
@@ -838,7 +850,7 @@ def pre_apply(xr, xi, iq_factors=None, phase_acc=None, dtheta: int = 0,
             _ptr(xr), _ptr(xi), _ptr(iq_factors), _ptr(phase), dth, ch, n,
             _ptr(yr), _ptr(yi), _stream())
     _check(rc, "pre-stage kernel")
-    pre_apply.launches += 1
+    _launched("pre_kernel", pre_apply)
     return yr, yi
 
 
@@ -899,7 +911,7 @@ def post_apply(xr, xi, gains, seg: int, phase_acc=None, dtheta: int = 0,
             _ptr(phase_acc if dth else None), dth, ch, n, _ptr(out),
             *_pack_args(out_fmt), _stream())
     _check(rc, "post kernel")
-    post_apply.launches += 1
+    _launched("post_kernel", post_apply)
     return out
 
 
@@ -979,7 +991,7 @@ def segment_energies(xr, xi, rows: int = 1):
         rc = lib.iq_agc_energies(_ptr(xr), _ptr(xi), n, rows, seg, n_seg, ch,
                                  _ptr(energies), _stream())
     _check(rc, "agc energies kernel")
-    segment_energies.launches += 1
+    _launched("agc_energies_kernel", segment_energies)
     return energies
 
 
@@ -1022,7 +1034,7 @@ def rms_gains(xr, xi, gain, e2, beta: float, target: float, rows: int = 1):
                                   _ptr(e2), *_chain_consts(beta, target), ch,
                                   _ptr(gains), _ptr(g_fin), _ptr(e2_fin), _stream())
     _check(rc, "agc gains kernel")
-    rms_gains.launches += 1
+    _launched("agc_rms_gains_kernel", rms_gains)
     return gains, g_fin, e2_fin
 
 
@@ -1054,7 +1066,7 @@ def agc_chain(e_in, gain, e2, beta: float, target: float):
                               *_chain_consts(beta, target), ch, _ptr(gains),
                               _ptr(g_fin), _ptr(e2_fin), _stream())
     _check(rc, "agc chain kernel")
-    agc_chain.launches += 1
+    _launched("agc_chain_kernel", agc_chain)
     return gains, g_fin, e2_fin
 
 
@@ -1236,7 +1248,7 @@ def osfft_apply(xr, xi, h, block: int, advance=None, windows=None, tail=None):
             nfft.bit_length() - 1, spec.log2c, block, _ptr(out_r), _ptr(out_i), pos,
             _stream())
     _check(rc, "overlap-save kernel")
-    osfft_apply.launches += 1
+    _launched("osfft_kernel", osfft_apply)
     return out_r, out_i
 
 
@@ -1376,7 +1388,7 @@ def iq_estimate(xr, xi, factors, counter, interval: int = 0, advance: int = 0,
             int(counter is not None), lo, hi, ch, _ptr(out), _ptr(gate_db),
             _ptr(new_counter), _ptr(ticket), _stream())
     _check(rc, "I/Q estimator kernel")
-    iq_estimate.launches += 1
+    _launched("iq_estimate_kernel", iq_estimate)
     return out, new_counter, gate_db
 
 

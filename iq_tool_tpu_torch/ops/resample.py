@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.ops import banded, kernels
 from iq_tool_tpu_torch.ops.fir_design import kaiser_beta as _kaiser_beta
-from iq_tool_tpu_torch.pipeline.trace import span
+from iq_tool_tpu_torch.pipeline.trace import stage_span
 
 
 def rationalize(ratio: float, max_denom: int = C.RESAMP_MAX_DENOM) -> tuple[int, int]:
@@ -362,7 +362,7 @@ class Resampler:
         last = len(self.stages) - 1
         y = (xr, xi)
         for i, (stage, (sr, si)) in enumerate(zip(self.stages, state)):
-            with span(f"chain.resample.{i}"):
+            with stage_span(f"chain.resample.{i}"):
                 y, nr, ni = stage.apply_planar(*y, sr, si,
                                                pack_fmt=pack_fmt if i == last else None)
             new_states.append((nr, ni))

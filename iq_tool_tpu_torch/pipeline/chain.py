@@ -54,7 +54,7 @@ from iq_tool_tpu_torch.ops.filters import StreamingFilter
 from iq_tool_tpu_torch.ops.fir_design import (FilterRequest, design_chain,
                                               max_filter_freq_hz)
 from iq_tool_tpu_torch.ops.resample import Resampler, _MatmulStage
-from iq_tool_tpu_torch.pipeline.trace import span
+from iq_tool_tpu_torch.pipeline.trace import stage_span
 
 _PACKED_INPUTS = ("cs16", "sc16q11", "cu16", "cu8", "cs8")
 
@@ -285,7 +285,7 @@ class Chain:
             return new, self._wire_resample_step(raw, carry, new)
         xr, xi = self._pre(raw, carry, new)
         if self.pre_filter is not None:
-            with span("chain.pre_filter"):
+            with stage_span("chain.pre_filter"):
                 xr, xi, nr, ni = self.pre_filter.apply_planar(xr, xi, *carry["pre_f"])
             new["pre_f"] = (nr, ni)
         convert_only = not self.dtheta_post and self.agc_cfg is None
@@ -297,7 +297,7 @@ class Chain:
                 return new, convert.packed_to_wire(y, self.fmt_out)
             (xr, xi), new["rs"] = self.resampler.apply_planar(xr, xi, carry["rs"])
         if self.post_filter is not None:
-            with span("chain.post_filter"):
+            with stage_span("chain.post_filter"):
                 res = None
                 if convert_only and self.pack_fmt:
                     res = self.post_filter.apply_planar_packed(
@@ -309,7 +309,7 @@ class Chain:
             new["post_f"] = (nr, ni)
             if res is not None:
                 return new, convert.packed_to_wire(y, self.fmt_out)
-        with span("chain.post"):
+        with stage_span("chain.post"):
             if self.pack_fmt and not convert_only:
                 return new, self._fused_post(xr, xi, carry, new, rows)
             return new, self._plain_post(xr, xi, carry, new, rows)
@@ -323,7 +323,7 @@ class Chain:
         (and DC-blocks, from the carried DC state) the block's
         IQ_FFT_SIZE-frame prefix itself, ahead of the pre-stage."""
         cfg = self.cfg
-        with span("chain.pre"):
+        with stage_span("chain.pre"):
             packed = convert.wire_pack(raw, self.fmt_in)
             if packed is None:
                 xr, xi = (p.contiguous() for p in convert.to_planar(raw, self.fmt_in,
@@ -337,14 +337,14 @@ class Chain:
         src = dict(wire_i32=wire, wire_norm=norm, wire_gain=cfg.gain, wire_kind=kind)
         factors = None
         if cfg.iq_correction:
-            with span("chain.iq_estimate"):
+            with stage_span("chain.iq_estimate"):
                 new["iq"] = iq_balance.maybe_update_planar(
                     xr, xi, carry["iq"], self.iq_interval, dc_state=state,
                     dc_alpha=self.dc_alpha, **src)
             factors = new["iq"].factors
         dth = self.dtheta_pre
         phase = carry["nco_pre"] if dth else None
-        with span("chain.pre"):
+        with stage_span("chain.pre"):
             if cfg.dc_block:
                 yr, yi, new["dc"] = kernels.dc_block_apply(
                     xr, xi, state, self.dc_alpha, factors, phase, dth, **src)
@@ -405,20 +405,20 @@ class Chain:
         decodes the wire in its prologue (K1 with the DC block, else K2),
         the last stage packs the output."""
         stages = self.resampler.stages
-        with span("chain.resample.0"):
+        with stage_span("chain.resample.0"):
             y, tr, ti = self._wire_stage0(raw, carry, new)
         new_rs = [(tr, ti)]
         last = len(stages) - 1
         for i, stage in enumerate(stages[1:], start=1):
             s_r, s_i = carry["rs"][i]
-            with span(f"chain.resample.{i}"):
+            with stage_span(f"chain.resample.{i}"):
                 y, nr, ni = stage.apply_planar(
                     *y, s_r, s_i, pack_fmt=self.pack_fmt if i == last else None)
             new_rs.append((nr, ni))
         new["rs"] = tuple(new_rs)
         if self.pack_fmt:
             return convert.packed_to_wire(y, self.fmt_out)
-        with span("chain.post"):
+        with stage_span("chain.post"):
             return convert.from_planar(*y, self.fmt_out)
 
     def _wire_stage0(self, raw, carry: dict, new: dict):

@@ -170,6 +170,10 @@ class GraphedStep:
     The kernels' ``launches`` counters count host calls, so a replay does
     not move them: ``kernels`` holds their change during the capture
     (the kernels a replay launches), ``replays`` the steps taken.
+    ``stage_kernels`` is what the capture noted in the stage record
+    (``trace.note``): {stage: {CUDA symbol: launches}}, the kernels each
+    ``chain.*`` stage of a replay launches, which the capture also
+    publishes as the newest (``trace.stage_kernels()``).
 
     ``stages`` is the capture's stage map: [(span name, device nodes)] in
     capture order, each of the step's spans (``chain.*``, ``graph.carry``;
@@ -215,6 +219,7 @@ class GraphedStep:
         self._scratch: list = []
         self._out = None
         self.kernels: dict | None = None
+        self.stage_kernels: dict | None = None
         self.stages: list = []
         self.graph_nodes = 0
         self.replays = 0
@@ -281,7 +286,7 @@ class GraphedStep:
         from iq_tool_tpu_torch.ops import _build, kernels
         t0 = time.perf_counter()
         lib = _build.library()
-        self.kernels = {}
+        self.kernels, self.stage_kernels = {}, {}
         for part in self._parts:
             with torch.cuda.device(part.device):
                 stream = torch.cuda.Stream(part.device)
@@ -290,7 +295,7 @@ class GraphedStep:
                     for _ in range(WARMUP_STEPS):
                         self._eager(part)
                 self._scratch += kernels.stream_scratch(part.device, stream)
-                before = kernels.launch_counts()
+                before, noted = kernels.launch_counts(), trace.launches()
                 graph = torch.cuda.CUDAGraph()
                 marks = []
                 with torch.cuda.graph(graph, stream=stream):
@@ -303,8 +308,13 @@ class GraphedStep:
                 for k in after:
                     if after[k] != before[k]:
                         self.kernels[k] = self.kernels.get(k, 0) + after[k] - before[k]
+                for stage, syms in trace.stage_launches(noted, trace.launches()).items():
+                    mine = self.stage_kernels.setdefault(stage, {})
+                    for sym, n in syms.items():
+                        mine[sym] = mine.get(sym, 0) + n
                 part.graph, part.stream = graph, stream
                 torch.cuda.synchronize(part.device)
+        trace.publish_stage_kernels(self.stage_kernels)
         self.capture_sec = time.perf_counter() - t0
 
     def _slab(self, p) -> torch.Tensor:
@@ -349,7 +359,7 @@ class GraphedStep:
             outs = [part.out for part in self._parts]
         else:
             outs = [self._body(part) for part in self._parts]
-            self.kernels = {}
+            self.kernels, self.stage_kernels = {}, {}
         if split:
             for o in outs:
                 self._assemble(o)

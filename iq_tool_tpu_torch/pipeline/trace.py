@@ -23,6 +23,16 @@ trace even where the profiler did not record that thread.
 benchmark's readers).  ``observe`` lets a caller see each span of the
 current thread open and close (``GraphedStep.capture`` builds its stage
 map from the chain's spans with it).
+
+The stage record: each kernel wrapper (``ops/kernels.py``) calls
+``note`` with the CUDA symbol it launches (the name the profiler
+prints, ``dc_kernel``, ``banded_kernel``, ...), which counts it under
+the innermost ``stage_span`` open on its thread (the span the chain
+opens for each of its ``chain.*`` stages), a dict increment an eager
+launch; a plain span leaves the stage as it is.  ``launches()`` reads
+the counts; ``GraphedStep.capture`` keeps what its capture noted,
+{stage: {symbol: launches}}, and publishes it (``stage_kernels()``, the
+newest capture's).  A graph's replay runs no Python and notes nothing.
 """
 
 from __future__ import annotations
@@ -46,8 +56,14 @@ _run = 0
 _offset_ns = time.time_ns() - time.perf_counter_ns()
 
 
+_launches: dict = {}        # (stage, symbol) -> launches noted
+_launches_lock = threading.Lock()
+_captured: dict | None = None       # the newest capture's stage kernels
+
+
 class _Local(threading.local):
     hook = None             # observe's hook on this thread
+    stage = None            # the innermost stage span open on this thread
 
 
 _local = _Local()
@@ -77,6 +93,43 @@ def add(name: str, start_ns: int, end_ns: int, run: int, block: int | None,
 def record() -> list:
     """The record as ``Span``s, oldest first."""
     return [Span._make(s) for s in list(_record)]
+
+
+def note(symbol: str) -> None:
+    """Count a launch of the kernel ``symbol`` under the innermost stage
+    span open on this thread (None outside every one)."""
+    key = (_local.stage, symbol)
+    with _launches_lock:
+        _launches[key] = _launches.get(key, 0) + 1
+
+
+def launches() -> dict:
+    """{(stage, symbol): launches} noted so far."""
+    with _launches_lock:
+        return dict(_launches)
+
+
+def stage_launches(before: dict, after: dict) -> dict:
+    """{stage: {symbol: launches}} noted between two ``launches()``
+    readings."""
+    out: dict = {}
+    for (stage, symbol), n in after.items():
+        d = n - before.get((stage, symbol), 0)
+        if d:
+            out.setdefault(stage, {})[symbol] = d
+    return out
+
+
+def publish_stage_kernels(stage_kernels: dict) -> None:
+    """Make ``stage_kernels`` the newest capture's (``GraphedStep.capture``)."""
+    global _captured
+    _captured = {stage: dict(k) for stage, k in stage_kernels.items()}
+
+
+def stage_kernels() -> dict | None:
+    """The newest graph capture's {stage: {symbol: launches}}: the kernels
+    each ``chain.*`` stage of a replay launches; None before any capture."""
+    return None if _captured is None else {st: dict(k) for st, k in _captured.items()}
 
 
 @contextlib.contextmanager
@@ -124,3 +177,19 @@ class span:
         if self._hook is not None:
             self._hook(self.name, False)
         return False
+
+
+class stage_span(span):
+    """A span that is a stage of the chain's step (``chain.*``): the
+    launches noted while it is the innermost stage open on its thread
+    count under its name."""
+
+    __slots__ = ("_outer",)
+
+    def __enter__(self):
+        self._outer, _local.stage = _local.stage, self.name
+        return span.__enter__(self)
+
+    def __exit__(self, *exc) -> bool:
+        _local.stage = self._outer
+        return span.__exit__(self, *exc)

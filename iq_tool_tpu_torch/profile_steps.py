@@ -2,7 +2,7 @@
 the card.
 
     python -m iq_tool_tpu_torch.profile_steps [--configs flagship 1 2 4 5 3 4k32 4k128 4dx 4dig
-                                                         full4 c1 c1f8 4c1 4c1f8 gather
+                                                         full4 baseline3 c1 c1f8 4c1 4c1f8 gather
                                                          flagship@1x4 4@1x4 flagship@2x2
                                                          flagship@4x1]
                                               [--forms eager graph] [--channels 128]
@@ -14,7 +14,9 @@ same.  Run as a module, for each configuration (128 channels, or
 under bench.py's short names, "4k32" and "4k128" config #4 at
 --filter-fft-size 32768 and 131072, "4dx" and "4dig" config #4 with the
 dx and digital AGC profiles, "full4" config #4 without the DC block (the
-benchmark's full4 chain); "c1" and "4c1" the flagship and config #4 as
+benchmark's full4 chain), "baseline3" config #3 as the benchmark's
+baseline3 runs it (an RTL-SDR's cu8 at 2.4 Msps, the DC block, the
+102-215 kHz band-pass after the resampler); "c1" and "4c1" the flagship and config #4 as
 one stream at the CLI's default 16384-frame block, "f8" with
 --time-fold 8; "gather"
 128 x 254597 through the gather stage; "<name>@<C>x<T>" the
@@ -44,8 +46,9 @@ capture's stage map (``GraphedStep.stages``): each replay's device
 events (those of its graph launch, by the launch's correlation id) in
 order of start, the k-th to the map's k-th node; a replay whose event
 count is not the map's is not split.  It prints ms a replay by stage
-(``chain.*``, ``graph.carry``), each stage's ops, and how far the
-stages' sum lies from the replay's busy time.  Needs a CUDA card.
+(``chain.*``, ``graph.carry``), the kernels each stage launches as
+the capture noted them (``GraphedStep.stage_kernels``), each stage's
+ops, and how far the stages' sum lies from the replay's busy time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -73,9 +76,10 @@ POST_SHIFT_HZ = -50_000.0   # config #4: 37 + 100 - 50 -> 87 kHz out
 GATHER_RATE = 25_282.56     # 2469/200000 of 2.048 Msps -> 449/36371: the gather stage
 GATHER_TONE_HZ = 3_000.0
 STREAM_BLOCK = 16384        # the CLI's default --block-size
+RTLSDR_RATE = 2_400_000.0   # the RTL-SDR's default rate ("baseline3")
 CONFIGS = ("flagship", "1", "2", "4", "5", "3", "4k32", "4k128", "4dx", "4dig", "full4",
-           "c1", "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4", "4@1x4", "flagship@2x2",
-           "flagship@4x1")
+           "baseline3", "c1", "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4", "4@1x4",
+           "flagship@2x2", "flagship@4x1")
 # config #4's variants: --filter-fft-size, --output-agc; "full4" without
 # the DC block (the benchmark's full4 chain)
 _FULL = {"4": (None, "local"), "4k32": (32768, "local"), "4k128": (131072, "local"),
@@ -84,7 +88,8 @@ _FULL = {"4": (None, "local"), "4k32": (32768, "local"), "4k128": (131072, "loca
 
 def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConfig:
     """The flagship chain (bench.py), BASELINE configs #1-#5
-    (tools/bench_all.py) and config #4's variants (``_FULL``)."""
+    (tools/bench_all.py), config #4's variants (``_FULL``) and the
+    benchmark's baseline3."""
     base = dict(input_rate=IN_RATE, target_rate=OUT_RATE, channels=channels,
                 target_block=block, dc_block=True, output_format="cs16")
     if name == "flagship":
@@ -111,6 +116,10 @@ def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConf
         return ChainConfig(input_format="cu8",
                            filters=(FilterRequest("pass-range", 0.0, 400e3),),
                            filter_method="fft", filter_stage="pre", **base)
+    if name == "baseline3":
+        return ChainConfig(input_format="cu8", filters=(FilterRequest("pass-range", 102e3,
+                                                                      215e3),),
+                           filter_method="fft", **{**base, "input_rate": RTLSDR_RATE})
     if name == "gather":
         return ChainConfig(input_format="cs16", agc_profile="local",
                            **{**base, "target_rate": GATHER_RATE})
@@ -266,15 +275,17 @@ def _short(name: str) -> str:
     return name.split("(")[0].split("<")[0].replace("void ", "").strip() or name[:60]
 
 
-def print_split(label: str, sp: dict) -> None:
-    """``stage_split``'s record as lines: ms a replay by stage, its ops."""
+def print_split(label: str, sp: dict, stage_kernels: dict | None = None) -> None:
+    """``stage_split``'s record as lines: ms a replay by stage, the
+    kernels the capture noted for it (``stage_kernels``), its ops."""
     print(f"[{label} stages] {sp['split']} of {sp['replays']} replays split by the stage "
           f"map's {sp['nodes']} nodes (device events a replay: {sp['events']}); a replay "
           f"busy {sp['busy_ms']:.4f} ms, the stages' sum {sp['sum_ms']:.4f} ms "
           f"({100 * (sp['sum_ms'] / sp['busy_ms'] - 1) if sp['busy_ms'] else 0:+.2f} %)")
     for stage, ms in sp["stages"].items():
         top = ", ".join(f"{op[:48]} {v:.4f}" for op, v in list(sp["ops"][stage].items())[:6])
-        print(f"    {ms:8.4f} ms  {stage}: {top}")
+        noted = ", ".join(f"{sym} x{n}" for sym, n in (stage_kernels or {}).get(stage, {}).items())
+        print(f"    {ms:8.4f} ms  {stage} [{noted or 'no kernel noted'}]: {top}")
 
 
 def is_copy(event_name: str) -> bool:
@@ -353,6 +364,7 @@ def profile(name: str, graphed: bool = False, channels: int = CHANNELS) -> dict:
                 power_w=power,
                 idle=1 - busy_ms / STEPS / wall_ms if busy_ms else None,
                 captured=chain.kernels if graphed else None, split=split,
+                stage_kernels=chain.stage_kernels if graphed else None,
                 by_name={k: v[1] / STEPS for k, v in by_name.items()},
                 kernels=sorted(((k, v[0] / STEPS, v[1] / STEPS) for k, v in by_name.items()),
                                key=lambda r: -r[1]))
@@ -409,7 +421,7 @@ def main(argv=None) -> int:
             for k, ms, n in r["kernels"][:12]:
                 print(f"    {ms:8.3f} ms {n:5.1f}x  {k[:100]}")
             if r["split"] is not None:
-                print_split(f"{name} {f}", r["split"])
+                print_split(f"{name} {f}", r["split"], r["stage_kernels"])
                 bad += not r["split"]["split"]
         if len(rs) == 2 and None not in (rs["eager"]["idle"], rs["graph"]["idle"]):
             diff = graph_kernels_differ(rs["eager"], rs["graph"])

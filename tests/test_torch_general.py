@@ -161,6 +161,18 @@ def test_profiled_full4_is_the_benchmarks():
     assert profile_steps.config("full4", 64) == want
 
 
+def test_profiled_baseline3_is_the_benchmarks():
+    """profile_steps' "baseline3" is the chain of the benchmark's baseline3
+    configuration (benchmark/configs/baseline3.json), field for field."""
+    import json
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmark/configs/baseline3.json"
+    fields = dict(json.loads(path.read_text())["chain"])
+    fields["filters"] = tuple(FilterRequest(*f) for f in fields["filters"])
+    want = ChainConfig(channels=64, target_block=262144, **fields)
+    assert profile_steps.config("baseline3", 64) == want
+
+
 def test_measured_tone_wire():
     """The measured chains' input: seeded, full-scale-safe cs16, and the
     same tone as cu8 codes."""

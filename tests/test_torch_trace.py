@@ -279,3 +279,166 @@ def test_stage_map_covers_the_graph(name):
     g.input_buffer.copy_(raw)
     _, got = g.step(g.init_carry(), g.input_buffer)
     assert torch.equal(got, want)
+
+
+def test_note_counts_under_the_innermost_stage():
+    """A launch is noted under the innermost stage (a chain.* span) open
+    on its thread: a plain span inside it keeps the stage, a nested stage
+    takes it over until it closes, and a launch outside every stage is
+    noted under None."""
+    before = trace.launches()
+    with trace.span("engine.step"):
+        trace.note("outside_kernel")
+        with trace.stage_span("chain.pre"):
+            trace.note("dc_kernel")
+            with trace.span("graph.carry"):
+                trace.note("dc_kernel")
+            with trace.stage_span("chain.resample.0"):
+                trace.note("banded_mma_kernel")
+            trace.note("pre_kernel")
+    trace.note("outside_kernel")
+    assert trace.stage_launches(before, trace.launches()) == {
+        None: {"outside_kernel": 2},
+        "chain.pre": {"dc_kernel": 2, "pre_kernel": 1},
+        "chain.resample.0": {"banded_mma_kernel": 1}}
+
+
+def test_note_keeps_each_threads_stage():
+    """Another thread's launch is noted under its own open span, not under
+    the span this thread has open."""
+    before = trace.launches()
+
+    def work():
+        with trace.stage_span("chain.post"):
+            trace.note("post_kernel")
+    with trace.stage_span("chain.post_filter"):
+        t = threading.Thread(target=work)
+        t.start()
+        t.join(timeout=10)
+        trace.note("banded_kernel")
+    assert trace.stage_launches(before, trace.launches()) == {
+        "chain.post": {"post_kernel": 1}, "chain.post_filter": {"banded_kernel": 1}}
+
+
+def test_note_loses_no_launch_across_threads():
+    """Eight threads noting under one stage, switching every microsecond:
+    every launch is counted."""
+    import sys
+    before = trace.launches()
+    interval = sys.getswitchinterval()
+
+    def work():
+        with trace.stage_span("chain.stress"):
+            for _ in range(5000):
+                trace.note("stress_kernel")
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert trace.stage_launches(before, trace.launches()) == {
+        "chain.stress": {"stress_kernel": 40000}}
+
+
+def test_launch_counters_count_as_before():
+    """A launch still moves its wrappers' ``launches`` counters (K2 on the
+    mma.sync core both of its names'), which ``launch_counts`` and
+    ``reset_launch_counts`` read and clear, and is noted once under its
+    kernel's symbol."""
+    from iq_tool_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    before = trace.launches()
+    with trace.stage_span("chain.resample.1"):
+        kernels._launched("banded_mma_kernel", kernels.banded_apply, kernels.banded_apply_mma)
+    with trace.stage_span("chain.post_filter"):
+        kernels._launched("banded_kernel", kernels.banded_apply)
+    with trace.stage_span("chain.pre"):
+        kernels._launched("dc_kernel", kernels.dc_block_apply)
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "banded_apply": 2, "banded_apply_mma": 1, "dc_block_apply": 1}
+    assert trace.stage_launches(before, trace.launches()) == {
+        "chain.resample.1": {"banded_mma_kernel": 1}, "chain.post_filter": {"banded_kernel": 1},
+        "chain.pre": {"dc_kernel": 1}}
+    kernels.reset_launch_counts()
+    assert not any(kernels.launch_counts().values())
+
+
+def test_the_newest_captures_stage_kernels_are_published():
+    """``stage_kernels()`` gives the newest published map, as a copy."""
+    trace.publish_stage_kernels({"chain.pre": {"dc_kernel": 1}})
+    trace.publish_stage_kernels({"chain.post_filter": {"banded_kernel": 1}})
+    got = trace.stage_kernels()
+    assert got == {"chain.post_filter": {"banded_kernel": 1}}
+    got["chain.post_filter"]["banded_kernel"] = 5
+    assert trace.stage_kernels() == {"chain.post_filter": {"banded_kernel": 1}}
+
+
+def test_graphed_step_on_the_cpu_notes_no_kernel():
+    """The CPU runs the kernels' twins, which launch nothing: a DC +
+    band-pass chain's GraphedStep on the CPU has no stage kernels."""
+    g = GraphedStep(_chain(2, input_format="cu8", dc_block=True, filter_method="fft",
+                           filters=(FilterRequest("pass-range", 102e3, 215e3),)))
+    before = trace.launches()
+    g.step(g.init_carry(), g.input_buffer)
+    assert g.stage_kernels == {} and g.kernels == {}
+    assert trace.launches() == before
+
+
+def test_cli_summary_lists_each_stage_with_its_kernels(tmp_path, monkeypatch):
+    """The CLI's end summary has a row a stage of the step: its host time
+    and the kernels it launches (none on the CPU, whose twins launch
+    nothing); a graphed stepper's rows take the capture's kernels."""
+    import types
+    from iq_tool_tpu_torch import cli
+    tables = {}
+    monkeypatch.setattr(cli, "_print_summary_table",
+                        lambda title, items, file=None: tables.__setitem__(title, items))
+    inp = tmp_path / "in.cu8"
+    inp.write_bytes(np.random.default_rng(3).integers(0, 256, 2 * 40000)
+                    .astype(np.uint8).tobytes())
+    assert cli.main(["--device", "cpu", "-i", "raw-file", "-o", "raw",
+                     "--raw-file-input-rate", "2400000", "--raw-file-input-sample-format",
+                     "cu8", "--output-rate", "1488375", "--dc-block", "--pass-range",
+                     "102e3:215e3", "--filter-type", "fft", str(inp),
+                     str(tmp_path / "out.raw")]) == 0
+    rows = tables["Step Stages (host ms, kernels; a step)"]
+    assert set(rows) == {"chain.pre", "chain.resample.0", "chain.resample.1",
+                         "chain.post_filter"}, rows
+    assert all(r.endswith(" ms; no kernel") for r in rows.values()), rows
+    trace.new_run()
+    with trace.span("engine.step"):
+        pass
+    eng = types.SimpleNamespace(serial=trace._run, stepper=types.SimpleNamespace(
+        stage_kernels={"chain.pre": {"dc_kernel": 1},
+                       "chain.post_filter": {"banded_kernel": 1}}))
+    assert cli._stage_rows(eng, trace.launches()) == {
+        "chain.pre": "in the graph; dc_kernel x1",
+        "chain.post_filter": "in the graph; banded_kernel x1"}
+
+
+@pytest.mark.gpu
+def test_capture_records_each_stages_kernels():
+    """On the card: the capture of a DC + band-pass chain (the benchmark's
+    baseline3 at 4 channels) notes each stage's kernels, which the trace
+    publishes as the newest capture's; the launch counters count the
+    same launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from iq_tool_tpu_torch.profile_steps import config
+    g = GraphedStep(Chain(config("baseline3", 4, 65536), device="cuda"))
+    g.capture()
+    want = {"chain.pre": {"dc_kernel": 1}, "chain.resample.0": {"banded_mma_kernel": 1},
+            "chain.resample.1": {"banded_mma_kernel": 1},
+            "chain.post_filter": {"banded_kernel": 1}}
+    assert g.stage_kernels == want and trace.stage_kernels() == want
+    assert g.kernels == {"dc_block_apply": 1, "banded_apply": 3, "banded_apply_mma": 2}
+    before = trace.launches()
+    g.step(g._carry, g.input_buffer)
+    torch.cuda.synchronize()
+    assert trace.launches() == before          # a replay notes nothing
