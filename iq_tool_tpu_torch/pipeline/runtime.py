@@ -3,8 +3,11 @@ it into output module(s) (the port of ``iq_tool_tpu.pipeline.runtime``).
 
 Three host threads around the device queue:
 
-  reader thread  ->  bounded chunk queue (HOST_QUEUE_DEPTH)
-      -> main thread: pinned host copy + step launch (asynchronous on CUDA)
+  reader thread: cuts the sources' bytes into blocks, each written once
+      into a free slot of a ring of HOST_QUEUE_DEPTH + 2 (C, wire) host
+      blocks (pinned on CUDA)  ->  bounded slot queue (HOST_QUEUE_DEPTH)
+  -> main thread: the slot's copy to the device + step launch
+      (asynchronous on CUDA), then the slot goes back to the reader
   -> bounded output queue (pipeline_depth)  ->  writer thread: waits for
       the step's copy-back event, then writes the sinks
 
@@ -14,28 +17,31 @@ FoldedChain or a ShardedChain runs as a ``GraphedStep``
 (``pipeline/graphed.py``: captured CUDA graphs on the card, by
 ``prepare``; the same static buffers on the CPU), except a ShardedChain
 on a mesh that ``sharded_eager_reason`` names (positions in other
-processes, a time row over several devices), which steps eagerly.  On CUDA each block
-goes host -> device as a ``non_blocking`` copy from pinned memory,
-straight into the graph's input buffer, and each output comes back into
-a pinned tensor on the current stream, enqueued before the next replay
-overwrites it, with an event the writer waits on.  EOS pads the final
-partial block with zeros and trims the output to exactly
-floor(valid_in * P/Q) frames; stream discontinuities set the step's
-reset flag.
+processes, a time row over several devices), which steps eagerly.  The
+ring is made once an engine (``prepare``); a slot holds as many blocks
+as the queue and the two ends of it can hold, so waiting for a free slot
+is the reader's back-pressure.  On CUDA each block goes host -> device
+as a ``non_blocking`` copy from its pinned slot, straight into the
+graph's input buffer, with an event the reader waits on before it
+refills the slot; each output comes back into a pinned tensor on the
+current stream, enqueued before the next replay overwrites it, with an
+event the writer waits on.  EOS pads the final partial block with zeros
+and trims the output to exactly floor(valid_in * P/Q) frames; stream
+discontinuities set the step's reset flag.
 
 Every block's work is a span (``pipeline/trace.py``) under the run's
 serial and the block's index: on the reader thread ``engine.source``
-(the sources' blocks) and ``engine.assemble`` (a block's bytes a channel
-cut from them); on the main thread ``engine.wait_input`` (the reader's
-queue), ``engine.stack``, ``engine.pin``, ``engine.h2d``, ``engine.step``,
-``engine.d2h`` (the pinned output, its copy and event) and
-``engine.wait_output`` (the writer's queue); on the writer thread
-``engine.wait_device`` and ``engine.write``; and ``engine.transit``, from
-the reader's hand-over of the block to the writer's return from its last
-sink.  Around them the main thread's ``engine.start``,
-``engine.checkpoint`` and ``engine.drain`` (the flush and the threads'
-stop after the last block), so that it is inside a span from ``run``'s
-start to its return.
+(the sources' blocks), ``engine.wait_slot`` (a free slot, and the end
+of its last copy to the device) and ``engine.assemble`` (the block's
+bytes copied into the slot); on the main thread ``engine.wait_input``
+(the reader's queue), ``engine.h2d``, ``engine.step``, ``engine.d2h``
+(the pinned output, its copy and event) and ``engine.wait_output`` (the
+writer's queue); on the writer thread ``engine.wait_device`` and
+``engine.write``; and ``engine.transit``, from the reader's hand-over
+of the block to the writer's return from its last sink.  Around them
+the main thread's ``engine.start``, ``engine.checkpoint`` and
+``engine.drain`` (the flush and the threads' stop after the last
+block), so that it is inside a span from ``run``'s start to its return.
 
 With a checkpoint path the engine saves (carry, frames in, frames out)
 every ``checkpoint_interval_sec`` and at the end, each time after the
@@ -54,6 +60,7 @@ block boundary.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import os
@@ -66,6 +73,7 @@ import torch
 
 from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.modules.base import OutputClosed
+from iq_tool_tpu_torch.ops import convert
 from iq_tool_tpu_torch.pipeline.chain import Chain
 from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, eager_reason
@@ -156,15 +164,87 @@ class _Writer:
                 self._q.task_done()
 
 
+class _Backlog:
+    """A channel's source bytes not yet in a block: its payloads as
+    memoryviews, oldest first, so that cutting blocks from them copies
+    nothing."""
+
+    def __init__(self):
+        self._views: collections.deque = collections.deque()
+        self.size = 0
+
+    def add(self, payload) -> None:
+        view = memoryview(payload).cast("B")
+        if view.nbytes:
+            self._views.append(view)
+            self.size += view.nbytes
+
+    def take(self, n: int) -> list:
+        """The oldest ``n`` bytes, as views; the rest of a payload that
+        runs past them stays for the next block."""
+        out = []
+        self.size -= n
+        while n:
+            view = self._views.popleft()
+            if view.nbytes > n:
+                self._views.appendleft(view[n:])
+                view = view[:n]
+            out.append(view)
+            n -= view.nbytes
+        return out
+
+    def clear(self) -> None:
+        self._views.clear()
+        self.size = 0
+
+
+class _Ring:
+    """The host blocks the reader writes into: HOST_QUEUE_DEPTH + 2 slots
+    (the reader's queue, the slot being filled, the slot being copied to
+    the device) of (C, wire) in the chain's wire dtype, pinned on CUDA so
+    that the copy to the device is asynchronous.  ``copied[i]`` is the
+    event after slot i's newest copy to the device, None where that copy
+    was synchronous."""
+
+    def __init__(self, stepper):
+        pin = stepper.device.type == "cuda"
+        self.slots = [torch.empty((stepper.cfg.channels, stepper.in_wire_len),
+                                  dtype=convert.torch_wire_dtype(stepper.fmt_in),
+                                  pin_memory=pin)
+                      for _ in range(C.HOST_QUEUE_DEPTH + 2)]
+        self._bytes = [slot.numpy().view(np.uint8) for slot in self.slots]
+        self.copied = [None] * len(self.slots)
+
+    def fill(self, i: int, rows: list) -> None:
+        """Write each channel's views (``_Backlog.take``) into its row of
+        slot i, and zeros after them: no byte of an earlier block stays."""
+        for row, views in zip(self._bytes[i], rows):
+            pos = 0
+            for view in views:
+                row[pos:pos + view.nbytes] = np.frombuffer(view, np.uint8)
+                pos += view.nbytes
+            row[pos:] = 0
+
+
 class _Reader:
-    """Pumps assembled chunks from a generator into a bounded queue so
-    source I/O overlaps device work; each chunk goes with the moment it
-    was handed over (``trace.now_ns``)."""
+    """Runs a block cutter (``StreamEngine._gen_single``, ``_gen_multi``)
+    on a thread of its own, so source I/O overlaps device work.  Each block
+    it cuts goes into a free slot of the ring (``engine.wait_slot``: the
+    wait for one and for that slot's last copy to the device;
+    ``engine.assemble``: the copy into it), and the slot's index into a
+    bounded queue with the moment it was handed over (``trace.now_ns``).
+    The main thread gives a slot back with ``release`` once the block is
+    on its way to the device."""
 
     _EOS = ("eos", None, 0, False, 0)
 
-    def __init__(self, gen, depth: int = C.HOST_QUEUE_DEPTH):
-        self._q = queue_mod.Queue(maxsize=max(1, depth))
+    def __init__(self, gen, ring: _Ring, run: int):
+        self._q = queue_mod.Queue(maxsize=C.HOST_QUEUE_DEPTH)
+        self._free = queue_mod.Queue()
+        for i in range(len(ring.slots)):
+            self._free.put(i)
+        self._ring = ring
+        self._serial = run
         self._stop = threading.Event()
         self._gen = gen
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -173,6 +253,9 @@ class _Reader:
 
     def get(self):
         return self._q.get()
+
+    def release(self, i: int) -> None:
+        self._free.put(i)
 
     def stop(self) -> None:
         self._stop.set()
@@ -193,10 +276,29 @@ class _Reader:
                 continue
         return False
 
+    def _slot(self, k: int) -> int | None:
+        """A free slot whose last copy to the device is done; None once
+        stopped."""
+        with span("engine.wait_slot", k, self._serial):
+            while not self._stop.is_set():
+                try:
+                    i = self._free.get(timeout=0.2)
+                except queue_mod.Empty:
+                    continue
+                if self._ring.copied[i] is not None:
+                    self._ring.copied[i].synchronize()
+                return i
+        return None
+
     def _run(self) -> None:
         try:
-            for item in self._gen:
-                if not self._put(("chunk",) + item + (now_ns(),)):
+            for k, (rows, valid, reset) in enumerate(self._gen):
+                i = self._slot(k)
+                if i is None:
+                    return
+                with span("engine.assemble", k, self._serial):
+                    self._ring.fill(i, rows)
+                if not self._put(("chunk", i, valid, reset, now_ns())):
                     return
         except BaseException as e:
             self._put(("err", e, 0, False, 0))
@@ -252,13 +354,16 @@ class StreamEngine:
         self.stepper = (GraphedStep(chain) if chain is not None and eager_reason(chain) is None
                         else chain)
         self.serial: int | None = None     # the newest run's serial (its spans')
+        self._ring: _Ring | None = None
 
     def prepare(self) -> None:
         """Build the kernels and capture the step's graph now (the first
-        step does it otherwise); ``stepper.capture_sec`` says how long it
-        took."""
+        step does it otherwise; ``stepper.capture_sec`` says how long it
+        took), and make the reader's ring, which every run reuses."""
         if isinstance(self.stepper, GraphedStep):
             self.stepper.capture()
+        if self._ring is None and not self.raw_passthrough:
+            self._ring = _Ring(self.stepper)
 
     def run(self) -> StreamSummary:
         if self.raw_passthrough:
@@ -284,29 +389,25 @@ class StreamEngine:
     # ----------------------------------------------------- chunk assembly
 
     def _gen_single(self, block_bytes: int, bpf: int, skip_bytes: int, run: int):
-        """Single-channel chunk generator; drains the pre-gap remainder of
-        a discontinuity as its own short block.  A source block that
-        completes several blocks is one ``engine.assemble``, under the
-        first of them; the spans of the end of the stream, which makes
-        no block, have none."""
-        buf = bytearray()
+        """Single-channel block cutter: yields ([views of the block's
+        bytes], valid frames, reset); drains the pre-gap remainder of a
+        discontinuity as its own short block.  The spans of the end of the
+        stream, which makes no block, have none."""
+        backlog = _Backlog()
         pending_reset = False
         src = self.sources[0].blocks(block_bytes // bpf)
         k = 0                           # the index of the block being filled
         while True:
             with span("engine.source", k, run) as sp:
                 block = next(src, None)
-                if block is None and len(buf) < bpf:
+                if block is None and backlog.size < bpf:
                     sp.block = None
-            if block is None or (block.discontinuity and buf):
-                with span("engine.assemble", k, run) as sp:
-                    valid = len(buf) // bpf
-                    chunk = bytes(buf[:valid * bpf])
-                    buf.clear()
-                    if not valid:
-                        sp.block = None
+            if block is None or (block.discontinuity and backlog.size):
+                valid = backlog.size // bpf
+                views = backlog.take(valid * bpf)
+                backlog.clear()
                 if valid:
-                    yield [chunk], valid, pending_reset
+                    yield [views], valid, pending_reset
                     k += 1
             if block is None:
                 return
@@ -317,34 +418,27 @@ class StreamEngine:
                 drop = min(skip_bytes, len(payload))
                 payload = payload[drop:]
                 skip_bytes -= drop
-            with span("engine.assemble", k, run):
-                buf.extend(payload)
-                chunks = []
-                while len(buf) >= block_bytes:
-                    chunks.append(bytes(buf[:block_bytes]))
-                    del buf[:block_bytes]
-            for chunk in chunks:
-                yield [chunk], block_bytes // bpf, pending_reset
+            backlog.add(payload)
+            while backlog.size >= block_bytes:
+                yield [backlog.take(block_bytes)], block_bytes // bpf, pending_reset
                 pending_reset = False
                 k += 1
 
     def _gen_multi(self, block_bytes: int, bpf: int, skip_bytes: int, run: int):
-        """Lockstep multi-channel chunk generator; ends at the shortest
-        channel.  The spans of the end of the stream, which makes no
-        block, have none."""
+        """Lockstep multi-channel block cutter (as ``_gen_single``, a list
+        of views a channel); ends at the shortest channel.  The spans of
+        the end of the stream, which makes no block, have none."""
         n = len(self.sources)
-        bufs = [bytearray() for _ in range(n)]
+        backlogs = [_Backlog() for _ in range(n)]
         iters = [s.blocks(block_bytes // bpf) for s in self.sources]
         done = [False] * n
         skips = [skip_bytes] * n
         pending_reset = False
         for k in itertools.count():
             with span("engine.source", k, run) as sp:
-                got = [[] for _ in range(n)]
                 least = block_bytes
                 for c in range(n):
-                    have = len(bufs[c])
-                    while have < block_bytes and not done[c]:
+                    while backlogs[c].size < block_bytes and not done[c]:
                         block = next(iters[c], None)
                         if block is None:
                             done[c] = True
@@ -356,26 +450,14 @@ class StreamEngine:
                             drop = min(skips[c], len(payload))
                             payload = payload[drop:]
                             skips[c] -= drop
-                        got[c].append(payload)
-                        have += len(payload)
-                    least = min(least, have)
+                        backlogs[c].add(payload)
+                    least = min(least, backlogs[c].size)
                 if least < bpf:
                     sp.block = None
-            with span("engine.assemble", k, run) as sp:
-                for b, parts in zip(bufs, got):
-                    for payload in parts:
-                        b.extend(payload)
-                valid = least // bpf
-                chunks = [bytes(b[:valid * bpf]) for b in bufs]
-                full = least == block_bytes
-                if full:
-                    for b in bufs:
-                        del b[:block_bytes]
-                if not valid:
-                    sp.block = None
+            valid = least // bpf
             if valid:
-                yield chunks, valid, pending_reset
-            if not full:
+                yield [b.take(valid * bpf) for b in backlogs], valid, pending_reset
+            if least < block_bytes:
                 return
             pending_reset = False
 
@@ -416,15 +498,15 @@ class StreamEngine:
             # it catches up; equal after a flush)
             scheduled_out = s.frames_out
             gen_fn = self._gen_single if n_channels == 1 else self._gen_multi
-            reader = _Reader(gen_fn(block_bytes, bpf, skip_frames * bpf, run))
+            ring = self._ring
+            reader = _Reader(gen_fn(block_bytes, bpf, skip_frames * bpf, run), ring, run)
             writer = _Writer(self.sinks, ch.fmt_out.items_per_frame, s,
                              self.pipeline_depth, run)
         # the cut before a zero-padded partial block: (host carry, frames
         # in), fetched before that block's step
         pre_partial = None
 
-        def process(chunks: list[bytes], valid_frames: int, reset: bool, k: int,
-                    handed_ns: int):
+        def process(slot: int, valid_frames: int, reset: bool, k: int, handed_ns: int):
             nonlocal carry, scheduled_out, pre_partial
             if valid_frames < ch.n_in and self.checkpoint_path:
                 # keep the oldest clean cut: on consecutive partials (a
@@ -436,24 +518,21 @@ class StreamEngine:
             else:
                 # a full block makes the live carry consistent again
                 pre_partial = None
-            with span("engine.stack", k, run):
-                rows = []
-                for chunk in chunks:
-                    if len(chunk) < block_bytes:
-                        chunk = chunk + b"\x00" * (block_bytes - len(chunk))
-                    rows.append(np.frombuffer(chunk, dtype=ch.in_wire_dtype))
-                host_in = torch.from_numpy(np.stack(rows, axis=0))
-            with span("engine.pin", k, run):
-                if on_cuda:
-                    host_in = host_in.pin_memory()
             with span("engine.h2d", k, run):
+                host_in = ring.slots[slot]
                 if isinstance(ch, GraphedStep):
                     raw = ch.input_buffer
                     raw.copy_(host_in, non_blocking=on_cuda)
                 elif on_cuda:
                     raw = host_in.to(ch.device, non_blocking=True)
                 else:
-                    raw = host_in
+                    # an eager step's carry may keep views of its input,
+                    # and the reader refills the slot
+                    raw = host_in.clone()
+                if on_cuda:
+                    ring.copied[slot] = torch.cuda.Event()
+                    ring.copied[slot].record(torch.cuda.current_stream(ch.device))
+                reader.release(slot)
             with span("engine.step", k, run):
                 carry, out = ch.step(carry, raw, reset)
                 s.frames_in += valid_frames
@@ -497,14 +576,14 @@ class StreamEngine:
         try:
             for k in itertools.count():
                 with span("engine.wait_input", k, run) as waited:
-                    kind, payload, valid, reset, handed_ns = reader.get()
+                    kind, item, valid, reset, handed_ns = reader.get()
                     if kind != "chunk":
                         waited.block = None
                 if kind == "eos":
                     break
                 if kind == "err":
-                    raise payload
-                process(payload, valid, reset, k, handed_ns)
+                    raise item
+                process(item, valid, reset, k, handed_ns)
                 if writer.error is not None:
                     raise writer.error
                 if writer.closed:

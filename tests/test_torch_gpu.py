@@ -10,6 +10,8 @@ kernel and twin differ only in the order of float32 sums, so planar
 outputs are held to >= 100 dB and packed codes to |delta| <= 1.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -1227,3 +1229,82 @@ def test_graph_capture_needs_warm_scratch(monkeypatch):
         with torch.cuda.graph(g, stream=torch.cuda.Stream()):
             kernels.dc_block_apply(None, None, dc, DC_ALPHA, wire_i32=wire,
                                    wire_norm=get_format("cs16").normalizer)
+
+
+def _ring_run(chain, payload, sizes):
+    """The stream engine over ``payload`` (C, 2 n) cs16, each channel's
+    stream cut into payloads of ``sizes`` bytes in turn: (the engine, each
+    channel's output bytes)."""
+    from iq_tool_tpu_torch.modules.base import Block, InputModule, OutputModule, SourceInfo
+    from iq_tool_tpu_torch.pipeline.runtime import StreamEngine
+
+    class Source(InputModule):
+        name = "cut"
+
+        def __init__(self, stream):
+            self.stream = stream
+
+        def initialize(self, config, args):
+            return SourceInfo(sample_rate=2_048_000.0, sample_format="cs16")
+
+        def blocks(self, frames_per_block):
+            pos = 0
+            for size in itertools.cycle(sizes):
+                if pos >= len(self.stream):
+                    return
+                yield Block(self.stream[pos:pos + size])
+                pos += size
+
+    class Sink(OutputModule):
+        name = "keep"
+        requires_output_path = False
+
+        def __init__(self):
+            self.data = bytearray()
+
+        def initialize(self, config, args):
+            pass
+
+        def write(self, payload):
+            self.data.extend(payload)
+
+    sinks = [Sink() for _ in payload]
+    eng = StreamEngine(chain, [Source(row.tobytes()) for row in payload], sinks)
+    eng.run()
+    return eng, [bytes(s.data) for s in sinks]
+
+
+@pytest.mark.parametrize("name", ["convert", "flagship"])
+def test_engine_ring_on_card(rng, name):
+    """The engine on the card over more blocks than its ring has slots,
+    payloads cut at odd sizes, the last block partial: the slots are
+    pinned, and each sink's bytes are the CPU engine's over the same
+    stream (``convert``: a chain whose one kernel gives its twin's bits)
+    or the card's chain stepped block by block over the zero-padded
+    stream (``flagship``)."""
+    _need_card()
+    from iq_tool_tpu_torch import constants as C
+    if name == "convert":
+        cfg = ChainConfig(input_format="cs16", output_format="cs16", input_rate=2_048_000.0,
+                          gain=0.9, channels=2, target_block=16384)
+    else:
+        cfg = _chain_cfg("flagship", 16384, channels=2)
+    card = Chain(cfg, device="cuda")
+    blocks = C.HOST_QUEUE_DEPTH + 6
+    n = card.n_in * (blocks - 1) + 777
+    payload = rng.integers(-2 ** 14, 2 ** 14, (2, 2 * n)).astype(np.int16)
+    eng, got = _ring_run(card, payload, [1000, 50_000, 333])
+    assert len(eng._ring.slots) < blocks
+    assert all(s.is_pinned() for s in eng._ring.slots)
+    if name == "convert":
+        _, want = _ring_run(Chain(cfg, device="cpu"), payload, [4096])
+    else:
+        wire = np.zeros((2, blocks * card.in_wire_len), np.int16)
+        wire[:, :2 * n] = payload
+        carry, outs = card.init_carry(), []
+        for b in np.split(wire, blocks, axis=1):
+            carry, out = card.step(carry, _cuda(b))
+            outs.append(out.cpu().numpy())
+        want = [row[:2 * card.expected_out_frames(n)].tobytes()
+                for row in np.concatenate(outs, -1)]
+    assert got == want

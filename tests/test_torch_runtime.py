@@ -3,9 +3,13 @@ JAX package's tests/test_infra.py and tests/test_runtime.py write their
 cases: a resume reproduces the uninterrupted output bit for bit, a
 checkpoint of another chain is refused, none is saved after a failed
 sink write, an interrupt returns a summary even when the last flush
-fails, and the watchdog fires on a stale heartbeat only.
+fails, and the watchdog fires on a stale heartbeat only.  The engine's
+ring of input slots: a stream longer than the ring gives the chain's
+bytes stepped block by block, a partial block keeps no byte of a slot's
+earlier block, and a second run reuses the ring.
 """
 
+import itertools
 import time
 
 import numpy as np
@@ -19,9 +23,11 @@ from iq_tool_tpu.pipeline.checkpoint import load_checkpoint as jax_load  # noqa:
 from iq_tool_tpu_torch.modules.base import (Block, InputModule, OutputModule,  # noqa: E402
                                             SourceInfo)
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
+from iq_tool_tpu_torch.parallel.sharded import Mesh, ShardedChain  # noqa: E402
 from iq_tool_tpu_torch.pipeline import runtime  # noqa: E402
 from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig, carry_to_numpy  # noqa: E402
 from iq_tool_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _leaves  # noqa: E402
 from iq_tool_tpu_torch.pipeline.runtime import StreamEngine  # noqa: E402
 from iq_tool_tpu_torch.utils.watchdog import Watchdog  # noqa: E402
 
@@ -211,6 +217,111 @@ def test_interrupt_returns_summary_when_flush_fails(rng, monkeypatch):
     monkeypatch.setattr(runtime._Writer, "flush", failing_flush)
     s = StreamEngine(chain, FakeSource(payload, cuts, fail_at=2), FakeSink()).run()
     assert s.interrupted and s.frames_in == 2 * chain.n_in
+
+
+class CutSource(InputModule):
+    """A source whose k-th pass (``blocks`` call) yields its k-th stream,
+    in payloads of ``sizes`` bytes in turn."""
+    name = "cut"
+
+    def __init__(self, streams, sizes):
+        self._streams = list(streams)
+        self._sizes = sizes
+
+    def initialize(self, config, args) -> SourceInfo:
+        return SourceInfo(sample_rate=2_048_000.0, sample_format="cs16")
+
+    def blocks(self, frames_per_block: int):
+        stream, pos = self._streams.pop(0), 0
+        for size in itertools.cycle(self._sizes):
+            if pos >= len(stream):
+                return
+            yield Block(stream[pos:pos + size])
+            pos += size
+
+
+def _ring_chain(stepper: str, channels: int):
+    cfg = ChainConfig(input_format="cs16", output_format="cs16", input_rate=2_048_000.0,
+                      target_rate=1_536_000.0, dc_block=True, freq_shift_pre_hz=100e3,
+                      filters=(FilterRequest("lowpass", 400e3),), agc_profile="local",
+                      target_block=2048, channels=channels)
+    if stepper == "graphed":
+        return Chain(cfg, device="cpu")
+    # a time row over two device names steps eagerly (sharded_eager_reason)
+    return ShardedChain(cfg, Mesh([["cpu", "cpu:0"]]))
+
+
+def _engine(chain, streams, sizes):
+    """An engine over one CutSource and one FakeSink a channel."""
+    sinks = [FakeSink() for _ in streams[0]]
+    sources = [CutSource([s[c].tobytes() for s in streams], sizes) for c in range(len(sinks))]
+    return StreamEngine(chain, sources, sinks), sinks
+
+
+RING_SLOTS = runtime.C.HOST_QUEUE_DEPTH + 2
+
+
+@pytest.mark.parametrize("stepper", ["graphed", "eager"])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_engine_ring_gives_the_stepped_bytes(rng, channels, stepper):
+    """A stream of more blocks than the ring has slots, its payloads cut
+    at odd sizes, its last block partial: each sink's bytes are the
+    chain's stepped block by block over the zero-padded stream, trimmed,
+    on the graphed step and on an eager one (handed a copy of its slot)."""
+    chain = _ring_chain(stepper, channels)
+    blocks = RING_SLOTS + 4
+    n = chain.n_in * (blocks - 1) + 777
+    payload = rng.integers(-2 ** 14, 2 ** 14, (channels, 2 * n)).astype(np.int16)
+    wire = np.zeros((channels, blocks * chain.in_wire_len), np.int16)
+    wire[:, :2 * n] = payload
+    carry, outs = chain.init_carry(), []
+    for b in np.split(wire, blocks, axis=1):
+        carry, out = chain.step(carry, torch.from_numpy(b.copy()))
+        outs.append(out.numpy().copy())
+    want = np.concatenate(outs, -1)[:, :2 * chain.expected_out_frames(n)]
+    eng, sinks = _engine(chain, [payload], [1000, 50_000, 333])
+    assert eng.run().frames_in == n
+    assert isinstance(eng.stepper, GraphedStep) == (stepper == "graphed")
+    assert len(eng._ring.slots) == RING_SLOTS < blocks
+    assert [bytes(s.data) for s in sinks] == [row.tobytes() for row in want]
+
+
+def test_engine_partial_block_keeps_no_stale_bytes(rng):
+    """A run's partial block lands in a slot whose last block, the run
+    before's, was full of non-zero data: its output and the final carry
+    are a fresh engine's over that block alone."""
+    chain = _ring_chain("graphed", 2)
+    full = rng.integers(-2 ** 14, 2 ** 14, (2, 2 * chain.n_in * (RING_SLOTS + 2)))
+    part = rng.integers(-2 ** 14, 2 ** 14, (2, 2 * (chain.n_in // 2 + 5)))
+    full, part = full.astype(np.int16), part.astype(np.int16)
+    eng, sinks = _engine(chain, [full, part], [50_000])
+    eng.run()
+    assert [s.count_nonzero() > 0 for s in eng._ring.slots] == [True] * RING_SLOTS
+    for s in sinks:
+        s.data.clear()
+    eng.run()
+    fresh, fresh_sinks = _engine(chain, [part], [50_000])
+    fresh.run()
+    assert [bytes(s.data) for s in sinks] == [bytes(s.data) for s in fresh_sinks]
+    assert bytes(sinks[0].data)
+    for a, b in zip(_leaves(eng.stepper._carry), _leaves(fresh.stepper._carry)):
+        assert torch.equal(a, b)
+
+
+def test_engine_second_run_reuses_the_ring(rng):
+    """A second run of one engine writes into the slots the first made and
+    gives the first run's bytes."""
+    chain = _ring_chain("graphed", 3)
+    payload = rng.integers(-2 ** 14, 2 ** 14, (3, 2 * (chain.n_in * 12 + 99))).astype(np.int16)
+    eng, sinks = _engine(chain, [payload, payload], [1000, 50_000, 333])
+    eng.run()
+    ptrs = [s.data_ptr() for s in eng._ring.slots]
+    first = [bytes(s.data) for s in sinks]
+    for s in sinks:
+        s.data.clear()
+    eng.run()
+    assert [s.data_ptr() for s in eng._ring.slots] == ptrs
+    assert [bytes(s.data) for s in sinks] == first
 
 
 def test_watchdog_fires():

@@ -25,12 +25,12 @@ from iq_tool_tpu_torch.pipeline.graphed import GraphedStep, _stage_map  # noqa: 
 from iq_tool_tpu_torch.pipeline.runtime import StreamEngine  # noqa: E402
 
 # the spans every block has, and the thread each runs on
-BLOCK_SPANS = {"engine.source": "iq-reader", "engine.assemble": "iq-reader",
-               "engine.wait_input": "MainThread", "engine.stack": "MainThread",
-               "engine.pin": "MainThread", "engine.h2d": "MainThread",
-               "engine.step": "MainThread", "engine.d2h": "MainThread",
-               "engine.wait_output": "MainThread", "engine.wait_device": "iq-writer",
-               "engine.write": "iq-writer", "engine.transit": None}
+BLOCK_SPANS = {"engine.source": "iq-reader", "engine.wait_slot": "iq-reader",
+               "engine.assemble": "iq-reader", "engine.wait_input": "MainThread",
+               "engine.h2d": "MainThread", "engine.step": "MainThread",
+               "engine.d2h": "MainThread", "engine.wait_output": "MainThread",
+               "engine.wait_device": "iq-writer", "engine.write": "iq-writer",
+               "engine.transit": None}
 
 
 class ToneSource(InputModule):
