@@ -98,8 +98,13 @@ def rms_gains(xr: torch.Tensor, xi: torch.Tensor, state: AgcState,
 
 
 def _apply_rms_planar(xr, xi, state: AgcState, cfg: AgcConfig, rows: int = 1):
-    c, n = xr.shape
     gains, seg, new_state = rms_gains(xr, xi, state, cfg, rows)
+    return (*apply_gains(xr, xi, gains, seg, rows), new_state)
+
+
+def apply_gains(xr, xi, gains: torch.Tensor, seg: int, rows: int = 1):
+    """(yr, yi): the (C, N) planes times ``rms_gains``'s segment gains."""
+    c, n = xr.shape
     r, n_seg = gains.shape
     n_row = n // rows
     xr, xi = xr.reshape(r, n_row), xi.reshape(r, n_row)
@@ -110,7 +115,7 @@ def _apply_rms_planar(xr, xi, state: AgcState, cfg: AgcConfig, rows: int = 1):
         g_last = gains[:, -1:]
         yr = torch.cat([yr, xr[:, n_seg * seg:] * g_last], dim=-1)
         yi = torch.cat([yi, xi[:, n_seg * seg:] * g_last], dim=-1)
-    return yr.reshape(c, n), yi.reshape(c, n), new_state
+    return yr.reshape(c, n), yi.reshape(c, n)
 
 
 def block_peak(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:

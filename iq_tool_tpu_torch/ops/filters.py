@@ -185,13 +185,17 @@ class StreamingFilter:
             return yr, yi, nr, ni
         return self._osfft_planar(xr, xi, state_r, state_i)
 
+    @property
+    def packs(self) -> bool:
+        """Whether the filter has the packed epilogue: a banded kernel (not
+        overlap-save, not one tap)."""
+        return self._exec_banded and self.num_taps != 1
+
     def apply_planar_packed(self, xr, xi, state_r, state_i, out_fmt: str = "cs16"):
         """The banded filter with the kernel's quantize-and-pack epilogue,
         for when it is the chain's last op: (packed wire, new_r, new_i), or
-        None where there is no banded kernel (overlap-save, one tap) or no
-        packed form of the format."""
-        if (not self._exec_banded or self.num_taps == 1
-                or not kernels.packable_out(out_fmt)):
+        None where it does not ``packs`` or the format has no packed form."""
+        if not self.packs or not kernels.packable_out(out_fmt):
             return None
         return self._banded(xr, xi, state_r, state_i, pack_fmt=out_fmt)
 

@@ -59,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 from iq_tool_tpu_torch import constants as C
-from iq_tool_tpu_torch.ops import agc, convert, iq_balance, kernels, nco
+from iq_tool_tpu_torch.ops import agc, convert, kernels, nco
 from iq_tool_tpu_torch.pipeline.chain import (Chain, ChainConfig, carry_from_numpy,
                                               carry_to_numpy, resolve_device)
 from iq_tool_tpu_torch.pipeline.folded import widest_tail
@@ -479,8 +479,11 @@ class ShardedChain:
 
 
 class _RowStep:
-    """One step of one channel slab over T > 1 time shards: each stage
-    runs on every held shard, its halo crossing between them."""
+    """One step of one channel slab over T > 1 time shards.  It walks the
+    local Chain's route (``Chain.route``) as ``Chain._step`` does, each
+    stage a ``Chain`` method on every held shard, and supplies the state
+    that crosses the shards: the halos, the DC starts, shard 0's
+    estimator input, the AGC's gains and each shard's first NCO phase."""
 
     def __init__(self, sc: ShardedChain, ci: int, row: _TimeRow, carry: dict,
                  raws: dict, reset: bool):
@@ -514,27 +517,32 @@ class _RowStep:
         return self.each(lambda t: (y[t][0][:, n - h:].contiguous(),
                                     y[t][1][:, n - h:].contiguous()))
 
-    def phases(self, key: str, n: int, dth: int) -> dict | None:
-        """Each shard's first NCO phase (the carry t * n samples on); the
-        carry advances by T * n."""
+    def phases(self, key: str, n: int, dth: int) -> dict:
+        """Each shard's first NCO phase (the carry t * n samples on; None
+        without the NCO); the carry advances by T * n."""
         if not dth:
-            return None
+            return dict.fromkeys(self.held)
         for t in self.held:
             self.new[t][key] = nco.advance(self.carry[t][key], self.t * n, dth)
         return self.each(lambda t: nco.advance(self.carry[t][key], t * n, dth))
 
     # --- DC ------------------------------------------------------------------
 
-    def dc_starts(self, x_prev: dict, first_pass) -> dict:
-        """The DC state (C, 4) each shard starts from: x_prev and the true
-        y start, composed in float64 from every shard's zero-start end
-        (``first_pass(t, state)`` runs the DC kernel, returning its new
-        state).  Sets the carry's dc: the wrapped x halo, the composed
-        end."""
-        z = self.each(lambda t: torch.zeros_like(x_prev[t]))
-        ends = self.row.all_gather(self.each(
-            lambda t: first_pass(t, torch.cat([x_prev[t], z[t]], -1))[:, 2:4]))
-        a_n = float((1.0 - self.lc.dc_alpha) ** self.lc.n_in)
+    def dc_starts(self, dec: dict) -> dict:
+        """The DC state (C, 4) each shard starts from, for its decoded
+        block (``Chain.decode``): the preceding raw input sample and the
+        true y start, composed in float64 from every shard's end as the DC
+        kernel leaves it from a zero y start.  Sets the carry's dc: the
+        wrapped x halo, the composed end."""
+        lc = self.lc
+        last = self.each(lambda t: torch.cat(
+            [p[:, -1:] for p in (dec[t][:2] if dec[t][0] is not None else self.last_frame(t))],
+            -1))
+        x_prev, x_recv = self.halo(last, self.each(lambda t: self.carry[t]["dc"][:, 0:2]))
+        ends = self.row.all_gather(self.each(lambda t: kernels.dc_block_apply(
+            dec[t][0], dec[t][1], torch.cat([x_prev[t], torch.zeros_like(x_prev[t])], -1),
+            lc.dc_alpha, **dec[t][2])[2][:, 2:4]))
+        a_n = float((1.0 - lc.dc_alpha) ** lc.n_in)
         s = self.rep["dc"][:, 2:4].double()
         starts = [s]
         for j in range(1, self.t):
@@ -542,176 +550,102 @@ class _RowStep:
             starts.append(s)
         end = (ends[-1].double() + a_n * starts[-1]).float()
         for t in self.held:
-            self.new[t]["dc"] = torch.cat([self.x_recv[t], end.to(self.row.devs[t])], -1)
+            self.new[t]["dc"] = torch.cat([x_recv[t], end.to(self.row.devs[t])], -1)
         return self.each(lambda t: torch.cat(
             [x_prev[t], starts[t].float().to(self.row.devs[t])], -1).contiguous())
-
-    def x_halo(self, planes: dict) -> dict:
-        """Each shard's preceding raw input sample (C, 2): shard 0's from
-        the carry."""
-        last = self.each(lambda t: torch.cat([planes[t][0][:, -1:], planes[t][1][:, -1:]], -1))
-        use, self.x_recv = self.halo(last, self.each(lambda t: self.carry[t]["dc"][:, 0:2]))
-        return use
-
-    # --- pre-stage -------------------------------------------------------------
-
-    def iq_update(self, prefix) -> torch.Tensor:
-        """Shard 0's estimator input broadcast, the estimator run once on
-        lead over it: the factors (lead).  ``prefix`` (where this process
-        holds shard 0) is its block's first IQ_FFT_SIZE frames, the packed
-        wire's for a packable format with the DC block, else the planes',
-        then with the DC block shard 0's carried DC state."""
-        lc = self.lc
-        shape = (self.sc.c_local, min(lc.n_in, C.IQ_FFT_SIZE))
-        kind = convert.wire_kind(lc.fmt_in) if lc.cfg.dc_block else None
-        specs = ([(shape, kind[0])] if kind else [(shape, torch.float32)] * 2)
-        if lc.cfg.dc_block:
-            specs.append(((self.sc.c_local, 4), torch.float32))
-        got = self.row.broadcast0(prefix, tuple(specs))
-        planes = (None, None) if kind else got[:2]
-        src = (dict(wire_i32=got[0], wire_norm=lc.fmt_in.normalizer,
-                    wire_gain=lc.cfg.gain, wire_kind=kind[1]) if kind else {})
-        if lc.cfg.dc_block:
-            src.update(dc_state=got[-1], dc_alpha=lc.dc_alpha)
-        state = iq_balance.maybe_update_planar(*planes, self.rep["iq"], lc.iq_interval,
-                                               advance_samples=self.t * lc.n_in, **src)
-        self.place("iq", state)
-        return state.factors
-
-    def pre(self) -> dict:
-        """Convert + [DC + I/Q + pre-NCO]: {t: (xr, xi)} (Chain._pre)."""
-        lc, cfg = self.lc, self.lc.cfg
-        n = lc.n_in
-        phase = self.phases("nco_pre", n, lc.dtheta_pre)
-        if not cfg.dc_block:
-            x = self.each(lambda t: convert.to_planar(self.raws[t], lc.fmt_in, cfg.gain))
-            if cfg.iq_correction:
-                m = min(n, C.IQ_FFT_SIZE)
-                seg0 = (x[0][0][:, :m], x[0][1][:, :m]) if 0 in x else None
-                fac = self.iq_update(seg0)
-                x = self.each(lambda t: iq_balance.apply_planar(*x[t], _to(fac, self.row.devs[t])))
-            if phase is not None:
-                x = self.each(lambda t: nco.mix(*x[t], phase[t], lc.dtheta_pre))
-            return self.each(lambda t: (x[t][0].contiguous(), x[t][1].contiguous()))
-        # K3 twice: zero-start ends, then from the composed starts
-        wires = self.each(lambda t: convert.wire_pack(self.raws[t], lc.fmt_in))
-        planes, args = {}, {}
-        for t in self.held:
-            if wires[t] is None:
-                xr, xi = (p.contiguous() for p in convert.to_planar(
-                    self.raws[t], lc.fmt_in, cfg.gain))
-                planes[t] = (xr, xi)
-                args[t] = dict(xr=xr, xi=xi)
-            else:
-                planes[t] = None
-                args[t] = dict(xr=None, xi=None, wire_i32=wires[t][0],
-                               wire_norm=lc.fmt_in.normalizer, wire_gain=cfg.gain,
-                               wire_kind=wires[t][1])
-        x_prev = self.x_halo(self.each(lambda t: planes[t] or self.last_frame(t)))
-        state = self.dc_starts(x_prev, lambda t, st: kernels.dc_block_apply(
-            state=st, alpha=lc.dc_alpha, **args[t])[2])
-        fac = None
-        if cfg.iq_correction:
-            prefix = None
-            if 0 in self.held:
-                m = min(n, C.IQ_FFT_SIZE)
-                src = ((args[0]["wire_i32"],) if planes[0] is None else planes[0])
-                prefix = (*(x[:, :m] for x in src), self.carry[0]["dc"])
-            fac = self.iq_update(prefix)
-        out = {}
-        for t in self.held:
-            yr, yi, _ = kernels.dc_block_apply(
-                state=state[t], alpha=lc.dc_alpha,
-                iq_factors=None if fac is None else _to(fac, self.row.devs[t]),
-                phase_acc=phase[t] if phase else None, dtheta=lc.dtheta_pre, **args[t])
-            out[t] = (yr, yi)
-        return out
 
     def last_frame(self, t: int):
         """Shard t's last input frame, decoded as the DC kernel decodes it."""
         items = self.lc.fmt_in.items_per_frame
         return convert.to_planar(self.raws[t][:, -items:], self.lc.fmt_in, self.lc.cfg.gain)
 
-    # --- stages ----------------------------------------------------------------
+    # --- pre-stage -------------------------------------------------------------
 
-    def filt(self, key: str, x: dict, packed_fmt=None):
-        """The pre- or post-filter over a halo; with ``packed_fmt`` the
-        packed epilogue where the filter has one ({t: wire} or None)."""
-        f = lambda t: getattr(self.ch[t], key + "_filter")
-        h = f(self.held[0]).block
-        carried = self.each(lambda t: self.carry[t][key + "_f"])
-        use, recv = self.halo(self.tails(x, h), carried) if h else (carried, carried)
-        for t in self.held:
-            self.new[t][key + "_f"] = recv[t]
-        if packed_fmt:
-            res = self.each(lambda t: f(t).apply_planar_packed(*x[t], *use[t],
-                                                                 out_fmt=packed_fmt))
-            if res[self.held[0]] is not None:
-                return {t: r[0] for t, r in res.items()}, True
-        return self.each(lambda t: f(t).apply_planar(*x[t], *use[t])[:2]), False
+    def iq_update(self, dec: dict) -> torch.Tensor:
+        """The estimator run once on lead over shard 0's input
+        (``Chain.iq_input``'s first IQ_FFT_SIZE frames, broadcast; with the
+        DC block also shard 0's carried DC state): the factors (lead)."""
+        lc, dc = self.lc, self.lc.cfg.dc_block
+        m = min(lc.n_in, C.IQ_FFT_SIZE)
+        prefix = None
+        if 0 in self.held:
+            prefix = tuple(v[:, :m] for v in lc.iq_input(*dec[0]))
+            prefix += (self.carry[0]["dc"],) if dc else ()
+        kind = convert.wire_kind(lc.fmt_in)
+        shape = (self.sc.c_local, m)
+        specs = [(shape, kind[0])] if kind else [(shape, torch.float32)] * 2
+        specs += [((self.sc.c_local, 4), torch.float32)] if dc else []
+        got = self.row.broadcast0(prefix, tuple(specs))
+        x, dc_state = (got[:-1], got[-1]) if dc else (got, None)
+        state = lc.estimate(x, self.rep["iq"], dc_state, advance=self.t * lc.n_in)
+        self.place("iq", state)
+        return state.factors
 
-    def stages(self, x: dict, start: int, pack_fmt) -> dict:
-        """Resampler stages ``start``.. over their halos; the last one
-        packs the wire when ``pack_fmt`` is given."""
-        stages = self.lc.resampler.stages
-        rs = {t: list(self.new[t]["rs"]) for t in self.held}
-        for si in range(start, len(stages)):
-            use, recv = self.halo(self.tails(x, stages[si].hist),
-                                  self.each(lambda t: self.carry[t]["rs"][si]))
-            pf = pack_fmt if si == len(stages) - 1 else None
-            x = self.each(lambda t: self.ch[t].resampler.stages[si].apply_planar(
-                *x[t], *use[t], pack_fmt=pf)[0])
-            for t in self.held:
-                rs[t][si] = recv[t]
-        for t in self.held:
-            self.new[t]["rs"] = tuple(rs[t])
-        return x
+    def pre(self) -> dict:
+        """Chain's pre-stage on each shard from its DC start, the factors
+        and its first NCO phase: {t: (xr, xi)}."""
+        lc = self.lc
+        phase = self.phases("nco_pre", lc.n_in, lc.dtheta_pre)
+        dec = self.each(lambda t: self.ch[t].decode(self.raws[t]))
+        state = self.dc_starts(dec) if lc.cfg.dc_block else dict.fromkeys(self.held)
+        fac = self.iq_update(dec) if lc.cfg.iq_correction else None
+        return self.each(lambda t: self.ch[t].pre_stage(
+            *dec[t], state[t], _to(fac, self.row.devs[t]), phase[t])[:2])
 
     def wire_stage0(self) -> dict:
-        """Stage 0 on the packed wire (Chain._wire_resample_step): the DC
-        kernel twice and K2 over its planes with the DC blocker, else K2
-        decoding the wire, its halo the previous shard's decoded, rotated
-        raw tail."""
-        lc, cfg = self.lc, self.lc.cfg
-        n = lc.n_in
-        st0 = lc.resampler.stages[0]
-        hist = st0.hist
-        norm = lc.fmt_in.normalizer
-        pack0 = lc.pack_fmt if len(lc.resampler.stages) == 1 else None
-        dth = lc.dtheta_pre
-        phase = self.phases("nco_pre", n, dth)
-        ph = (lambda t: phase[t]) if phase else (lambda t: None)
-        wires = self.each(lambda t: convert.wire_pack(self.raws[t], lc.fmt_in))
-        band = lambda t: self.ch[t].resampler.stages[0].band
+        """Resampler stage 0 over each shard's packed wire: without the DC
+        block Chain's K2, its halo the previous shard's ``wire_tail``."""
+        lc = self.lc
+        phase = self.phases("nco_pre", lc.n_in, lc.dtheta_pre)
         carried = self.each(lambda t: self.carry[t]["rs"][0])
-        if cfg.dc_block:
-            x_prev = self.x_halo(self.each(self.last_frame))
-            state = self.dc_starts(x_prev, lambda t, st: kernels.dc_block_apply(
-                None, None, st, lc.dc_alpha, wire_i32=wires[t][0], wire_norm=norm,
-                wire_gain=cfg.gain, wire_kind=wires[t][1])[2])
-            pro = self.each(lambda t: kernels.dc_prologue(
-                wires[t][0], state[t], lc.dc_alpha, hist, norm, cfg.gain, dth, ph(t),
-                wires[t][1]))
-            use, recv = self.halo(self.each(lambda t: pro[t][2:4]), carried)
-            y = self.each(lambda t: kernels.banded_apply(
-                *use[t], *pro[t][:2], band(t), None, st0.stride, hist, pack_fmt=pack0))
+        if lc.cfg.dc_block:
+            y, recv = self.wire_stage0_dc(phase, carried)
         else:
-            items = lc.fmt_in.items_per_frame
-
-            def tail(t):
-                tr, ti = convert.to_planar(self.raws[t][:, -hist * items:], lc.fmt_in,
-                                           cfg.gain)
-                if dth:
-                    tr, ti = nco.mix(tr, ti, phase[t], dth, start=n - hist)
-                return tr.contiguous(), ti.contiguous()
-            use, recv = self.halo(self.each(tail), carried)
-            y = self.each(lambda t: kernels.banded_apply(
-                *use[t], None, None, band(t), None, st0.stride, hist, pack_fmt=pack0,
-                wire_i32=wires[t][0], wire_norm=norm, wire_gain=cfg.gain,
-                nco_dtheta=dth, nco_phase=ph(t), wire_kind=wires[t][1]))
+            use, recv = self.halo(self.each(
+                lambda t: self.ch[t].wire_tail(self.raws[t], phase[t])), carried)
+            y = self.each(lambda t: self.ch[t].wire_stage0(self.raws[t], use[t],
+                                                           phase[t])[0])
         for t in self.held:
-            self.new[t]["rs"] = (recv[t], *self.carry[t]["rs"][1:])
+            self.rs[t][0] = recv[t]
         return y
+
+    def wire_stage0_dc(self, phase: dict, carried: dict):
+        """Stage 0 with the DC block over the wire, the one stage a time
+        shard does not run as Chain does.  Chain's K1 DC-blocks each window
+        group from a state its carry pass runs up from the block's first
+        sample; a shard knows that first state only once every shard's
+        first DC pass has ended (``dc_starts``).  So: the DC kernel twice,
+        ``kernels.dc_prologue`` from the composed start (the decoded,
+        DC-blocked, rotated planes and their tail, the halo), then K2 over
+        the planes.  (outputs, the received halos)."""
+        lc = self.lc
+        dec = self.each(lambda t: self.ch[t].decode(self.raws[t]))
+        state = self.dc_starts(dec)
+        pro = self.each(lambda t: kernels.dc_prologue(
+            dc_state=state[t], dc_alpha=lc.dc_alpha, hist=lc.resampler.stages[0].hist,
+            nco_dtheta=lc.dtheta_pre, nco_phase=phase[t], **dec[t][2]))
+        use, recv = self.halo(self.each(lambda t: pro[t][2:4]), carried)
+        return self.each(lambda t: self.ch[t].resample_stage(0, pro[t][:2], use[t])[0]), recv
+
+    # --- stages ----------------------------------------------------------------
+
+    def filt(self, which: str, x: dict) -> dict:
+        """The pre- or post-filter over its halo (``Chain.apply_filter``)."""
+        h = getattr(self.lc, which + "_filter").block
+        key = which + "_f"
+        carried = self.each(lambda t: self.carry[t][key])
+        use, recv = self.halo(self.tails(x, h), carried) if h else (carried, carried)
+        for t in self.held:
+            self.new[t][key] = recv[t]
+        return self.each(lambda t: self.ch[t].apply_filter(which, x[t], use[t])[0])
+
+    def stage(self, si: int, x: dict) -> dict:
+        """Resampler stage ``si`` over its halo (``Chain.resample_stage``)."""
+        use, recv = self.halo(self.tails(x, self.lc.resampler.stages[si].hist),
+                              self.each(lambda t: self.carry[t]["rs"][si]))
+        for t in self.held:
+            self.rs[t][si] = recv[t]
+        return self.each(lambda t: self.ch[t].resample_stage(si, x[t], use[t])[0])
 
     # --- post ------------------------------------------------------------------
 
@@ -740,63 +674,37 @@ class _RowStep:
         return g
 
     def post(self, x: dict) -> dict:
-        """Post-NCO + AGC + convert (Chain._fused_post / _plain_post)."""
+        """Chain's post-stage on each shard from the AGC's gains over every
+        shard and its first NCO phase."""
         lc = self.lc
-        n = x[self.held[0]][0].shape[-1]
-        dth = lc.dtheta_post
-        cfg_agc = lc.agc_cfg
-        phase = self.phases("nco_post", n, dth)
-        if lc.pack_fmt and (dth or cfg_agc is not None):
-            seg = 0
-            if cfg_agc is not None and cfg_agc.profile != "digital":
-                gains, seg = self.rms_gains(x)
-            elif cfg_agc is not None:
-                g = self.digital_gain(x)[:, None].contiguous()
-                gains = self.each(lambda t: _to(g, self.row.devs[t]))
-            else:
-                gains = self.each(lambda t: torch.ones((x[t][0].shape[0], 1),
-                                                       dtype=torch.float32,
-                                                       device=self.row.devs[t]))
-            return self.each(lambda t: convert.packed_to_wire(kernels.post_apply(
-                x[t][0].contiguous(), x[t][1].contiguous(), gains[t], seg,
-                phase[t] if phase else None, dth, out_fmt=lc.pack_fmt), lc.fmt_out))
-        dig = None
+        dth, cfg_agc = lc.dtheta_post, lc.agc_cfg
+        phase = self.phases("nco_post", x[self.held[0]][0].shape[-1], dth)
+        if lc.route.rms_after_nco:
+            x = self.each(lambda t: nco.mix(*x[t], phase[t], dth))
+            phase = dict.fromkeys(self.held)
+        gains, seg, dig = {}, 0, None
         if cfg_agc is not None and cfg_agc.profile == "digital":
             dig = self.digital_gain(x)
-        if phase is not None:
-            x = self.each(lambda t: nco.mix(*x[t], phase[t], dth))
-        if dig is not None:
-            x = self.each(lambda t: tuple(p * _to(dig, self.row.devs[t])[:, None]
-                                          for p in x[t]))
         elif cfg_agc is not None:
             gains, seg = self.rms_gains(x)
-            x = self.each(lambda t: tuple(p * kernels._segment_gains(gains[t], seg, n)
-                                          for p in x[t]))
-        return self.each(lambda t: convert.from_planar(*x[t], lc.fmt_out))
+        return self.each(lambda t: self.ch[t].post(
+            *x[t], phase[t], gains.get(t), seg, _to(dig, self.row.devs[t])))
 
     # --- the step --------------------------------------------------------------
 
     def run(self):
-        lc = self.lc
-        convert_only = not lc.dtheta_post and lc.agc_cfg is None
-        if lc._wire_resample:
-            y = self.wire_stage0()
-            if len(lc.resampler.stages) > 1:
-                y = self.stages(y, 1, lc.pack_fmt)
-            if lc.pack_fmt:
-                return self.new, self.each(lambda t: convert.packed_to_wire(y[t], lc.fmt_out))
-            return self.new, self.each(lambda t: convert.from_planar(*y[t], lc.fmt_out))
-        x = self.pre()
-        if lc.pre_filter is not None:
-            x, _ = self.filt("pre", x)
-        if lc.resampler is not None:
-            if (lc.post_filter is None and convert_only and lc.pack_fmt
-                    and lc.resampler.packs):
-                y = self.stages(x, 0, lc.pack_fmt)
-                return self.new, self.each(lambda t: convert.packed_to_wire(y[t], lc.fmt_out))
-            x = self.stages(x, 0, None)
-        if lc.post_filter is not None:
-            x, packed = self.filt("post", x, lc.pack_fmt if convert_only else None)
-            if packed:
-                return self.new, self.each(lambda t: convert.packed_to_wire(x[t], lc.fmt_out))
+        r, fmt_out = self.lc.route, self.lc.fmt_out
+        self.rs = {t: list(self.carry[t].get("rs", ())) for t in self.held}
+        x = self.wire_stage0() if r.wire_stage0 else self.pre()
+        if r.pre_filter:
+            x = self.filt("pre", x)
+        for si in r.stages:
+            x = self.stage(si, x)
+        if self.lc.resampler is not None:
+            for t in self.held:
+                self.new[t]["rs"] = tuple(self.rs[t])
+        if r.post_filter:
+            x = self.filt("post", x)
+        if r.packed:
+            return self.new, self.each(lambda t: convert.packed_to_wire(x[t], fmt_out))
         return self.new, self.post(x)

@@ -4,9 +4,12 @@
     convert -> dc_block -> iq_correct -> pre-NCO -> pre-filter
             -> resample -> post-filter -> post-NCO -> AGC -> convert
 
-Two paths, as in the reference:
+The stages a step runs are decided once, in ``Chain.route`` (a
+``Route``), and ``Chain._step`` walks them; the time-sharded step
+(``parallel/sharded.py``) walks the same route.  Two paths, as in the
+reference:
 
-* the wire-to-wire resample path (``_wire_resample``) when nothing but
+* the wire-to-wire resample path (``route.wire_stage0``) when nothing but
   DC block, pre-NCO and the resampler runs on a packable wire: stage 0
   is K1 (``kernels.banded_apply_dc``) with the DC block, else K2 with
   the wire + NCO prologue; the last stage quantizes straight to the wire;
@@ -56,9 +59,6 @@ from iq_tool_tpu_torch.ops.fir_design import (FilterRequest, design_chain,
 from iq_tool_tpu_torch.ops.resample import Resampler, _MatmulStage
 from iq_tool_tpu_torch.pipeline.trace import stage_span
 
-_PACKED_INPUTS = ("cs16", "sc16q11", "cu16", "cu8", "cs8")
-
-
 @dataclasses.dataclass(frozen=True)
 class ChainConfig:
     """User intent for one stream (the same fields as the reference's)."""
@@ -93,6 +93,31 @@ class ChainConfig:
     @property
     def output_rate(self) -> float:
         return self.target_rate if self.resampling else self.input_rate
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """The stages of a Chain's step, decided once from its configuration
+    (``Chain.route``) and walked by ``Chain._step`` and by the
+    time-sharded step (``parallel/sharded.py``) alike.
+
+    ``out`` says what makes the output wire: "stage" (the last resampler
+    stage packs it), "post_filter" (the filter's packed epilogue), "K4"
+    (``kernels.post_apply``) or "plain" (tensor ops and the convert).
+    ``rms_after_nco``: the plain post's RMS AGC reads the rotated planes
+    (K4's gains and the digital profile's peak read them before the NCO)."""
+    wire_stage0: bool      # resampler stage 0 decodes the packed wire: no pre-stage
+    pre: str | None        # the pre-stage's kernel: "K3" (with the DC block), "K3pre", None
+    pre_filter: bool
+    stages: tuple[int, ...]  # the resampler stages run over planes, in order
+    post_filter: bool
+    out: str
+    rms_after_nco: bool
+
+    @property
+    def packed(self) -> bool:
+        """Whether a stage before the post-stage packs the wire."""
+        return self.out in ("stage", "post_filter")
 
 
 def _decide_filter_stage(cfg: ChainConfig) -> str:
@@ -207,15 +232,46 @@ class Chain:
             rs.bind(self.device)
         self.pack_fmt = (self.fmt_out.name if kernels.packable_out(self.fmt_out.name)
                          else None)
-        self._wire_resample = (rs is not None and isinstance(rs.stages[0], _MatmulStage)
-                               and not cfg.iq_correction
-                               and self.pre_filter is None and self.post_filter is None
-                               and not self.dtheta_post and self.agc_cfg is None
-                               and self.fmt_in.name in _PACKED_INPUTS)
+        self._wire_kind = convert.wire_kind(self.fmt_in)
+        self.route = self._decide_route()
         self.in_wire_len = self.n_in * self.fmt_in.items_per_frame
         self.out_wire_len = self.n_out * self.fmt_out.items_per_frame
         self.in_wire_dtype = convert.wire_dtype(self.fmt_in)
         self.out_wire_dtype = convert.wire_dtype(self.fmt_out)
+
+    def _decide_route(self) -> Route:
+        cfg, rs, post_f = self.cfg, self.resampler, self.post_filter
+        convert_only = not self.dtheta_post and self.agc_cfg is None
+        wire_stage0 = (rs is not None and isinstance(rs.stages[0], _MatmulStage)
+                       and not cfg.iq_correction and convert_only
+                       and self.pre_filter is None and post_f is None
+                       and self._wire_kind is not None)
+        if wire_stage0:
+            pre = None
+        elif cfg.dc_block:
+            pre = "K3"
+        elif self._wire_kind is not None or cfg.iq_correction or self.dtheta_pre:
+            pre = "K3pre"
+        else:
+            pre = None                         # nothing to apply to the planes
+        if self.pack_fmt and convert_only:
+            out = ("stage" if post_f is None and rs is not None and rs.packs else
+                   "post_filter" if post_f is not None and post_f.packs else "plain")
+        else:
+            out = "K4" if self.pack_fmt else "plain"
+        n_stages = len(rs.stages) if rs is not None else 0
+        return Route(wire_stage0=wire_stage0, pre=pre,
+                     pre_filter=self.pre_filter is not None,
+                     stages=tuple(range(int(wire_stage0), n_stages)),
+                     post_filter=post_f is not None, out=out,
+                     rms_after_nco=(out == "plain" and bool(self.dtheta_post)
+                                    and self.agc_cfg is not None
+                                    and self.agc_cfg.profile != "digital"))
+
+    @property
+    def _wire_resample(self) -> bool:
+        """Whether stage 0 reads the wire (``route.wire_stage0``)."""
+        return self.route.wire_stage0
 
     # ------------------------------ carry ------------------------------------
 
@@ -271,7 +327,8 @@ class Chain:
         return self._step(carry, raw, reset, 1)
 
     def _step(self, carry: dict, raw: torch.Tensor, reset: bool, rows: int):
-        """One step over a block of any whole number of resampler blocks.
+        """One step over a block of any whole number of resampler blocks:
+        the walk of ``route``, each stage's state from the carry.
         ``rows`` > 1 (``FoldedChain``): each channel's block is that many
         consecutive row blocks, and the RMS AGC lays its segments per row
         (agc.rms_gains); every other stage is the same over the whole
@@ -281,184 +338,211 @@ class Chain:
         if reset:
             carry = self._reset_carry(carry)
         new = dict(carry)
-        if self._wire_resample:
-            return new, self._wire_resample_step(raw, carry, new)
-        xr, xi = self._pre(raw, carry, new)
-        if self.pre_filter is not None:
+        r = self.route
+        rs = list(carry.get("rs", ()))
+        if r.wire_stage0:
+            dth = self.dtheta_pre
+            with stage_span("chain.resample.0"):
+                phase = carry["nco_pre"] if dth else None
+                x, tail, dc = self.wire_stage0(raw, rs[0], phase, carry.get("dc"))
+                rs[0] = tail or self.wire_tail(raw, phase)
+                if dc is not None:
+                    new["dc"] = dc
+                if dth:
+                    new["nco_pre"] = nco.advance(carry["nco_pre"], self._frames(raw), dth)
+        else:
+            x = self._pre(raw, carry, new)
+        if r.pre_filter:
             with stage_span("chain.pre_filter"):
-                xr, xi, nr, ni = self.pre_filter.apply_planar(xr, xi, *carry["pre_f"])
-            new["pre_f"] = (nr, ni)
-        convert_only = not self.dtheta_post and self.agc_cfg is None
-        if self.resampler is not None:
-            if (self.post_filter is None and convert_only and self.pack_fmt
-                    and self.resampler.packs):
-                y, new["rs"] = self.resampler.apply_planar(xr, xi, carry["rs"],
-                                                           pack_fmt=self.pack_fmt)
-                return new, convert.packed_to_wire(y, self.fmt_out)
-            (xr, xi), new["rs"] = self.resampler.apply_planar(xr, xi, carry["rs"])
-        if self.post_filter is not None:
+                x, new["pre_f"] = self.apply_filter("pre", x, carry["pre_f"])
+        for i in r.stages:
+            with stage_span(f"chain.resample.{i}"):
+                x, rs[i] = self.resample_stage(i, x, rs[i])
+        if rs:
+            new["rs"] = tuple(rs)
+        if r.post_filter:
             with stage_span("chain.post_filter"):
-                res = None
-                if convert_only and self.pack_fmt:
-                    res = self.post_filter.apply_planar_packed(
-                        xr, xi, *carry["post_f"], out_fmt=self.pack_fmt)
-                if res is None:
-                    xr, xi, nr, ni = self.post_filter.apply_planar(xr, xi, *carry["post_f"])
-                else:
-                    y, nr, ni = res
-            new["post_f"] = (nr, ni)
-            if res is not None:
-                return new, convert.packed_to_wire(y, self.fmt_out)
+                x, new["post_f"] = self.apply_filter("post", x, carry["post_f"])
+        if r.packed:
+            return new, convert.packed_to_wire(x, self.fmt_out)
         with stage_span("chain.post"):
-            if self.pack_fmt and not convert_only:
-                return new, self._fused_post(xr, xi, carry, new, rows)
-            return new, self._plain_post(xr, xi, carry, new, rows)
+            return new, self._post(*x, carry, new, rows)
+
+    def _frames(self, raw) -> int:
+        return raw.shape[-1] // self.fmt_in.items_per_frame
 
     def _pre(self, raw, carry: dict, new: dict):
-        """Convert + [DC block] + [I/Q] + [pre-NCO] in one launch over the
-        packed wire (decoded in the kernel) or, for formats without one,
-        the converted planes: K3 (``kernels.dc_block_apply``) with the DC
-        block, else K3pre (``kernels.pre_apply``).  The I/Q estimator taps
-        the (DC-blocked) signal before the correction: its kernel decodes
-        (and DC-blocks, from the carried DC state) the block's
-        IQ_FFT_SIZE-frame prefix itself, ahead of the pre-stage."""
-        cfg = self.cfg
+        """The pre-stage from the carry: decode, [the I/Q estimator], then
+        ``pre_stage`` from the carried DC state and NCO phase."""
         with stage_span("chain.pre"):
-            packed = convert.wire_pack(raw, self.fmt_in)
-            if packed is None:
-                xr, xi = (p.contiguous() for p in convert.to_planar(raw, self.fmt_in,
-                                                                     cfg.gain))
-                wire, kind, norm = None, "cs16", 0.0
-            else:
-                (wire, kind), xr, xi = packed, None, None
-                norm = self.fmt_in.normalizer
-        n = (wire if wire is not None else xr).shape[-1]
+            xr, xi, src = self.decode(raw)
         state = carry.get("dc")
-        src = dict(wire_i32=wire, wire_norm=norm, wire_gain=cfg.gain, wire_kind=kind)
         factors = None
-        if cfg.iq_correction:
+        if self.cfg.iq_correction:
             with stage_span("chain.iq_estimate"):
-                new["iq"] = iq_balance.maybe_update_planar(
-                    xr, xi, carry["iq"], self.iq_interval, dc_state=state,
-                    dc_alpha=self.dc_alpha, **src)
+                new["iq"] = self.estimate(self.iq_input(xr, xi, src), carry["iq"], state)
             factors = new["iq"].factors
         dth = self.dtheta_pre
-        phase = carry["nco_pre"] if dth else None
         with stage_span("chain.pre"):
-            if cfg.dc_block:
-                yr, yi, new["dc"] = kernels.dc_block_apply(
-                    xr, xi, state, self.dc_alpha, factors, phase, dth, **src)
-            elif wire is None and factors is None and not dth:
-                yr, yi = xr, xi                    # nothing to apply to the planes
-            else:
-                yr, yi = kernels.pre_apply(xr, xi, factors, phase, dth, **src)
+            yr, yi, dc = self.pre_stage(xr, xi, src, state, factors,
+                                        carry["nco_pre"] if dth else None)
+            if dc is not None:
+                new["dc"] = dc
             if dth:
-                new["nco_pre"] = nco.advance(carry["nco_pre"], n, dth)
+                new["nco_pre"] = nco.advance(carry["nco_pre"], self._frames(raw), dth)
         return yr, yi
 
-    def _fused_post(self, xr, xi, carry: dict, new: dict, rows: int = 1):
-        """K4: post-NCO + AGC gains + quantize/interleave in one pass,
-        over the block's ``rows`` rows (each row with its own gains and
-        first NCO phase).  Block energies and peaks are rotation-invariant,
-        so the AGC reads the planes before the NCO (the digital profile's
-        hard thresholds then see the same peak on every path)."""
-        c, n = xr.shape
-        xr, xi = xr.contiguous(), xi.contiguous()
-        dth = self.dtheta_post
-        cfg_agc = self.agc_cfg
-        seg = 0
-        if cfg_agc is not None and cfg_agc.profile != "digital":
-            gains, seg, new["agc"] = agc.rms_gains(xr, xi, carry["agc"], cfg_agc, rows)
+    def _post(self, xr, xi, carry: dict, new: dict, rows: int):
+        """The post-stage from the carry: the AGC's gains (its state
+        stepped) and the carried post-NCO phase."""
+        n = xr.shape[-1]
+        dth, cfg_agc = self.dtheta_post, self.agc_cfg
+        phase = carry["nco_post"] if dth else None
+        if self.route.rms_after_nco:
+            xr, xi = nco.mix(xr, xi, phase, dth)
+            phase = None
+        gains, seg, digital = None, 0, None
+        if cfg_agc is not None and cfg_agc.profile == "digital":
+            digital, new["agc"] = agc.digital_update(carry["agc"], agc.block_peak(xr, xi),
+                                                     n, cfg_agc)
         elif cfg_agc is not None:
-            g, new["agc"] = agc.digital_update(carry["agc"], agc.block_peak(xr, xi),
-                                               n, cfg_agc)
-            gains = g[:, None].repeat_interleave(rows, 0).contiguous()
-        else:
-            gains = torch.ones((c * rows, 1), dtype=torch.float32, device=xr.device)
-        phases = nco.row_phases(carry["nco_post"], rows, n // rows, dth) if dth else None
-        out = kernels.post_apply(xr.view(c * rows, -1), xi.view(c * rows, -1), gains,
-                                 seg, phases, dth, out_fmt=self.pack_fmt)
+            gains, seg, new["agc"] = agc.rms_gains(xr, xi, carry["agc"], cfg_agc, rows)
+        out = self.post(xr, xi, phase, gains, seg, digital, rows)
         if dth:
             new["nco_post"] = nco.advance(carry["nco_post"], n, dth)
-        return convert.packed_to_wire(out.view(c, n), self.fmt_out)
+        return out
 
-    def _plain_post(self, xr, xi, carry: dict, new: dict, rows: int = 1):
-        """Post-NCO, AGC and convert as tensor ops: formats without a
-        packed epilogue, or nothing but the convert left.  The digital
-        AGC measures its block peak before the NCO, as K4's path does."""
-        cfg_agc = self.agc_cfg
-        dig_gain = None
-        if cfg_agc is not None and cfg_agc.profile == "digital":
-            dig_gain, new["agc"] = agc.digital_update(
-                carry["agc"], agc.block_peak(xr, xi), xr.shape[-1], cfg_agc)
-        if self.dtheta_post:
-            xr, xi, new["nco_post"] = nco.apply_planar(xr, xi, carry["nco_post"],
-                                                       self.dtheta_post)
-        if dig_gain is not None:
-            xr, xi = xr * dig_gain[:, None], xi * dig_gain[:, None]
-        elif cfg_agc is not None:
-            xr, xi, new["agc"] = agc.apply_planar(xr, xi, carry["agc"], cfg_agc, rows)
+    # ------------------------------ stages ------------------------------------
+    # Each takes the state it needs from the last block as arguments and
+    # returns its new state: ``_step`` passes the carry's, the time-sharded
+    # step what its collectives composed.
+
+    def _src(self, wire) -> dict:
+        """The kernels' arguments for the packed wire ``wire``."""
+        return dict(wire_i32=wire, wire_norm=self.fmt_in.normalizer,
+                    wire_gain=self.cfg.gain, wire_kind=self._wire_kind[1])
+
+    def decode(self, raw):
+        """(xr, xi, src): the block as the pre-stage reads it, the packed
+        wire's kernel arguments ``src`` (planes None) for a format with
+        one, else the converted planes (``src`` empty)."""
+        if self._wire_kind is not None:
+            return None, None, self._src(convert.wire_pack(raw, self.fmt_in)[0])
+        xr, xi = convert.to_planar(raw, self.fmt_in, self.cfg.gain)
+        return xr.contiguous(), xi.contiguous(), {}
+
+    def iq_input(self, xr, xi, src) -> tuple:
+        """The I/Q estimator's input of a decoded block: (wire,) where the
+        format packs, else (xr, xi)."""
+        return (src["wire_i32"],) if src else (xr, xi)
+
+    def estimate(self, x: tuple, state, dc_state=None, advance: int | None = None):
+        """The I/Q estimator (``kernels.iq_estimate``) over ``x``
+        (``iq_input``'s, or its first IQ_FFT_SIZE frames), DC-blocking
+        what it reads from ``dc_state`` when given: the new IqState.  The
+        counter advances by ``advance`` (default the frames of ``x``)."""
+        planes, src = ((None, None), self._src(x[0])) if len(x) == 1 else (x, {})
+        return iq_balance.maybe_update_planar(
+            *planes, state, self.iq_interval, advance_samples=advance,
+            dc_state=dc_state, dc_alpha=self.dc_alpha, **src)
+
+    def pre_stage(self, xr, xi, src, dc_state, factors, phase):
+        """DC block + I/Q apply + pre-NCO over a decoded block in one
+        launch from the DC state ``dc_state``, the I/Q ``factors`` and the
+        first NCO ``phase`` (None where they do not apply): K3
+        (``kernels.dc_block_apply``) with the DC block, else K3pre
+        (``kernels.pre_apply``), else nothing.  (yr, yi, new DC state or
+        None)."""
+        if self.route.pre == "K3":
+            return kernels.dc_block_apply(xr, xi, dc_state, self.dc_alpha, factors, phase,
+                                          self.dtheta_pre, **src)
+        if self.route.pre == "K3pre":
+            return (*kernels.pre_apply(xr, xi, factors, phase, self.dtheta_pre, **src), None)
+        return xr, xi, None
+
+    def wire_stage0(self, raw, hist: tuple, phase, dc_state=None):
+        """The resampler's stage 0 over the packed wire from its history's
+        planes ``hist`` and the first pre-NCO ``phase``: K1
+        (``kernels.banded_apply_dc``) with the DC block from ``dc_state``,
+        else K2 decoding the wire in its prologue.  (output, K1's new
+        history or None, K1's new DC state or None): K2's new history is
+        ``wire_tail``'s."""
+        st0 = self.resampler.stages[0]
+        kw = dict(nco_dtheta=self.dtheta_pre, nco_phase=phase, pack_fmt=self.stage_pack(0),
+                  **self.decode(raw)[2])
+        if self.cfg.dc_block:
+            y, tr, ti, dc = kernels.banded_apply_dc(*hist, dc_state, self.dc_alpha, st0.band,
+                                                    None, st0.stride, st0.hist, **kw)
+            return y, (tr, ti), dc
+        y = kernels.banded_apply(*hist, None, None, st0.band, None, st0.stride, st0.hist,
+                                 **kw)
+        return y, None, None
+
+    def wire_tail(self, raw, phase) -> tuple:
+        """The history stage 0 leaves without the DC block: the block's
+        last frames decoded and, with a pre-NCO, rotated at their indices
+        from the first ``phase`` (the history is the post-shift signal)."""
+        hist = self.resampler.stages[0].hist
+        items = self.fmt_in.items_per_frame
+        tr, ti = convert.to_planar(raw[:, -hist * items:], self.fmt_in, self.cfg.gain)
+        if self.dtheta_pre:
+            tr, ti = nco.mix(tr, ti, phase, self.dtheta_pre,
+                             start=self._frames(raw) - hist)
+        return tr.contiguous(), ti.contiguous()
+
+    def stage_pack(self, i: int):
+        """The packed format resampler stage ``i`` quantizes to, or None."""
+        last = i == len(self.resampler.stages) - 1
+        return self.pack_fmt if self.route.out == "stage" and last else None
+
+    def resample_stage(self, i: int, x: tuple, hist: tuple):
+        """Resampler stage ``i`` over the planes ``x`` from its history:
+        (planes or, where it packs, the wire; the new history)."""
+        y, nr, ni = self.resampler.stages[i].apply_planar(*x, *hist,
+                                                          pack_fmt=self.stage_pack(i))
+        return y, (nr, ni)
+
+    def apply_filter(self, which: str, x: tuple, hist: tuple):
+        """The "pre" or "post" filter over the planes ``x`` from its tail:
+        (planes or, where the route packs there, the wire; the new tail)."""
+        if which == "post" and self.route.out == "post_filter":
+            y, nr, ni = self.post_filter.apply_planar_packed(*x, *hist, out_fmt=self.pack_fmt)
+            return y, (nr, ni)
+        f = self.pre_filter if which == "pre" else self.post_filter
+        yr, yi, nr, ni = f.apply_planar(*x, *hist)
+        return (yr, yi), (nr, ni)
+
+    def post(self, xr, xi, phase=None, gains=None, seg: int = 0, digital=None,
+             rows: int = 1):
+        """Post-NCO + AGC + convert: K4 (``kernels.post_apply``, the NCO,
+        the gains and the pack in one pass, over the block's ``rows`` rows,
+        each with its own gains and first NCO phase) or, as the route says,
+        tensor ops and the plain convert.  ``phase``: the first post-NCO
+        phase (None: no NCO left to apply); ``gains``/``seg``: the RMS
+        AGC's segment gains (C * rows, n_seg) or ``digital`` the digital
+        profile's (C,) gain.  Block energies and peaks are
+        rotation-invariant, so K4's gains read the planes before the NCO
+        (the digital profile's hard thresholds then see the same peak on
+        every path)."""
+        dth = self.dtheta_post
+        if self.route.out == "K4":
+            c, n = xr.shape
+            xr, xi = xr.contiguous(), xi.contiguous()
+            if digital is not None:
+                gains = digital[:, None].repeat_interleave(rows, 0).contiguous()
+            elif gains is None:
+                gains = torch.ones((c * rows, 1), dtype=torch.float32, device=xr.device)
+            phases = nco.row_phases(phase, rows, n // rows, dth) if phase is not None else None
+            out = kernels.post_apply(xr.view(c * rows, -1), xi.view(c * rows, -1), gains,
+                                     seg, phases, dth, out_fmt=self.pack_fmt)
+            return convert.packed_to_wire(out.view(c, n), self.fmt_out)
+        if phase is not None:
+            xr, xi = nco.mix(xr, xi, phase, dth)
+        if digital is not None:
+            xr, xi = xr * digital[:, None], xi * digital[:, None]
+        elif gains is not None:
+            xr, xi = agc.apply_gains(xr, xi, gains, seg, rows)
         return convert.from_planar(xr, xi, self.fmt_out)
-
-    def _wire_resample_step(self, raw, carry: dict, new: dict):
-        """Packed wire -> [DC] -> [NCO] -> resampler -> wire: stage 0
-        decodes the wire in its prologue (K1 with the DC block, else K2),
-        the last stage packs the output."""
-        stages = self.resampler.stages
-        with stage_span("chain.resample.0"):
-            y, tr, ti = self._wire_stage0(raw, carry, new)
-        new_rs = [(tr, ti)]
-        last = len(stages) - 1
-        for i, stage in enumerate(stages[1:], start=1):
-            s_r, s_i = carry["rs"][i]
-            with stage_span(f"chain.resample.{i}"):
-                y, nr, ni = stage.apply_planar(
-                    *y, s_r, s_i, pack_fmt=self.pack_fmt if i == last else None)
-            new_rs.append((nr, ni))
-        new["rs"] = tuple(new_rs)
-        if self.pack_fmt:
-            return convert.packed_to_wire(y, self.fmt_out)
-        with stage_span("chain.post"):
-            return convert.from_planar(*y, self.fmt_out)
-
-    def _wire_stage0(self, raw, carry: dict, new: dict):
-        """The resampler's stage 0 over the packed wire (K1 with the DC
-        block, else K2 and the carried history's planes): (its output,
-        the new history's planes)."""
-        cfg = self.cfg
-        wire, kind = convert.wire_pack(raw, self.fmt_in)
-        stages = self.resampler.stages
-        st0 = stages[0]
-        sr, si = carry["rs"][0]
-        pack0 = self.pack_fmt if len(stages) == 1 else None
-        dth = self.dtheta_pre
-        pacc = carry["nco_pre"] if dth else None
-        n_frames = wire.shape[-1]
-        norm = self.fmt_in.normalizer
-        if cfg.dc_block:
-            y, tr, ti, new["dc"] = kernels.banded_apply_dc(
-                sr, si, carry["dc"], self.dc_alpha, st0.band, None,
-                st0.stride, st0.hist, wire_i32=wire, wire_norm=norm,
-                wire_gain=cfg.gain, nco_dtheta=dth, nco_phase=pacc,
-                pack_fmt=pack0, wire_kind=kind)
-        else:
-            y = kernels.banded_apply(
-                sr, si, None, None, st0.band, None, st0.stride, st0.hist,
-                pack_fmt=pack0, wire_i32=wire, wire_norm=norm,
-                wire_gain=cfg.gain, nco_dtheta=dth, nco_phase=pacc,
-                wire_kind=kind)
-            items = self.fmt_in.items_per_frame
-            tr, ti = convert.to_planar(raw[:, -st0.hist * items:], self.fmt_in,
-                                       cfg.gain)
-            if dth:
-                # the carried history is the post-shift signal: rotate the
-                # stored tail at its indices in this block
-                tr, ti = nco.mix(tr, ti, carry["nco_pre"], dth,
-                                 start=n_frames - st0.hist)
-            tr, ti = tr.contiguous(), ti.contiguous()
-        if dth:
-            new["nco_pre"] = nco.advance(carry["nco_pre"], n_frames, dth)
-        return y, tr, ti
 
     # --------------------------- accounting -----------------------------------
 

@@ -191,21 +191,27 @@ def test_sharded_without_dc_is_exact(rng):
     _vs_jax(jcfg, pcfg, jax_mesh(jax.devices(), 1, 8), got, raws, 8, dc=False)
 
 
-def test_sharded_fused_pre_stage(rng, monkeypatch):
-    """:169: DC + I/Q + pre-NCO in the pre-stage kernel, each shard run
-    twice (zero start, then the composed start), shard 0's DC-blocked
-    prefix broadcast to the I/Q estimator."""
+@pytest.mark.parametrize("dc_block", [True, False], ids=["dc", "no-dc"])
+def test_sharded_fused_pre_stage(rng, monkeypatch, dc_block):
+    """:169: I/Q + pre-NCO in the pre-stage kernel.  With the DC block,
+    K3 runs each shard twice (zero start, then the composed start), shard
+    0's DC-blocked prefix broadcast to the I/Q estimator; without it, K3pre
+    runs once a shard (the chain's route), byte-identical to the chain."""
     _, pcfg = _cfgs(block=2048, iq_correction=True, freq_shift_post_hz=0.0,
-                    agc_profile=None)
+                    agc_profile=None, dc_block=dc_block)
     calls = []
-    orig = kernels.dc_block_apply
-    monkeypatch.setattr(kernels, "dc_block_apply",
-                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    name = "dc_block_apply" if dc_block else "pre_apply"
+    orig = getattr(kernels, name)
+    monkeypatch.setattr(kernels, name, lambda *a, **k: calls.append(1) or orig(*a, **k))
     sc = ShardedChain(pcfg, make_mesh(["cpu"] * 4, 1, 4))
     raws = _raws(2, sc, rng)
     _, got = _run(sc, raws)
-    assert len(calls) == 2 * 4 * 2        # two passes a shard a step
-    _assert_parity(got, _per_shard(pcfg, raws, 4), "1x4")
+    if dc_block:
+        assert len(calls) == 2 * 4 * 2        # two passes a shard a step
+        _assert_parity(got, _per_shard(pcfg, raws, 4), "1x4")
+    else:
+        assert len(calls) == 4 * 2            # one pass a shard a step
+        np.testing.assert_array_equal(got, _per_shard(pcfg, raws, 4))
 
 
 def test_sharded_dc_matches_exact_recurrence(rng):
