@@ -14,7 +14,7 @@ first failure:
    loader, with a bit-for-bit repeat, and at nrsc5's stage 0; its carry
    pass alone; the two-launch route it replaced, the DC prologue then K2
    over its planes, timed in turns with it; K2 decoding the wire and NCO
-   in its loader against K2 over planes at stage 0; the DC prologue
+   in its staging against K2 over planes at stage 0; the DC prologue
    alone with a bit-for-bit repeat, K2 stage 1 packed, with a
    bit-for-bit repeat, on the wgmma core its rule gives and on the
    mma.sync core, timed in turns) and at the strides 224, 400 and 144
@@ -193,16 +193,17 @@ def tf32x3_padded(band, channels: int, nb: int, core: str) -> float:
 
 
 def plan_line(kernels, band, stride: int, hist: int, n: int, channels: int,
-              dc_kind=None, core=None) -> str:
+              dc_kind=None, core=None, wire_kind=None) -> str:
     """The banded kernel's design and launch geometry at these shapes (the
-    core kernels.banded_core picks, or ``core``)."""
-    p = kernels.banded_plan(band, stride, hist, n, channels, dc_kind, core)
+    core kernels.banded_core picks, or ``core``), over planes or the
+    packed wire of ``wire_kind``."""
+    p = kernels.banded_plan(band, stride, hist, n, channels, dc_kind, core, wire_kind)
     if p["core"] == "mma":
         return (f"design: mma.sync m16n8k8 3xTF32 (csrc/banded_mma.cu), 16 windows "
                 f"x tiles of 16 columns, taps split in the loop; span {band.frag_span}, "
                 f"{band.frag_tiles} tiles; grid {p['grid']} x {p['threads']} threads, "
                 f"{p['ctas_per_sm']} CTA(s) an SM, {p['smem']} B shared, {p['groups']} "
-                f"groups a channel")
+                f"groups a channel, staging {p['staging']}")
     return (f"design: wgmma m64n{kernels.TILE_COLS}k8 3xTF32 (csrc/banded.cu), A = 32 "
             f"windows x 2 planes from registers, B = host-split taps in shared memory; "
             f"tiles of {kernels.TILE_COLS} columns, span {band.span}, {band.n_tiles} tiles; "
@@ -551,8 +552,10 @@ def main() -> int:
                                      nco_dtheta=big.dtheta_pre, nco_phase=phase0),
         lambda: kernels.banded_apply(s0r, s0i, yr0, yi0, st0.band, None, st0.stride,
                                      st0.hist))
-    say(f"[k1] K2 at stage 0 decoding the wire and NCO in its loader {wire_ms:.3f} ms, "
-        f"over the prologue's planes {planes_ms:.3f} ms")
+    say(f"[k1] K2 at stage 0 decoding the wire and NCO in its staging {wire_ms:.3f} ms, "
+        f"over the prologue's planes {planes_ms:.3f} ms; wire: "
+        f"{plan_line(kernels, st0.band, st0.stride, st0.hist, BLOCK, CH, wire_kind='cs16')}; "
+        f"planes: {plan_line(kernels, st0.band, st0.stride, st0.hist, BLOCK, CH)}")
     del yr0, yi0
 
     # the DC prologue alone (the DC kernel's grid of (tiles, C) CTAs; the

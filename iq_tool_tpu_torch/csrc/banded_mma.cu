@@ -38,11 +38,22 @@
 //   8-byte load.
 // * Staging.  A CTA walks a contiguous run of (channel, 16-window group)
 //   items; each group's input span (16 s + hist + span samples) is staged
-//   in shared memory, double buffered: the next group's span is copied
-//   with cp.async while the current one is multiplied.  Packed-wire input
-//   is decoded and NCO-mixed once per staged sample.  Both buffers are
-//   zeroed once, so a span's read-ahead past the group's samples
-//   (multiplied by B's zeros) reads finite values.
+//   in shared memory as two float planes.  Planar input: two buffers of
+//   planes, the next group's span copied with cp.async while the current
+//   one is multiplied.  Packed-wire input: one buffer of planes and a
+//   separate raw buffer (stage_raw): while a group is multiplied, cp.async
+//   copies the next group's raw wire into it (16-byte copies from the
+//   group's first 16-byte aligned byte, landed at the same alignment; the
+//   few elements of the unaligned head and tail are loaded into registers
+//   and stored after the products), its carried history (4-byte copies)
+//   and the channel's NCO phase; after the products one pass (decode())
+//   decodes and NCO-mixes each staged sample from shared memory into the
+//   planes, with wire.cuh's helpers, so the planes hold the floats a
+//   per-sample load would give, bit for bit.  The raw buffer takes less
+//   than the second buffer of planes it replaces, so a wire launch never
+//   takes less occupancy than a planar one.  The planes are zeroed once,
+//   so a span's read-ahead past the group's samples (multiplied by B's
+//   zeros) reads finite values.
 // * Bank conflicts.  The span is staged as rows of s samples at a pitch of
 //   s + skew words, the skew (0-15) making the pitch 8 mod 16: the 4 rows
 //   of a half-warp's 8-byte loads start 8, 24, 40, 56 words apart mod 32
@@ -90,25 +101,6 @@ struct BandedArgs {
   PackParams q;
 };
 
-// Sample e of one channel's extended input state ++ x with x the packed
-// wire, decoded and NCO-mixed.
-__device__ __forceinline__ void load_ext(const BandedArgs& a, int c, long long e, float* vr,
-                                         float* vi) {
-  if (e < a.hist) {
-    *vr = a.st_r[static_cast<long long>(c) * a.hist + e];
-    *vi = a.st_i[static_cast<long long>(c) * a.hist + e];
-    return;
-  }
-  const long long idx = e - a.hist;
-  const long long row = static_cast<long long>(c) * a.n;
-  const int elem = a.kind == kCs16 || a.kind == kCu16 ? 4 : 2;
-  const char* base = static_cast<const char*>(a.wire) + row * elem;
-  wire_decode(base, a.kind, idx, a.norm, a.gain, vr, vi);
-  if (a.dtheta) {
-    nco_rotate(static_cast<unsigned>(a.phase[c]), a.dtheta, idx, vr, vi);
-  }
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
@@ -118,13 +110,27 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
 // Wait until at most the latest committed group is in flight.
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Stage windows [b0, b0 + nw) of channel c: ext[b0*s + e] for e < nw*s +
-// hist at row e / s, column e % s of the padded planes.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage windows [b0, b0 + nw) of channel c from planar input: ext[b0*s +
+// e] for e < nw*s + hist at row e / s, column e % s of the padded planes.
 __device__ void stage(const BandedArgs& a, int c, int b0, int nw, float* seg_r, float* seg_i) {
   const int len = nw * a.s + a.hist;
   const int rows = (len + a.s - 1) / a.s;
@@ -136,18 +142,137 @@ __device__ void stage(const BandedArgs& a, int c, int b0, int nw, float* seg_r, 
     for (int u = lane; u < u_end; u += 32) {
       const long long e = e0 + static_cast<long long>(q) * a.s + u;
       const int o = q * a.pitch + u;
-      if (a.kind == kPlanar) {
-        const bool st = e < a.hist;
-        const long long idx = st ? static_cast<long long>(c) * a.hist + e
-                                 : static_cast<long long>(c) * a.n + (e - a.hist);
-        cp_async4(seg_r + o, (st ? a.st_r : a.xr) + idx);
-        cp_async4(seg_i + o, (st ? a.st_i : a.xi) + idx);
-      } else {
-        float vr, vi;
-        load_ext(a, c, e, &vr, &vi);
-        seg_r[o] = vr;
-        seg_i[o] = vi;
-      }
+      const bool st = e < a.hist;
+      const long long idx = st ? static_cast<long long>(c) * a.hist + e
+                               : static_cast<long long>(c) * a.n + (e - a.hist);
+      cp_async4(seg_r + o, (st ? a.st_r : a.xr) + idx);
+      cp_async4(seg_i + o, (st ? a.st_i : a.xi) + idx);
+    }
+  }
+}
+
+// Bytes of a packed element: an int32 for 16-bit kinds, an int16 for 8-bit.
+__host__ __device__ inline int wire_elem(int kind) {
+  return kind == kCs16 || kind == kCu16 ? 4 : 2;
+}
+
+// The raw buffer of a wire launch holds one group: the channel's NCO
+// phase (bytes 0-7), the carried history's e_w samples of each plane from
+// byte 16, then the wire's cnt elements from the next 16-byte boundary
+// plus the source's offset within 16 bytes, so that both sides of each
+// 16-byte copy are aligned.  The largest group (e_w = hist, or 16 s + hist
+// wire elements) fits in raw_bytes(), which is less than the 8 buf_len
+// bytes of the second buffer of planes a wire launch goes without.
+__host__ __device__ inline int raw_bytes(int s, int hist, int kind) {
+  return (16 + 8 * hist + 15 + 15 + wire_elem(kind) * kWin * s + 15) / 16 * 16;
+}
+
+// A group's place in the raw buffer and in its channel's wire.
+struct RawGroup {
+  int len;        // staged samples: nw s + hist
+  int e_w;        // of which carried history (e < e_w)
+  long long i0;   // wire index of the first wire sample (staged at e_w)
+  int cnt;        // wire samples: len - e_w
+  const char* src;  // its packed element in global memory
+  int mis;        // src's byte offset within 16 bytes
+  int wire_at;    // its byte in the raw buffer, at the same offset
+};
+
+__device__ __forceinline__ RawGroup raw_group(const BandedArgs& a, int c, int b0, int nw) {
+  RawGroup g;
+  g.len = nw * a.s + a.hist;
+  const long long e0 = static_cast<long long>(b0) * a.s;
+  g.e_w = static_cast<int>(max(0LL, min(static_cast<long long>(g.len), a.hist - e0)));
+  g.i0 = e0 + g.e_w - a.hist;
+  g.cnt = g.len - g.e_w;
+  const int elem = wire_elem(a.kind);
+  g.src = static_cast<const char*>(a.wire) + (static_cast<long long>(c) * a.n + g.i0) * elem;
+  g.mis = static_cast<int>(reinterpret_cast<size_t>(g.src) & 15);
+  g.wire_at = 16 + (8 * g.e_w + 15) / 16 * 16 + g.mis;
+  return g;
+}
+
+// A head or tail element of a group's wire, loaded into a register while
+// the group before is multiplied and stored into the raw buffer after.
+struct Pending {
+  int at = -1;  // byte in the raw buffer, or -1
+  int v = 0;
+
+  __device__ __forceinline__ void store(char* raw, int elem) {
+    if (at < 0) return;
+    if (elem == 4) {
+      *reinterpret_cast<int*>(raw + at) = v;
+    } else {
+      *reinterpret_cast<short*>(raw + at) = static_cast<short>(v);
+    }
+    at = -1;
+  }
+};
+
+// Start the copies of group (c, b0, nw)'s raw input into `raw`: the
+// wire's 16-byte aligned body by cp.async, the carried history and the
+// NCO phase by cp.async, the head and tail elements into `pend`.
+__device__ void stage_raw(const BandedArgs& a, int c, int b0, int nw, char* raw, Pending& pend) {
+  const RawGroup g = raw_group(a, c, b0, nw);
+  const int elem = wire_elem(a.kind);
+  if (threadIdx.x == 0 && a.dtheta) cp_async8(raw, a.phase + c);
+  float* hist = reinterpret_cast<float*>(raw + 16);
+  const long long st0 = static_cast<long long>(c) * a.hist + static_cast<long long>(b0) * a.s;
+  for (int e = threadIdx.x; e < g.e_w; e += blockDim.x) {
+    cp_async4(hist + e, a.st_r + st0 + e);
+    cp_async4(hist + g.e_w + e, a.st_i + st0 + e);
+  }
+  char* dst = raw + g.wire_at;
+  const int head = min(g.cnt, ((16 - g.mis) & 15) / elem);
+  const int chunks = (g.cnt - head) * elem / 16;
+  const int tail = head + chunks * (16 / elem);
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+    cp_async16(dst + head * elem + 16 * k, g.src + head * elem + 16 * k);
+  }
+  // head elements [0, head) and tail elements [tail, cnt): one a thread
+  const int tid = threadIdx.x;
+  const int j = tid < head ? tid : tail + tid - head;
+  if (j < g.cnt) {
+    pend.at = g.wire_at + j * elem;
+    pend.v = elem == 4 ? reinterpret_cast<const int*>(g.src)[j]
+                       : static_cast<int>(reinterpret_cast<const short*>(g.src)[j]);
+  }
+}
+
+// Stage group (c, b0, nw) from the raw buffer into the planes: sample e
+// at row e / s, column e % s, the history as copied, the wire decoded and
+// NCO-mixed at its index (wire.cuh).
+__device__ void decode(const BandedArgs& a, int c, int b0, int nw, const char* raw,
+                       float* seg_r, float* seg_i) {
+  const RawGroup g = raw_group(a, c, b0, nw);
+  const float* hist = reinterpret_cast<const float*>(raw + 16);
+  const char* w = raw + g.wire_at;
+  const bool wide = wire_elem(a.kind) == 4;
+  const unsigned phase0 =
+      a.dtheta ? static_cast<unsigned>(*reinterpret_cast<const long long*>(raw)) : 0u;
+  const int step = blockDim.x;
+  const int dq = step / a.s, du = step - dq * a.s;
+  int q = threadIdx.x / a.s, u = threadIdx.x - q * a.s;
+  for (int e = threadIdx.x; e < g.len; e += step) {
+    float vr, vi;
+    if (e < g.e_w) {
+      vr = hist[e];
+      vi = hist[g.e_w + e];
+    } else {
+      const int j = e - g.e_w;
+      const int v = wide ? reinterpret_cast<const int*>(w)[j]
+                         : static_cast<int>(reinterpret_cast<const short*>(w)[j]);
+      wire_decode_value(v, a.kind, a.norm, a.gain, &vr, &vi);
+      if (a.dtheta) nco_rotate(phase0, a.dtheta, g.i0 + j, &vr, &vi);
+    }
+    const int o = q * a.pitch + u;
+    seg_r[o] = vr;
+    seg_i[o] = vi;
+    u += du;
+    q += dq;
+    if (u >= a.s) {
+      u -= a.s;
+      ++q;
     }
   }
 }
@@ -233,9 +358,9 @@ __device__ __forceinline__ void load_a(const float* seg, int o, int o_next, int 
   split(v3, h[3], l[3]);
 }
 
-template <bool kComplex, bool kPair, int kThreads, int kMinCtas>
+template <bool kComplex, bool kPair, bool kWire, int kThreads, int kMinCtas>
 __global__ void __launch_bounds__(kThreads, kMinCtas) banded_mma_kernel(const BandedArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const long long i_begin = a.items * blockIdx.x / gridDim.x;
@@ -243,13 +368,21 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) banded_mma_kernel(const Ba
   const int n_chunks = a.span >> 3;
   const int p8 = 8 * a.pitch;
   const int gp = gid * a.pitch;
+  // packed wire: one buffer of planes, then the raw buffer
+  char* raw = reinterpret_cast<char*>(smem + 2 * a.buf_len);
+  const int elem = kWire ? wire_elem(a.kind) : 0;
+  Pending pend;
 
-  for (int i = threadIdx.x; i < 4 * a.buf_len; i += blockDim.x) smem[i] = 0.0f;
+  for (int i = threadIdx.x; i < (kWire ? 2 : 4) * a.buf_len; i += blockDim.x) smem[i] = 0.0f;
   __syncthreads();
   if (i_begin < i_end) {
     const int c = static_cast<int>(i_begin / a.groups);
     const int b0 = static_cast<int>(i_begin % a.groups) * kWin;
-    stage(a, c, b0, min(kWin, a.nb - b0), smem, smem + a.buf_len);
+    if constexpr (kWire) {
+      stage_raw(a, c, b0, min(kWin, a.nb - b0), raw, pend);
+    } else {
+      stage(a, c, b0, min(kWin, a.nb - b0), smem, smem + a.buf_len);
+    }
   }
   cp_async_commit();
 
@@ -258,16 +391,29 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) banded_mma_kernel(const Ba
     const int c = static_cast<int>(item / a.groups);
     const int b0 = static_cast<int>(item % a.groups) * kWin;
     const int b_end = min(b0 + kWin, a.nb);
-    if (item + 1 < i_end) {
-      const int cn = static_cast<int>((item + 1) / a.groups);
-      const int bn = static_cast<int>((item + 1) % a.groups) * kWin;
-      float* nxt = smem + (buf ^ 1) * 2 * a.buf_len;
-      stage(a, cn, bn, min(kWin, a.nb - bn), nxt, nxt + a.buf_len);
+    const bool more = item + 1 < i_end;
+    const int cn = static_cast<int>((item + 1) / a.groups);
+    const int bn = static_cast<int>((item + 1) % a.groups) * kWin;
+    if constexpr (kWire) {
+      // this group's raw input has landed (the products before hid the
+      // copies); decode it into the planes, then start the next group's
+      pend.store(raw, elem);
+      cp_async_wait_all();
+      __syncthreads();
+      decode(a, c, b0, b_end - b0, raw, smem, smem + a.buf_len);
+      __syncthreads();
+      if (more) stage_raw(a, cn, bn, min(kWin, a.nb - bn), raw, pend);
+      cp_async_commit();
+    } else {
+      if (more) {
+        float* nxt = smem + (buf ^ 1) * 2 * a.buf_len;
+        stage(a, cn, bn, min(kWin, a.nb - bn), nxt, nxt + a.buf_len);
+      }
+      cp_async_commit();
+      cp_async_wait_prior();
+      __syncthreads();
     }
-    cp_async_commit();
-    cp_async_wait_prior();
-    __syncthreads();
-    const float* seg_r = smem + buf * 2 * a.buf_len;
+    const float* seg_r = smem + (kWire ? 0 : buf * 2 * a.buf_len);
     const float* seg_i = seg_r + a.buf_len;
 
     for (int t = warp; t < a.n_tiles; t += nwarps) {
@@ -362,25 +508,28 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) banded_mma_kernel(const Ba
         }
       }
     }
-    __syncthreads();  // this buffer is restaged next
+    if (!kWire) __syncthreads();  // this buffer is restaged next
   }
 }
 
 // A launch's geometry: what chip_smoke.py prints beside the kernel.
 struct Plan {
-  int grid, threads, smem, ctas_per_sm, groups;
+  int grid, threads, smem, ctas_per_sm, groups, wire;
 };
 
-template <bool kComplex, bool kPair>
+template <bool kComplex, bool kPair, bool kWire>
 cudaError_t launch_t(const BandedArgs& a, int sms, int smem_max, Plan* plan,
                      cudaStream_t stream) {
-  const size_t smem = 4 * sizeof(float) * static_cast<size_t>(a.buf_len);
+  // two buffers of planes, or one and the raw buffer
+  const size_t smem =
+      kWire ? 2 * sizeof(float) * static_cast<size_t>(a.buf_len) + raw_bytes(a.s, a.hist, a.kind)
+            : 4 * sizeof(float) * static_cast<size_t>(a.buf_len);
   if (smem > static_cast<size_t>(smem_max)) return cudaErrorInvalidConfiguration;
   // Three CTAs of 256 threads where their shared memory fits an SM (the
   // registers capped to fit them too: a few spill, and it still gains),
   // else two of 256 under the looser cap, else one of 512.
-  auto small = banded_mma_kernel<kComplex, kPair, 256, 3>;
-  auto large = banded_mma_kernel<kComplex, kPair, 512, 1>;
+  auto small = banded_mma_kernel<kComplex, kPair, kWire, 256, 3>;
+  auto large = banded_mma_kernel<kComplex, kPair, kWire, 512, 1>;
   int per_sm = 0, threads = 256;
   cudaError_t err = cudaFuncSetAttribute(small, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -404,11 +553,23 @@ cudaError_t launch_t(const BandedArgs& a, int sms, int smem_max, Plan* plan,
   const long long slots = static_cast<long long>(per_sm < 1 ? 1 : per_sm) * sms;
   const int grid = static_cast<int>(a.items < slots ? a.items : slots);
   if (plan) {
-    *plan = Plan{grid, threads, static_cast<int>(smem), per_sm, a.groups};
+    *plan = Plan{grid, threads, static_cast<int>(smem), per_sm, a.groups, kWire};
     return cudaSuccess;
   }
   kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kWire>
+cudaError_t launch_input(const BandedArgs& a, int sms, int smem_max, Plan* plan,
+                         cudaStream_t stream) {
+  const bool pair = a.s % 2 == 0;
+  if (a.taps_i != nullptr) {
+    return pair ? launch_t<true, true, kWire>(a, sms, smem_max, plan, stream)
+                : launch_t<true, false, kWire>(a, sms, smem_max, plan, stream);
+  }
+  return pair ? launch_t<false, true, kWire>(a, sms, smem_max, plan, stream)
+              : launch_t<false, false, kWire>(a, sms, smem_max, plan, stream);
 }
 
 // Launch on `stream`, or with `plan` fill in the launch's geometry and
@@ -429,13 +590,8 @@ int launch_banded(BandedArgs a, int channels, Plan* plan, cudaStream_t stream) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const bool pair = a.s % 2 == 0;
-  if (a.taps_i != nullptr) {
-    return pair ? launch_t<true, true>(a, sms, smem_max, plan, stream)
-                : launch_t<true, false>(a, sms, smem_max, plan, stream);
-  }
-  return pair ? launch_t<false, true>(a, sms, smem_max, plan, stream)
-              : launch_t<false, false>(a, sms, smem_max, plan, stream);
+  return a.kind != kPlanar ? launch_input<true>(a, sms, smem_max, plan, stream)
+                           : launch_input<false>(a, sms, smem_max, plan, stream);
 }
 
 }  // namespace mma
@@ -477,12 +633,14 @@ extern "C" int iq_banded_mma_apply(
   return iqk::mma::launch_banded(a, channels, nullptr, static_cast<cudaStream_t>(stream));
 }
 
-// The geometry a launch at these shapes takes: out = [grid, threads,
-// shared bytes, CTAs an SM, groups a channel].  Launches nothing.
-extern "C" int iq_banded_mma_plan(int complex, int n_tiles, int span, int channels, int n,
-                                  int s, int hist, int g, int* out) {
+// The geometry a launch at these shapes over input of `kind` (a wire
+// kind, or -1 for planes) takes: out = [grid, threads, shared bytes, CTAs
+// an SM, groups a channel, 1 if it stages a packed wire].  Launches
+// nothing.
+extern "C" int iq_banded_mma_plan(int complex, int kind, int n_tiles, int span, int channels,
+                                  int n, int s, int hist, int g, int* out) {
   iqk::mma::BandedArgs a{};
-  a.kind = iqk::kPlanar;
+  a.kind = kind;
   // only whether taps_i is set is read (the complex instantiation)
   a.taps_i = complex ? reinterpret_cast<const float4*>(16) : nullptr;
   a.n_tiles = n_tiles;
@@ -498,5 +656,6 @@ extern "C" int iq_banded_mma_plan(int complex, int n_tiles, int span, int channe
   out[2] = p.smem;
   out[3] = p.ctas_per_sm;
   out[4] = p.groups;
+  out[5] = p.wire;
   return rc;
 }

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "iq_banded_mma_apply": [_P, _P, _P, _I, _F, _F, _P, _U, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _F, _F,
                             _F, _P],
-    "iq_banded_mma_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "iq_banded_mma_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "iq_dc_scratch_bytes": [_I, _I],
     "iq_dc_geometry": [_P],
     "iq_dc_prologue": [_P, _I, _F, _F, _P, ctypes.c_double, _P, _U, _I, _I, _I,

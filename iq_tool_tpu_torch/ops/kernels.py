@@ -364,30 +364,37 @@ def _launch_banded(lib, band: Band, state_r, state_i, xr, xi, wire, kind: int,
 
 
 def banded_plan(band: Band, stride: int, hist: int, n: int, channels: int,
-                dc_kind: str | None = None, core: str | None = None) -> dict:
-    """The launch geometry of K2 (with ``dc_kind``, of K1's banded launch
-    over that wire) at these shapes on the current card, from the
-    launchers' own rules: the core (``banded_core``, or ``core``), grid,
-    threads and shared bytes a CTA, CTAs an SM, window groups a channel,
-    and on the wgmma core steps a ring slot, slots a ring and staged
-    groups (2: the next one's copy in flight).  Launches nothing."""
+                dc_kind: str | None = None, core: str | None = None,
+                wire_kind: str | None = None) -> dict:
+    """The launch geometry of K2 over planes, or over the packed wire of
+    ``wire_kind`` (with ``dc_kind``, of K1's banded launch over that
+    wire) at these shapes on the current card, from the launchers' own
+    rules: the core (``banded_core``, or ``core``), grid, threads and
+    shared bytes a CTA, CTAs an SM, window groups a channel, the input's
+    staging ("wire": decoded from the packed wire, on the mma.sync core
+    from its raw buffer; "planar"), and on the wgmma core steps a ring
+    slot, slots a ring and staged groups (2: the next one's copy in
+    flight).  Launches nothing."""
     from iq_tool_tpu_torch.ops import _build
     lib = _build.library()
     core = core or banded_core(band, dc_kind is not None)
     cplx = int(band.taps_i is not None)
     if core == "mma":
-        out = (ctypes.c_int * 5)()
-        rc = lib.iq_banded_mma_plan(cplx, band.frag_tiles, band.frag_span, channels, n,
-                                    stride, hist, band.g, out)
+        out = (ctypes.c_int * 6)()
+        rc = lib.iq_banded_mma_plan(cplx, _WIRE_KINDS[wire_kind] if wire_kind else _PLANAR,
+                                    band.frag_tiles, band.frag_span, channels, n, stride,
+                                    hist, band.g, out)
         keys = ("grid", "threads", "smem", "ctas_per_sm", "groups")
+        wire = bool(out[5])
     else:
         out = (ctypes.c_int * 8)()
         rc = lib.iq_banded_plan(cplx, int(dc_kind is not None),
                                 _WIRE_KINDS[dc_kind] if dc_kind else _PLANAR, band.n_tiles,
                                 band.span, channels, n, stride, hist, band.g, out)
         keys = ("grid", "threads", "smem", "cs", "ring", "ctas_per_sm", "groups", "nbuf")
+        wire = bool(dc_kind or wire_kind)
     _check(rc, "banded plan")
-    return {"core": core, **dict(zip(keys, out))}
+    return {"core": core, **dict(zip(keys, out)), "staging": "wire" if wire else "planar"}
 
 
 def banded_apply(state_r, state_i, xr, xi, a_r, a_i, stride: int, hist: int,

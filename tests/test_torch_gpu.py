@@ -278,6 +278,102 @@ def test_k2_core_rule_on_card(rng, which):
     assert _packed_codes_close(kernels.banded_apply_ref(*args, pack_fmt="cs16"), got, "cs16")
 
 
+def _offset_wire(wire, off):
+    """The same (C, n) packed wire, contiguous, ``off`` elements past its
+    allocation's start: rows begin off 16-byte alignment."""
+    flat = torch.empty(wire.numel() + off, dtype=wire.dtype, device=wire.device)
+    view = flat[off:].view(wire.shape)
+    view.copy_(wire)
+    return view
+
+
+@pytest.mark.parametrize("stride", ["even", "odd"])
+@pytest.mark.parametrize("dtheta", [0, DTHETA], ids=["no-nco", "nco"])
+@pytest.mark.parametrize("fmt", ["cs16", "cu16", "cu8", "cs8"])
+def test_k2_mma_wire_staging(rng, fmt, dtheta, stride):
+    """The mma.sync core over a packed wire stages it from its raw buffer
+    (cp.async of the next group's raw wire, decoded from shared memory):
+    an even stride (stage 0's 512, paired loads) and an odd one (a 75-tap
+    FIR at 231), hist 31 and 74, so no group's first sample is 16-byte
+    aligned, rows of n = 37 s + 3 frames starting off alignment, the
+    third group 5 windows long.  Without the NCO the output equals, bit
+    for bit, the same launch over the planes convert.decode_packed gives
+    on the card; with it the twin's bounds hold; two launches agree bit
+    for bit."""
+    _need_card()
+    if stride == "even":
+        st = _stage("flagship", 131072, 0)
+        band, s, hist = st.band, st.stride, st.hist
+    else:
+        from iq_tool_tpu_torch.ops.filters import StreamingFilter
+        taps = rng.standard_normal(75).astype(np.complex64) / 75
+        s, hist = 231, 74
+        band = StreamingFilter(taps, "fir")._band(s, "cuda")
+    assert kernels.banded_core(band) == "mma" and hist % 4 != 0
+    ch, n = 3, 37 * s + 3
+    wire, kind = _random_wire(rng, fmt, ch, n)
+    wire = _offset_wire(wire, 1)
+    sr, si = _planes(rng, ch, hist)
+    ph = _cuda(rng.integers(0, 2 ** 32, ch).astype(np.int64))
+    norm, gain = get_format(fmt).normalizer, 0.7
+    kw = dict(wire_i32=wire, wire_norm=norm, wire_gain=gain, nco_dtheta=dtheta,
+              nco_phase=ph if dtheta else None, wire_kind=kind)
+    args = (sr, si, None, None, band, None, s, hist)
+    before = _counts()
+    got = kernels.banded_apply(*args, **kw, core="mma")
+    again = kernels.banded_apply(*args, **kw, core="mma")
+    torch.cuda.synchronize()
+    assert _counted(before, "mma", 2)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if dtheta:
+        want = kernels.banded_apply_ref(*args, **kw)
+        for w, g in zip(want, got):
+            assert _snr(w, g) >= 100.0
+        packed = kernels.banded_apply(*args, **kw, pack_fmt=fmt, core="mma")
+        assert _packed_codes_close(kernels.banded_apply_ref(*args, **kw, pack_fmt=fmt),
+                                   packed, fmt)
+    else:
+        xr, xi = convert.decode_packed(wire, kind, norm, gain)
+        planar = kernels.banded_apply(sr, si, xr, xi, band, None, s, hist, core="mma")
+        assert all(torch.equal(x, y) for x, y in zip(got, planar))
+
+
+# K2's launches on the mma.sync core over planes at the three resident
+# cells' stage geometries (64 channels): (grid, threads, shared bytes, CTAs
+# an SM, groups a channel) as the launcher chose them before the wire got
+# its own staging (H100 80GB HBM3, 132 SMs)
+PLANAR_PLANS = {
+    ("1", 0, 262144): (132, 512, 141440, 1, 32),
+    ("1", 1, 225792): (396, 256, 71808, 3, 56),
+    ("full4", 0, 262144): (132, 512, 141440, 1, 32),
+    ("full4", 1, 225792): (396, 256, 71808, 3, 56),
+    ("baseline3", 0, 262400): (264, 256, 110976, 2, 41),
+    ("baseline3", 1, 289296): (396, 256, 41344, 3, 126),
+}
+
+
+def test_k2_mma_plans_on_card():
+    """kernels.banded_plan names the staging: "wire" over a packed wire,
+    "planar" over planes; the planar launches at the resident cells'
+    stage geometries keep the geometry they had; a wire launch takes no
+    fewer CTAs an SM than the planar launch at its shape."""
+    _need_card()
+    from iq_tool_tpu_torch.profile_steps import config
+    keys = ("grid", "threads", "smem", "ctas_per_sm", "groups")
+    for (name, idx, n), want in PLANAR_PLANS.items():
+        st = Chain(config(name, 64), device="cpu").resampler.stages[idx]
+        st.bind("cuda")
+        geo = (st.band, st.stride, st.hist, n, 64)
+        planar = kernels.banded_plan(*geo, core="mma")
+        assert planar["staging"] == "planar"
+        assert tuple(planar[k] for k in keys) == want, (name, idx, planar)
+        for fmt in ("cs16", "cu16", "cu8", "cs8"):
+            wire = kernels.banded_plan(*geo, core="mma", wire_kind=fmt)
+            assert wire["staging"] == "wire"
+            assert wire["ctas_per_sm"] >= planar["ctas_per_sm"]
+            assert wire["smem"] < planar["smem"] and wire["groups"] == planar["groups"]
+
+
 @pytest.mark.parametrize("case", [
     ("flagship", "cs16", DTHETA, 3 * 4096 + 7 * 512),
     ("nrsc5", "cu8", 0, 3 * 4096 + 7 * 400),

@@ -520,6 +520,112 @@ def test_banded_core_index_map(rng, which, grid, cs, ring, wgs):
         assert np.abs(w - g).max() <= 1e-12 * np.abs(w).max()
 
 
+def _mma_wire_staged(mem, base, kind, st_r, st_i, n, s, hist, threads):
+    """csrc/banded_mma.cu's staging of a packed wire, by its own index
+    arithmetic (raw_group, stage_raw, decode): for each (channel, window
+    group), the raw buffer's bytes as its copies land them (the NCO
+    phase, the history planes, the wire's 16-byte body from both sides'
+    aligned bytes, head and tail elements one a thread), each byte written
+    once, then the decode pass's threads stepping (row, column) and
+    decoding each element from the raw bytes.  ``mem`` is the device's
+    memory as bytes, the wire's (C, n) elements from byte ``base``.
+    Yields (c, b0, nw, staged planes)."""
+    win = 16
+    elem = 4 if kind in ("cs16", "cu16") else 2
+    dt = np.int32 if elem == 4 else np.int16
+    pitch = s + ((8 - s % 16) + 16) % 16
+    raw_bytes = (16 + 8 * hist + 15 + 15 + elem * win * s + 15) // 16 * 16
+    nb = n // s
+    for c in range(st_r.shape[0]):
+        for b0 in range(0, nb, win):
+            nw = min(win, nb - b0)
+            length, e0 = nw * s + hist, b0 * s
+            e_w = max(0, min(length, hist - e0))
+            i0, cnt = e0 + e_w - hist, length - e_w
+            src = base + (c * n + i0) * elem
+            mis = src % 16
+            wire_at = 16 + (8 * e_w + 15) // 16 * 16 + mis
+            raw = np.zeros(raw_bytes, np.uint8)
+            hits = np.zeros(raw_bytes, np.int64)
+
+            def put(at, data):
+                assert 0 <= at and at + data.size <= raw_bytes
+                raw[at:at + data.size] = data
+                hits[at:at + data.size] += 1
+
+            put(0, np.arange(8, dtype=np.uint8))       # the NCO phase
+            hist_planes = np.concatenate([st_r[c, e0:e0 + e_w], st_i[c, e0:e0 + e_w]])
+            put(16, hist_planes.astype(np.float32).view(np.uint8))
+            head = min(cnt, ((16 - mis) % 16) // elem)
+            chunks = (cnt - head) * elem // 16
+            tail = head + chunks * (16 // elem)
+            body = head * elem
+            assert (wire_at + body) % 16 == 0 and (src + body) % 16 == 0
+            put(wire_at + body, mem[src + body:src + body + 16 * chunks])
+            for tid in range(threads):
+                j = tid if tid < head else tail + tid - head
+                if j < cnt:
+                    put(wire_at + j * elem, mem[src + j * elem:src + (j + 1) * elem])
+            assert hits.max() == 1
+            assert (hits[wire_at:wire_at + cnt * elem] == 1).all()
+            wire = raw[wire_at:wire_at + cnt * elem].view(dt)
+            seg = np.full((2, -(-(win * s + hist + 8) // s) * pitch), np.nan, np.float32)
+            hr = raw[16:16 + 8 * e_w].view(np.float32)
+            xr, xi = (v.numpy() for v in convert.decode_packed(torch.from_numpy(wire.copy()),
+                                                               kind, 1 / 128, 0.7))
+            tid = np.arange(threads)
+            q, u = tid // s, tid % s
+            dq, du = threads // s, threads % s
+            for e in range(0, length, threads):
+                e_t = e + tid
+                live = e_t < length
+                assert (q[live] == e_t[live] // s).all() and (u[live] == e_t[live] % s).all()
+                for et, o in zip(e_t[live], (q * pitch + u)[live]):
+                    if et < e_w:
+                        seg[:, o] = hr[et], hr[e_w + et]
+                    else:
+                        assert 0 <= i0 + et - e_w == e0 + et - hist < n
+                        seg[:, o] = xr[et - e_w], xi[et - e_w]
+                u = u + du
+                q = q + dq + (u >= s)
+                u = np.where(u >= s, u - s, u)
+            yield c, b0, nw, seg, pitch
+
+
+@pytest.mark.parametrize("kind,s,hist,off,threads", [
+    ("cs16", 512, 31, 4, 256), ("cu8", 512, 31, 6, 512), ("cu16", 231, 74, 0, 512),
+    ("cs8", 231, 74, 14, 256), ("cs16", 3, 74, 12, 256), ("cu8", 16, 0, 2, 256),
+    ("cs16", 4, 100, 8, 512)])
+def test_mma_wire_staging_map(rng, kind, s, hist, off, threads):
+    """An emulation of the mma.sync core's wire staging (_mma_wire_staged)
+    stages each window group's ext = history ++ decoded wire at (e // s) *
+    pitch + e % s, bit for bit, over rows of n = 37 s + 3 frames that
+    start off 16-byte alignment, a wire starting ``off`` bytes past it, at
+    stage 0's stride, an odd one, strides below 8, no history and a
+    history longer than 16 windows; the raw buffer holds the largest
+    group and takes less than the second buffer of planes it replaces."""
+    ch, n = 2, 37 * s + 3
+    elem = 4 if kind in ("cs16", "cu16") else 2
+    mem = rng.integers(0, 256, off + ch * n * elem + 16).astype(np.uint8)
+    st_r, st_i = (rng.standard_normal((ch, hist)).astype(np.float32) for _ in range(2))
+    wire = mem[off:off + ch * n * elem].view(np.int32 if elem == 4 else np.int16)
+    xr, xi = (v.numpy().reshape(ch, n) for v in convert.decode_packed(
+        torch.from_numpy(wire.copy()), kind, 1 / 128, 0.7))
+    ext_r, ext_i = np.concatenate([st_r, xr], -1), np.concatenate([st_i, xi], -1)
+    groups = 0
+    for c, b0, nw, seg, pitch in _mma_wire_staged(mem, off, kind, st_r, st_i, n, s, hist,
+                                                  threads):
+        e = np.arange(nw * s + hist)
+        o = (e // s) * pitch + e % s
+        assert np.array_equal(seg[0, o], ext_r[c, b0 * s + e])
+        assert np.array_equal(seg[1, o], ext_i[c, b0 * s + e])
+        buf_len = -(-(16 * s + hist + 8) // s) * pitch
+        raw_bytes = (16 + 8 * hist + 15 + 15 + elem * 16 * s + 15) // 16 * 16
+        assert o.max() < buf_len and raw_bytes <= 8 * buf_len
+        groups += 1
+    assert groups == ch * 3
+
+
 @pytest.mark.parametrize("which,core", [
     ("flagship-262144-0", "mma"), ("flagship-262144-1", "wgmma"),
     ("flagship-16384-1", "wgmma"), ("nrsc5-0", "mma"), ("nrsc5-1", "mma"),
