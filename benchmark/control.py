@@ -9,8 +9,10 @@ size over the cell's own seeded input and judged by the run's own check
 
 Prints one JSON line a seed: ``correct`` and each number compared with
 its limit.  The stream is ``--blocks`` long (at least the blocks both
-compared spans need, rounded up to the I/Q estimator's period), as a
-short window at the cell's load: it compares as many blocks as a run.
+compared spans need, and with the digital AGC past its scan, rounded up
+to the I/Q estimator's period), as a short window at the cell's load:
+it compares as many blocks as a run.  The control's digital AGC state
+entering the compared end is recorded as the program's is.
 """
 
 from __future__ import annotations
@@ -37,13 +39,18 @@ def control_run(cell, seed: int, device, blocks: int) -> drive.Run:
     cap = drive.capture(cell, chain, seed, device)
     ring = cap.view(c, slots, chain.in_wire_len).transpose(0, 1).contiguous()
     del cap, chain
+    ctl = RefChain(cell.chain, c, cell.block, rows, device, "tf32")
+    least = drive.least_blocks(n_in)
+    if ctl.agc == "digital":            # past the scan: the block entered with 2 s seen
+        least = max(least, ctl.lock_samples // n_out + 2 + drive.END_STEPS)
     period = cell.due_period(n_in)
-    n = -(-max(blocks, drive.least_blocks(n_in)) // period) * period
+    n = -(-max(blocks, least) // period) * period
     run = drive.Run(cell, seed, 0.0, False, str(device), 0.0, mode="control", rows=rows,
                     n_in=n_in, n_out=n_out, total_steps=n, steps=n)
     run.inputs = lambda k: ring[k % slots]
-    ctl = RefChain(cell.chain, c, cell.block, rows, device, "tf32")
     for k in range(n):
+        if ctl.agc == "digital" and k == n - drive.END_STEPS:
+            run.end_agc = ctl.agc_state()
         out = quantize_cs16(ctl.step(run.inputs(k)))
         if k < drive.START_STEPS:
             run.start_out.append(out)

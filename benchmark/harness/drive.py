@@ -21,7 +21,9 @@ chain, captures its graph and drives it through its first blocks (kept
 for the check from the stream's start); the window then runs for
 ``seconds``, ending on a block on which the I/Q estimator's update
 period closes, and its last blocks are kept for the check of the
-stream's end.
+stream's end.  A chain with the digital AGC, whose state runs over the
+whole stream, also keeps that state as it enters the compared end
+(resident mode only: the engine mode takes no digital AGC).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import collections
 import dataclasses
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -79,6 +82,7 @@ class Run:
     start_out: list = dataclasses.field(default_factory=list)   # (C, 2 n_out) int16
     end_out: list = dataclasses.field(default_factory=list)     # the last END_STEPS
     final_factors: object = None      # the program's I/Q factors after its last update
+    end_agc: dict | None = None       # the digital AGC's state entering the compared end
     inputs: object = None             # k -> block k's (C, in_wire_len) input wire
 
 
@@ -92,6 +96,27 @@ def _profiler(on: bool):
 def _factors(stepper) -> np.ndarray | None:
     carry = stepper._carry
     return carry["iq"].factors.double().cpu().numpy() if "iq" in carry else None
+
+
+def _agc_keeper(cell: Cell, step):
+    """For a chain with the digital AGC, (keep, state): ``keep(j)`` copies
+    the static carry's AGC state, as it enters block j, into a ring of
+    END_STEPS + 1 slots in one multi-tensor copy, and ``state(j)`` reads
+    slot j back as {field: tensor}; else (None, None)."""
+    if cell.chain.get("agc_profile") != "digital":
+        return None, None
+    agc = step._carry["agc"]
+    names = [f.name for f in dataclasses.fields(agc)]
+    src = [getattr(agc, f) for f in names]
+    ring = [[t.clone() for t in src] for _ in range(END_STEPS + 1)]
+
+    def keep(j: int) -> None:
+        torch._foreach_copy_(ring[j % len(ring)], src)
+
+    def state(j: int) -> dict:
+        return {f: t.clone() for f, t in zip(names, ring[j % len(ring)])}
+
+    return keep, state
 
 
 def _end_setup(run: Run) -> None:
@@ -141,9 +166,12 @@ def resident(run: Run) -> None:
     step.capture()
     out_ring = torch.empty((slots, c, 2 * chain.n_out), dtype=torch.int16, device=dev)
     carry = step.init_carry()
+    keep, agc_state = _agc_keeper(cell, step)
     for k in range(START_STEPS):
         carry, out = step.step(carry, ring[k])
         out_ring[k].copy_(out)
+        if keep is not None:
+            keep(k + 1)
     start = out_ring[:START_STEPS].clone()
     depth = int(tr["in_flight"])
     events = [torch.cuda.Event() if dev.type == "cuda" else None for _ in range(depth)]
@@ -161,10 +189,12 @@ def resident(run: Run) -> None:
             ev.synchronize()
         carry, out = step.step(carry, ring[k % slots])
         out_ring[k % slots].copy_(out)
+        if keep is not None:
+            keep(k + 1)
         if ev is not None:
             ev.record()
         k += 1
-        if k % period == 0 and time.perf_counter() - t0 >= run.seconds:
+        if k % period == 0 and k >= least_blocks(n_in) and time.perf_counter() - t0 >= run.seconds:
             break
     _sync(dev)
     run.window_s = time.perf_counter() - t0
@@ -180,6 +210,8 @@ def resident(run: Run) -> None:
     run.start_out = list(start)
     run.end_out = [out_ring[j % slots].clone() for j in range(k - END_STEPS, k)]
     run.final_factors = _factors(step)
+    if agc_state is not None:
+        run.end_agc = agc_state(k - END_STEPS)
     run.inputs = lambda j: ring[j % slots]
 
 
@@ -237,12 +269,20 @@ class ReplayFeed:
     ``blocks`` blocks, or at the first block on a due period's boundary
     once ``seconds`` have passed since ``arm`` and the check has its
     blocks.  ``cap`` is (C, slots * wire) of a format of two items a
-    frame, announced to the engine as ``fmt``."""
+    frame, announced to the engine as ``fmt``.  The capture is also an
+    in-memory file, and each payload a ``pread`` of it: a new bytes
+    object copied with the GIL released, as the raw-file input's read of
+    a cached capture file gives it."""
 
     def __init__(self, cap: np.ndarray, n_in: int, rate: float, period: int, fmt: str):
         self.cap, self.n_in, self.rate, self.period, self.fmt = cap, n_in, rate, period, fmt
         self.channels = cap.shape[0]
         self.slots = cap.shape[1] // (2 * n_in)
+        self.fd = os.memfd_create("benchmark-capture")
+        weakref.finalize(self, os.close, self.fd)
+        data = memoryview(np.ascontiguousarray(cap)).cast("B")
+        while data.nbytes:
+            data = data[os.write(self.fd, data):]
 
     def arm(self, blocks: int | None = None, seconds: float | None = None) -> None:
         self.limit, self.seconds = blocks, seconds
@@ -259,11 +299,11 @@ class ReplayFeed:
     def payloads(self, c: int, frames: int):
         if frames != self.n_in:
             raise ValueError(f"the engine asks for {frames}-frame blocks, not {self.n_in}")
+        row, size = self.cap.shape[1] * self.cap.itemsize, 2 * self.n_in * self.cap.itemsize
         k = 0
         while self._more(c, k):
-            s = (k % self.slots) * 2 * self.n_in
             with torch.profiler.record_function("benchmark.source"):
-                payload = self.cap[c, s:s + 2 * self.n_in].tobytes()
+                payload = os.pread(self.fd, size, c * row + (k % self.slots) * size)
             if c == self.channels - 1:
                 self.released.append(time.perf_counter())
             yield payload
@@ -278,6 +318,8 @@ def engine(run: Run) -> None:
     from iq_tool_tpu_torch import constants as C
     from iq_tool_tpu_torch.pipeline.runtime import StreamEngine
     cell, tr = run.cell, run.cell.traffic
+    if cell.chain.get("agc_profile") == "digital":
+        raise NotImplementedError("the engine mode records no digital AGC state for the check")
     if "intra_op_threads" in tr:
         torch.set_num_threads(int(tr["intra_op_threads"]))
     dev = torch.device(run.device)

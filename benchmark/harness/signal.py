@@ -1,8 +1,9 @@
 """The seeded capture every cell feeds: per channel a few tones, noise, a
 DC offset and an I/Q imbalance at the levels of a real receiver's
-capture, quantized to the configuration's input format (cs16, or an
-RTL-SDR's cu8).  Made on the device from the seed in a few large calls;
-the same seed gives the same bytes, and every seed the same sizes."""
+capture, quantized to the configuration's input format (cs16, an
+RTL-SDR's cu8 or a HackRF's cs8).  Made on the device from the seed in
+a few large calls; the same seed gives the same bytes, and every seed
+the same sizes."""
 
 from __future__ import annotations
 
@@ -12,9 +13,10 @@ import torch
 
 # format -> (wire dtype, codes a unit of full scale, offset, lowest and
 # highest code), as upstream's quantizers (sample_convert.c): cu8 decodes
-# as (x - 127.5) / 128
+# as (x - 127.5) / 128, cs8 as x / 128
 WIRES = {"cs16": (torch.int16, 32768.0, 0.0, -32768, 32767),
-         "cu8": (torch.uint8, 128.0, 127.5, 0, 255)}
+         "cu8": (torch.uint8, 128.0, 127.5, 0, 255),
+         "cs8": (torch.int8, 128.0, 0.0, -128, 127)}
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -26,7 +28,8 @@ def generator(seed: int, device) -> torch.Generator:
 def capture(seed: int, channels: int, frames: int, rate: float, sig: dict,
             device, fmt: str) -> torch.Tensor:
     """(channels, 2 * frames) wire of format ``fmt`` on ``device``: int16
-    for cs16, uint8 for cu8; the same draws and signal in either.
+    for cs16, uint8 for cu8, int8 for cs8; the same draws and signal in
+    each.
 
     ``sig``: ``tones`` (count), ``tone_dbfs`` [lo, hi], ``tone_max_hz``,
     ``noise_dbfs``, ``dc_dbfs``, ``iq_gain_max`` (relative),

@@ -1,19 +1,21 @@
 """The plain reference of the measured chains: what the program's output
 should be, in float64 PyTorch, one block at a time.
 
-    wire in (cs16 or cu8) -> [DC block] -> [I/Q estimate + correct] -> pre-shift
-            -> [pre-filter] -> resampler stages -> [post-filter]
-            -> [AGC] -> post-shift -> wire out
+    wire in (cs16, cu8 or cs8) -> [DC block] -> [I/Q estimate + correct]
+            -> pre-shift -> [pre-filter] -> resampler stages
+            -> [post-filter] -> [AGC] -> post-shift -> wire out
 
 Written from the chain's definitions (a first-order DC blocker at 10 Hz,
 the I/Q estimator's greedy descent on the spectral asymmetry, a 32-bit
-phase NCO, Kaiser polyphase stages, linear convolution with the designed
-FIR, the RMS AGC's per-segment gain loop, round-half-away quantization),
+phase NCO, Kaiser polyphase stages or one gather stage, linear
+convolution with the designed FIR, the RMS AGC's per-segment gain loop
+or the digital AGC's block state machine, round-half-away quantization),
 with the design worked out again by ``design.py``.  It imports nothing of
 the program: no kernel, no table, no plan.  Every stage is the plainest
 form of its equation: the DC recurrence as a doubling scan, each
-resampler stage as windows times its per-phase weights, each filter as
-an FFT convolution over the carried history.
+resampler stage as windows times its per-phase weights (the gather
+stage: each output's window times its own weights), each filter as an
+FFT convolution over the carried history.
 
 ``precision="tf32"`` is the control: every product's operands are
 rounded to TF32 (10-bit mantissa) and summed in float32, as a chain
@@ -37,6 +39,7 @@ _COUNTER_SAT = 0xF0000000
 _DIRS = ((1, 1), (1, -1), (-1, 1), (-1, -1))
 CS16_NORM = 1.0 / 32768.0        # wire -> float
 CU8_OFFSET, CU8_NORM = 127.5, 1.0 / 128.0    # (x - 127.5) / 128
+CS8_NORM = 1.0 / 128.0           # x / 128
 CS16_SCALE = 32767.0             # float -> wire, clamped to [-32768, 32767]
 
 
@@ -59,7 +62,15 @@ def decode_cu8(wire: torch.Tensor) -> torch.Tensor:
     return torch.complex(w[:, 0::2], w[:, 1::2])
 
 
-DECODERS = {"cs16": decode_cs16, "cu8": decode_cu8}
+def decode_cs8(wire: torch.Tensor) -> torch.Tensor:
+    """(C, 2N) int8 cs8 wire -> (C, N) complex128."""
+    w = wire.double() * CS8_NORM
+    return torch.complex(w[:, 0::2], w[:, 1::2])
+
+
+DECODERS = {"cs16": decode_cs16, "cu8": decode_cu8, "cs8": decode_cs8}
+# values a gathered chunk of windows holds: (C, outputs, 2m) complex
+GATHER_CHUNK = 1 << 24
 
 
 def scan(coef: float, b: torch.Tensor) -> torch.Tensor:
@@ -79,7 +90,7 @@ class RefChain:
     def __init__(self, chain: dict, channels: int, target_block: int, rows: int = 1,
                  device="cpu", precision: str = "float64"):
         if chain["input_format"] not in DECODERS or chain["output_format"] != "cs16":
-            raise NotImplementedError("the reference runs cs16 or cu8 in and cs16 out")
+            raise NotImplementedError("the reference runs cs16, cu8 or cs8 in and cs16 out")
         if precision not in ("float64", "tf32"):
             raise ValueError(f"unknown precision {precision!r}")
         self.cfg = chain
@@ -102,15 +113,22 @@ class RefChain:
         self.iq = bool(chain.get("iq_correction"))
         self.iq_interval = int(D.IQ_UPDATE_INTERVAL_SEC * in_rate)
         prof = chain.get("agc_profile")
-        if prof not in (None, "local", "dx"):
+        if prof not in (None, "local", "dx", "digital"):
             raise NotImplementedError(f"AGC profile {prof!r}")
         self.agc = prof
+        self.lock_samples = int(D.AGC_DIGITAL_SCAN_SEC * out_rate) & _MASK
+        self.hang_samples = int(D.AGC_DIGITAL_HANG_SEC * out_rate) & _MASK
         self.mats = [self._stage_matrix(st) for st in self.plan.stages]
         self.moves = D.IQ_EST_STEP * torch.tensor(_DIRS, dtype=torch.float64, device=self.dev)
         self._graph = None
         self.reset()
 
-    def _stage_matrix(self, st: D.Stage) -> torch.Tensor:
+    def _stage_matrix(self, st):
+        """A split stage's banded matrix; the gather stage's (weights,
+        starts)."""
+        if isinstance(st, D.Gather):
+            return (torch.from_numpy(st.weights).to(self.dev),
+                    torch.from_numpy(st.starts).to(self.dev))
         return torch.from_numpy(D.banded_matrix(st, 1)).to(self.dev)
 
     # -------------------------------------------------------------- state
@@ -127,6 +145,7 @@ class RefChain:
         self.ftail = z(len(self.taps) - 1) if self.taps is not None else None
         self.gain = torch.ones(c, dtype=torch.float64, device=dev)
         self.e2 = torch.zeros(c, dtype=torch.float64, device=dev)
+        self.digital = digital_init(c, dev)
         self.factors = torch.zeros((c, 2), dtype=torch.float64, device=dev)
         self.counter = _MASK
 
@@ -172,8 +191,31 @@ class RefChain:
         st, a = self.plan.stages[i], self.mats[i]
         ext = torch.cat([self.hist[i], x], dim=-1)
         self.hist[i] = ext[:, -(2 * st.m - 1):].clone()
+        if isinstance(st, D.Gather):
+            return self._gather(ext, *a)
         win = ext.unfold(-1, a.shape[0], st.q)               # (C, n/q, q + 2m - 1)
         return self._product(win, a).reshape(x.shape[0], -1)
+
+    def _gather(self, ext: torch.Tensor, w: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+        """The gather stage over history ++ block ``ext``: each output the
+        dot of its window with its weights, a row block (``plan.n_in``
+        inputs) at a time, in chunks of outputs that fit; in the control
+        both operands of every product rounded to TF32 and summed in
+        float32."""
+        c, (m_out, k) = ext.shape[0], w.shape
+        rows = (ext.shape[-1] - k + 1) // self.plan.n_in
+        chunk = max(1, GATHER_CHUNK // (c * k))
+        taps = torch.arange(k, device=self.dev)
+        planes = torch.view_as_real(ext)                     # (C, L, 2)
+        if self.prec == "tf32":
+            planes, w = round_tf32(planes), round_tf32(w)
+        out = []
+        for r in range(rows):
+            for j0 in range(0, m_out, chunk):
+                idx = starts[j0:j0 + chunk, None] + taps + r * self.plan.n_in
+                y = torch.einsum("cjkp,jk->cjp", planes[:, idx], w[j0:j0 + chunk])
+                out.append(torch.view_as_complex(y.double().contiguous()))
+        return torch.cat(out, -1)
 
     def _fir(self, x: torch.Tensor) -> torch.Tensor:
         """Causal linear convolution with the designed taps, across blocks."""
@@ -333,12 +375,21 @@ class RefChain:
                          gains[..., -1:].expand(c, r, n_row - n_seg * seg)], -1)
         return x * per.reshape(c, n)
 
+    def agc_state(self) -> dict:
+        """The digital AGC's state, {field: (C,) tensor} (``digital_init``)."""
+        return {f: t.clone() for f, t in self.digital.items()}
+
+    def set_agc_state(self, state: dict) -> None:
+        """Enter the next block with the digital AGC's ``state`` (a program's
+        recorded state, or this chain's own)."""
+        self.digital = {f: torch.as_tensor(state[f]).to(self.dev, t.dtype)
+                        for f, t in self.digital.items()}
+
     # -------------------------------------------------------------- step
 
-    def step(self, wire: torch.Tensor, estimate: bool = True) -> torch.Tensor:
-        """(C, 2 n_in) input wire -> (C, n_out) complex128 output in codes
-        (y * 32767), before rounding and clamping.  ``estimate=False``
-        applies the I/Q factors as they stand, without the estimator."""
+    def agc_input(self, wire: torch.Tensor, estimate: bool = True) -> torch.Tensor:
+        """(C, 2 n_in) input wire -> (C, n_out) complex128: the block as the
+        AGC reads it, every stage before it stepped."""
         x = self.decode(wire.to(self.dev))
         if self.dc:
             x = self._dc_block(x)
@@ -353,11 +404,73 @@ class RefChain:
             x = self._stage(i, x)
         if self.taps is not None:
             x = self._fir(x)
-        if self.agc:
+        return x
+
+    def step(self, wire: torch.Tensor, estimate: bool = True) -> torch.Tensor:
+        """(C, 2 n_in) input wire -> (C, n_out) complex128 output in codes
+        (y * 32767), before rounding and clamping.  ``estimate=False``
+        applies the I/Q factors as they stand, without the estimator."""
+        x = self.agc_input(wire, estimate)
+        if self.agc == "digital":
+            gain, self.digital = digital_update(self.digital, x.abs().amax(-1), x.shape[-1],
+                                                self.lock_samples, self.hang_samples)
+            x = x * gain[:, None]
+        elif self.agc:
             x = self._agc(x)
         x = self._mix(x, self.ph_post, self.dth_post)
         self.ph_post = (self.ph_post + self.n_out * self.dth_post) & _MASK
         return x * CS16_SCALE
+
+
+def _f32(v: float) -> float:
+    """``v`` as a float32: upstream's AGC keeps its gain, its peaks and its
+    constants in floats."""
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+def digital_init(channels: int, device="cpu") -> dict:
+    """The digital AGC's state at the stream's start, {field: (C,) tensor}
+    under the program's names: gain 1, scanning from the peak memory
+    0.05, counters 0."""
+    f = lambda v, dt: torch.full((channels,), v, dtype=dt, device=device)
+    return {"gain": f(1.0, torch.float64),
+            "peak_mem": f(_f32(D.AGC_DIGITAL_PEAK_INIT), torch.float64),
+            "locked": f(False, torch.bool), "samples_seen": f(0, torch.int64),
+            "weak_run": f(0, torch.int64)}
+
+
+def digital_update(state: dict, peak: torch.Tensor, n: int, lock_samples: int,
+                   hang_samples: int) -> tuple:
+    """The digital AGC's block state machine: (the block's gain, the new
+    state) from the block's peak magnitude ``peak`` over ``n`` output
+    samples, per channel.  Scanning, the gain is target / max(peak
+    memory, 1e-4), the peak memory the running maximum of block peaks; a
+    block entered with more than ``lock_samples`` seen locks the gain it
+    takes.  Locked, a block whose output peak would pass 1 takes the gain
+    0.99 / peak; one whose output peak is over 0.75 of the target ends
+    the weak run, and a weak block entered after more than
+    ``hang_samples`` of weak blocks takes the gain times 1.0005.  The
+    constants are upstream's floats (1.0005 is 1.000499963760376)."""
+    target = _f32(D.AGC_DIGITAL_TARGET)
+    g, seen, weak_run = state["gain"], state["samples_seen"], state["weak_run"]
+    locked = state["locked"]
+    pm = torch.maximum(state["peak_mem"], peak)
+    scan_gain = target / torch.clamp(pm, min=D.AGC_DIGITAL_PEAK_FLOOR)
+    lock_now = seen > lock_samples
+    out_peak = peak * g
+    clip = out_peak > 1.0
+    strong = out_peak > _f32(target * _f32(D.AGC_DIGITAL_CREEP_THRESH))
+    creep = ~clip & ~strong & (weak_run > hang_samples)
+    held = torch.where(clip, _f32(D.AGC_DIGITAL_CLIP_RATCHET)
+                       / torch.clamp(peak, min=D.AGC_DIGITAL_RATCHET_FLOOR),
+                       torch.where(creep, g * _f32(D.AGC_DIGITAL_CREEP), g))
+    zero = torch.zeros_like(weak_run)
+    weak = torch.where(clip | strong, zero, (weak_run + n) & _MASK)
+    gain = torch.where(locked, held, scan_gain)
+    return gain, {"gain": torch.where(locked | lock_now, gain, g),
+                  "peak_mem": torch.where(locked, state["peak_mem"], pm),
+                  "locked": locked | lock_now, "samples_seen": (seen + n) & _MASK,
+                  "weak_run": torch.where(locked, weak, zero)}
 
 
 def quantize_cs16(codes: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ A copy of the design half of the port's ``ops/fir_design.py`` and
 ``ops/resample.py`` (numpy only, run once a configuration), kept here so
 that the reference works the design out again without importing the
 program: the Kaiser FIR chain, the rational P/Q resampler's stage split
-and its per-phase Kaiser-sinc weights, and the block framing.  The
+and its per-phase Kaiser-sinc weights, the gather stage of a ratio that
+no split stages (written from its equations), and the block framing.  The
 weights stay float64 (the program rounds them to float32).  The group
 search and the FIR composition are copied too, only so that
 ``harness/bounds.py`` can count a banded launch's work from the band's
@@ -50,6 +51,20 @@ AGC_TARGET = 0.5
 AGC_BW_DX = 1e-4
 AGC_BW_LOCAL = 1e-2
 AGC_SEGMENT = 128
+# the digital profile's block state machine (upstream agc.c, the port's
+# constants.py): scan the block peaks for 2 s of output at the gain
+# target / peak memory, then lock; once locked, a block whose output
+# peak passes 1 ratchets the gain to 0.99 / peak, and after 4 s of
+# blocks under 0.75 of the target the gain creeps up a block at a time
+AGC_DIGITAL_TARGET = 0.9
+AGC_DIGITAL_PEAK_INIT = 0.05     # the scan's peak memory at the stream's start
+AGC_DIGITAL_PEAK_FLOOR = 1e-4    # the least peak memory the scan's gain divides by
+AGC_DIGITAL_SCAN_SEC = 2.0
+AGC_DIGITAL_HANG_SEC = 4.0
+AGC_DIGITAL_CLIP_RATCHET = 0.99
+AGC_DIGITAL_RATCHET_FLOOR = 1e-9
+AGC_DIGITAL_CREEP = 1.0005
+AGC_DIGITAL_CREEP_THRESH = 0.75
 
 
 # ------------------------------------------------------------------ FIR chain
@@ -245,29 +260,66 @@ def make_stage(p: int, q: int, atten_db: float = RESAMPLER_ATTENUATION_DB,
 
 
 @dataclasses.dataclass(frozen=True)
+class Gather:
+    """The gather stage of a ratio p/q that no split into small stages
+    gives (a prime factor above RESAMP_STAGE_MAX): output j of a block
+    is the dot of weights[j] with the 2m inputs from starts[j] on, over
+    the 2m - 1 inputs of history followed by the block's n_in inputs.
+    The outputs' delays repeat every n_in inputs (n_in is a multiple of
+    q), so the next block takes the same weights and starts."""
+    p: int
+    q: int
+    m: int                   # semilength in input samples
+    weights: np.ndarray      # (n_out, 2m) float64, each row sums to 1
+    starts: np.ndarray       # (n_out,) int64, into history ++ block
+
+
+def make_gather(p: int, q: int, n_in: int, atten_db: float = RESAMPLER_ATTENUATION_DB,
+                semilength: int = RESAMP_SEMILENGTH) -> Gather:
+    """Output j at input time j q / p - m: 2m Kaiser-windowed sinc taps at
+    its fractional delay, cut off at 0.9 of the lower Nyquist, normalised
+    to unity DC gain, the semilength widened with the decimation."""
+    m = max(semilength, int(np.ceil(semilength * q / (2.0 * p))))
+    beta = kaiser_beta(atten_db)
+    fc = 0.5 * min(1.0, p / q) * RESAMP_FC_FACTOR
+    j = np.arange(n_in * p // q, dtype=np.float64)
+    tau = j * q / p - m
+    base = np.floor(tau).astype(np.int64)
+    k = np.arange(2 * m, dtype=np.float64)
+    w = _sinc_kernel((tau - base)[:, None] + (m - 1) - k[None, :], fc, m, beta)
+    w = w / np.sum(w, axis=1, keepdims=True)
+    starts = base - m + 1 + (2 * m - 1)
+    if starts.min() < 0 or starts.max() + 2 * m > n_in + 2 * m - 1:
+        raise ValueError(f"the gather stage {p}/{q} reaches outside its block")
+    return Gather(p, q, m, w, starts)
+
+
+@dataclasses.dataclass(frozen=True)
 class ResamplePlan:
     p: int
     q: int
     n_in: int
     n_out: int
-    stages: tuple          # of Stage
+    stages: tuple          # of Stage, or one Gather
 
 
 def plan_resampler(ratio: float, target_block: int,
                    atten_db: float = RESAMPLER_ATTENUATION_DB,
                    max_out: int = 1 << 21) -> ResamplePlan:
     """The stream's framing (blocks of n_in inputs give n_out outputs) and
-    its stages.  Ratios that need the gather stage are not framed here."""
+    its stages: the split into small p/q stages, or one gather stage
+    where a prime factor of p or q is too large to split."""
     p, q = rationalize(ratio)
     ratios = decompose_stages(p, q)
-    if ratios is None:
-        raise NotImplementedError(f"ratio {p}/{q} runs the gather stage")
     blocks = max(1, round(target_block / q))
     while blocks * p > max_out and blocks > 1:
         blocks -= 1
     n_in = blocks * q
-    return ResamplePlan(p, q, n_in, n_in * p // q,
-                        tuple(make_stage(a, b, atten_db) for a, b in ratios))
+    if ratios is None:
+        stages = (make_gather(p, q, n_in, atten_db),)
+    else:
+        stages = tuple(make_stage(a, b, atten_db) for a, b in ratios)
+    return ResamplePlan(p, q, n_in, n_in * p // q, stages)
 
 
 # ------------------------------------------------- banded shapes (for bounds)

@@ -167,7 +167,7 @@ def test_a_cu8_capture_is_the_signal_within_half_a_code():
     assert float(gap.max()) <= 1 / 256 + 1 / 65536, gap       # I and Q
     assert float(gap.min()) > 1 / 512                       # a cu8 wire, not a cs16 one
     with pytest.raises(ValueError):
-        signal.capture(*args, "cs8")
+        signal.capture(*args, "cf32")
 
 
 def test_bounds_count_two_bytes_of_cu8_wire_a_frame():
