@@ -394,7 +394,8 @@ class Chain:
 
     def _post(self, xr, xi, carry: dict, new: dict, rows: int):
         """The post-stage from the carry: the AGC's gains (its state
-        stepped) and the carried post-NCO phase."""
+        stepped; the stage ``chain.agc`` inside ``chain.post``) and the
+        carried post-NCO phase."""
         n = xr.shape[-1]
         dth, cfg_agc = self.dtheta_post, self.agc_cfg
         phase = carry["nco_post"] if dth else None
@@ -402,11 +403,13 @@ class Chain:
             xr, xi = nco.mix(xr, xi, phase, dth)
             phase = None
         gains, seg, digital = None, 0, None
-        if cfg_agc is not None and cfg_agc.profile == "digital":
-            digital, new["agc"] = agc.digital_update(carry["agc"], agc.block_peak(xr, xi),
-                                                     n, cfg_agc)
-        elif cfg_agc is not None:
-            gains, seg, new["agc"] = agc.rms_gains(xr, xi, carry["agc"], cfg_agc, rows)
+        if cfg_agc is not None:
+            with stage_span("chain.agc"):
+                if cfg_agc.profile == "digital":
+                    digital, new["agc"] = agc.digital_update(
+                        carry["agc"], agc.block_peak(xr, xi), n, cfg_agc)
+                else:
+                    gains, seg, new["agc"] = agc.rms_gains(xr, xi, carry["agc"], cfg_agc, rows)
         out = self.post(xr, xi, phase, gains, seg, digital, rows)
         if dth:
             new["nco_post"] = nco.advance(carry["nco_post"], n, dth)

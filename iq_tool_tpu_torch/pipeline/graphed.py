@@ -183,6 +183,8 @@ class GraphedStep:
     totals agree.  A replay runs a one-part step's nodes in capture order
     (the capture is one stream's), so its k-th device event belongs to
     the map's k-th node (``profile_steps`` splits a replay's time so).
+    The capture publishes a one-part step's map with ``graph_nodes``
+    (``trace.stage_map()``); a step of several parts publishes None.
     """
 
     def __init__(self, chain: Chain | FoldedChain | ShardedChain):
@@ -315,6 +317,8 @@ class GraphedStep:
                 part.graph, part.stream = graph, stream
                 torch.cuda.synchronize(part.device)
         trace.publish_stage_kernels(self.stage_kernels)
+        trace.publish_stage_map(self.stages if len(self._parts) == 1 else None,
+                                self.graph_nodes)
         self.capture_sec = time.perf_counter() - t0
 
     def _slab(self, p) -> torch.Tensor:

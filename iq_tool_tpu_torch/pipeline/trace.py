@@ -33,6 +33,13 @@ launch; a plain span leaves the stage as it is.  ``launches()`` reads
 the counts; ``GraphedStep.capture`` keeps what its capture noted,
 {stage: {symbol: launches}}, and publishes it (``stage_kernels()``, the
 newest capture's).  A graph's replay runs no Python and notes nothing.
+
+The stage map: ``GraphedStep.capture`` also publishes its map of the
+graph's device nodes, [(stage, nodes)] in capture order, and the graph's
+node count (``stage_map()``, the newest capture's).  A replay runs the
+nodes of a one-stream capture in that order, so a reader of a device
+trace can give each replay's k-th event to the map's k-th node, also
+where two stages launch the same kernel, as torch's ops do.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ _offset_ns = time.time_ns() - time.perf_counter_ns()
 _launches: dict = {}        # (stage, symbol) -> launches noted
 _launches_lock = threading.Lock()
 _captured: dict | None = None       # the newest capture's stage kernels
+_map: tuple | None = None           # the newest capture's (stage map, graph nodes)
 
 
 class _Local(threading.local):
@@ -130,6 +138,22 @@ def stage_kernels() -> dict | None:
     """The newest graph capture's {stage: {symbol: launches}}: the kernels
     each ``chain.*`` stage of a replay launches; None before any capture."""
     return None if _captured is None else {st: dict(k) for st, k in _captured.items()}
+
+
+def publish_stage_map(stages: list | None, nodes: int = 0) -> None:
+    """Make ``stages`` ([(stage, device nodes)] in capture order) and the
+    graph's ``nodes`` the newest capture's map (``GraphedStep.capture``);
+    None where the capture's launches are not one stream's."""
+    global _map
+    _map = None if stages is None else ([(st, int(n)) for st, n in stages], int(nodes))
+
+
+def stage_map() -> tuple | None:
+    """The newest graph capture's stage map, ([(stage, device nodes)] in
+    capture order, the graph's device nodes): a replay's k-th device
+    event is the map's k-th node where the two counts agree.  None before
+    any capture and after a sharded step's capture of several graphs."""
+    return None if _map is None else (list(_map[0]), _map[1])
 
 
 @contextlib.contextmanager

@@ -46,7 +46,8 @@ capture's stage map (``GraphedStep.stages``): each replay's device
 events (those of its graph launch, by the launch's correlation id) in
 order of start, the k-th to the map's k-th node; a replay whose event
 count is not the map's is not split.  It prints ms a replay by stage
-(``chain.*``, ``graph.carry``), the kernels each stage launches as
+(``chain.*``, the AGC's ``chain.agc`` apart from the rest of
+``chain.post``, ``graph.carry``), the kernels each stage launches as
 the capture noted them (``GraphedStep.stage_kernels``), each stage's
 ops, and how far the stages' sum lies from the replay's busy time.  Needs a CUDA card.
 """

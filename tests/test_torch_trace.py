@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from iq_tool_tpu_torch.modules.base import Block, InputModule, OutputModule, SourceInfo  # noqa: E402
+from iq_tool_tpu_torch.ops import convert  # noqa: E402
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest  # noqa: E402
 from iq_tool_tpu_torch.pipeline import trace  # noqa: E402
 from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig  # noqa: E402
@@ -187,10 +188,10 @@ def test_spans_of_other_threads_reach_the_record():
     (dict(dc_block=True, freq_shift_pre_hz=100e3, filters=(FilterRequest("lowpass", 400e3),)),
      ["chain.resample.0", "chain.resample.1"]),
     (CONFIG4, ["chain.pre", "chain.iq_estimate", "chain.resample.0", "chain.resample.1",
-               "chain.post_filter", "chain.post"]),
+               "chain.post_filter", "chain.post", "chain.agc"]),
     (dict(iq_correction=True, freq_shift_pre_hz=100e3, agc_profile="local"),
      ["chain.pre", "chain.iq_estimate", "chain.resample.0", "chain.resample.1",
-      "chain.post"]),
+      "chain.post", "chain.agc"]),
 ], ids=["flagship", "config4", "config4-no-dc"])
 def test_eager_step_names_its_stages(fields, stages):
     """An eager Chain.step under a CPU profiler shows each stage's span."""
@@ -251,6 +252,73 @@ def test_device_work_leaves_out_the_spans_images():
                                                      "Memcpy DtoD (Device -> Device)"]
 
 
+# a HackRF One's cs8 at 10 Msps through upstream's preset cs16-fm-nrsc5:
+# the gather stage of 4766/64043 and the digital AGC
+HACKRF = dict(input_format="cs8", input_rate=10e6, target_rate=744_187.5,
+              agc_profile="digital")
+
+
+@pytest.mark.parametrize("fields, agc", [
+    (HACKRF, True),
+    (dict(CONFIG4, dc_block=False), True),
+    (dict(CONFIG4, agc_profile="dx"), True),
+    ({}, False),
+], ids=["hackrf", "full4", "config4-dx", "baseline1"])
+def test_the_agc_is_a_stage_inside_the_post_stage(fields, agc):
+    """An eager step opens ``chain.agc`` for the AGC's gain work of every
+    profile, nested in ``chain.post`` (so a capture's map splits it from
+    K4's pack); a chain without an AGC opens none."""
+    chain = _chain(2, **{**fields, "target_block": 65536})
+    raw = torch.zeros((2, chain.in_wire_len), dtype=convert.torch_wire_dtype(chain.fmt_in))
+    seen = []
+    with trace.observe(lambda name, opening: seen.append((name, opening))):
+        chain.step(chain.init_carry(), raw)
+    assert (("chain.agc", True) in seen) == agc, seen
+    if agc:
+        i, j = seen.index(("chain.agc", True)), seen.index(("chain.agc", False))
+        assert seen[i - 1] == ("chain.post", True) and seen[j + 1] == ("chain.post", False)
+        assert seen.count(("chain.agc", True)) == 1
+
+
+def test_the_stage_map_is_none_until_a_capture():
+    """A fresh process, and a CPU GraphedStep's steps (the CPU captures
+    nothing), publish no stage map."""
+    import subprocess
+    import sys
+    code = ("import torch\n"
+            "from iq_tool_tpu_torch.pipeline import trace\n"
+            "from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig\n"
+            "from iq_tool_tpu_torch.pipeline.graphed import GraphedStep\n"
+            "assert trace.stage_map() is None\n"
+            "g = GraphedStep(Chain(ChainConfig(input_format='cs16', output_format='cs16',"
+            " input_rate=2048000.0, target_rate=1488375.0, channels=2, target_block=2048),"
+            " device='cpu'))\n"
+            "g.step(g.init_carry(), g.input_buffer)\n"
+            "assert trace.stage_map() is None and g.stages == []\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+
+
+def test_the_newest_captures_stage_map_is_published():
+    """``stage_map()`` gives the newest published map and node count, as a
+    copy; a capture of several graphs publishes None."""
+    old = trace.stage_map()
+    try:
+        trace.publish_stage_map([("chain.pre", 1), ("chain.resample.0", 5)], 6)
+        trace.publish_stage_map([("chain.resample.0", 9), ("chain.agc", 20),
+                                 ("chain.post", 1), ("graph.carry", 2)], 32)
+        got = trace.stage_map()
+        assert got == ([("chain.resample.0", 9), ("chain.agc", 20), ("chain.post", 1),
+                        ("graph.carry", 2)], 32)
+        got[0].clear()
+        assert len(trace.stage_map()[0]) == 4
+        trace.publish_stage_map(None)
+        assert trace.stage_map() is None
+    finally:
+        trace.publish_stage_map(*(old if old is not None else (None,)))
+
+
 def test_graphed_step_on_the_cpu_has_no_stage_map():
     """The CPU captures no graph: the map stays empty and the step still
     marks its stages in the record."""
@@ -274,6 +342,8 @@ def test_stage_map_covers_the_graph(name):
     g.capture()
     assert sum(n for _, n in g.stages) == g.graph_nodes > 0
     assert g.stages[-1][0] == "graph.carry"
+    assert trace.stage_map() == (g.stages, g.graph_nodes)
+    assert ("chain.agc" in dict(g.stages)) == (name == "4")
     raw = tone_wire(8, chain.n_in, torch.Generator(device="cuda").manual_seed(5))
     _, want = chain.step(chain.init_carry(), raw)
     g.input_buffer.copy_(raw)
