@@ -61,8 +61,12 @@ first failure:
    449/36371) behind the DC kernel and in front of K4 (local AGC), 128 x
    254597 frames for 4 steps with exact launch counters, against the CPU
    twin chain on 2 channels and an in-band tone's SNR; ms per step, Msps
-   and peak device memory; then the stage alone (weighted bag sums)
-   timed, repeated bit for bit and held against its float64 definition;
+   and peak device memory; then the stage alone (the gather kernel,
+   csrc/gather.cu) timed, repeated bit for bit and held against its
+   float64 definition; then the kernel at the HackRF cell's shape (64 x
+   256172, 4766/64043, K 216) against its definition and its twin, bit
+   for bit twice, timed beside the twin and embedding_bag alone, its
+   bound and the benchmark's cs8-wire bound beside it;
 8. [fold]: one stream at the CLI's 16384-frame block, the flagship and
    config #4: FoldedChain at F = 8 for 3 folded blocks against the same
    fold on the CPU (the twins) and against the row chain run 8 times a
@@ -97,7 +101,7 @@ first failure:
    profile_steps: wall, busy, kernels and copies a step, idle, and the
    graph's device kernels held against the eager step's; then configs
    #1, #2, #3, #5, the gather chain, #4 at nfft 32768 and 131072 and
-   with the dx and digital AGC at 16 channels, 6 replays each with a
+   with the dx and digital AGC, the HackRF chain at 16 channels, 6 replays each with a
    reset and a carry from carry_from_numpy, bit-identical to the eager
    step, the captured kernels its exact launches;
 9. the CLI on a 10 s, 2.048 Msps cs16 tone file (the automatic fold: F =
@@ -344,8 +348,8 @@ def main() -> int:
     # the measured chains and their seeded tone, shared with the profiler
     from iq_tool_tpu_torch.profile_steps import (
         BLOCK, CHANNELS as CH, GATHER_RATE, GATHER_TONE_HZ, IN_RATE, OUT_RATE,
-        POST_SHIFT_HZ, SEED, SHIFT_HZ, TONE_HZ, config, device_events, make_chain, to_cu8,
-        tone_wire)
+        POST_SHIFT_HZ, SEED, SHIFT_HZ, TONE_HZ, config, device_events, make_chain, to_cs8,
+        to_cu8, tone_wire)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -426,7 +430,8 @@ def main() -> int:
                 "IQest": kernels.iq_estimate.launches,
                 "K1pro": kernels.dc_prologue.launches,
                 "K1carry": kernels.dc_carry.launches,
-                "OSfft": filters.overlap_save_fft.launches}
+                "OSfft": filters.overlap_save_fft.launches,
+                "Gather": kernels.gather_apply.launches}
 
     def codes(packed):
         p = packed.to(torch.int64) & 0xFFFFFFFF
@@ -1234,32 +1239,33 @@ def main() -> int:
     # banded_core: the narrow bands, K < 96)
     want_counts = {"K1": 0, "K2": 2 * STEPS, "K2mma": 2 * STEPS, "K3": STEPS, "K3pre": 0,
                    "K4": STEPS, "K5": STEPS, "AGC": STEPS, "IQest": STEPS, "K1pro": 0,
-                   "K1carry": 0, "OSfft": 0}
+                   "K1carry": 0, "OSfft": 0, "Gather": 0}
     if general_launches != want_counts:
         fail(f"config #4 launch counters {general_launches}, expected {want_counts}")
     s5 = run_general("5", GENERAL_STEPS)
     if s5 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": GENERAL_STEPS, "K3": GENERAL_STEPS,
               "K3pre": 0, "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS, "IQest": 0,
-              "K1pro": 0, "K1carry": 0, "OSfft": 0}:
+              "K1pro": 0, "K1carry": 0, "OSfft": 0, "Gather": 0}:
         fail(f"config #5 launch counters {s5}")
     s3 = run_general("3", GENERAL_STEPS)
     if s3 != {"K1": 0, "K2": 3 * GENERAL_STEPS, "K2mma": 3 * GENERAL_STEPS,
               "K3": GENERAL_STEPS, "K3pre": 0,
               "K4": 0, "K5": 0, "AGC": 0, "IQest": 0, "K1pro": 0, "K1carry": 0,
-              "OSfft": 0}:
+              "OSfft": 0, "Gather": 0}:
         fail(f"config #3 launch counters {s3}")
     s4k = run_general("4k32", GENERAL_STEPS)
     if s4k != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": 2 * GENERAL_STEPS,
                "K3": GENERAL_STEPS, "K3pre": 0,
                "K4": GENERAL_STEPS, "K5": GENERAL_STEPS, "AGC": GENERAL_STEPS,
-               "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": 0}:
+               "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": 0, "Gather": 0}:
         fail(f"config #4 at nfft 32768 launch counters {s4k}")
     # above K5's sizes: the torch.fft route in its place, once a step
     s4r = run_general("4k128", GENERAL_STEPS)
     if s4r != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": 2 * GENERAL_STEPS,
                "K3": GENERAL_STEPS, "K3pre": 0,
                "K4": GENERAL_STEPS, "K5": 0, "AGC": GENERAL_STEPS,
-               "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": GENERAL_STEPS}:
+               "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0, "OSfft": GENERAL_STEPS,
+               "Gather": 0}:
         fail(f"config #4 at nfft 131072 launch counters {s4r}")
     # config #4 without the DC block (the benchmark's full4): K3pre in K3's
     # place
@@ -1267,7 +1273,7 @@ def main() -> int:
     if sf4 != {"K1": 0, "K2": 2 * GENERAL_STEPS, "K2mma": 2 * GENERAL_STEPS, "K3": 0,
                "K3pre": GENERAL_STEPS, "K4": GENERAL_STEPS, "K5": GENERAL_STEPS,
                "AGC": GENERAL_STEPS, "IQest": GENERAL_STEPS, "K1pro": 0, "K1carry": 0,
-               "OSfft": 0}:
+               "OSfft": 0, "Gather": 0}:
         fail(f"config #4 without the DC block launch counters {sf4}")
     say(f"[steps] ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms_of.items()))
 
@@ -1299,7 +1305,7 @@ def main() -> int:
         f"{peak / 2 ** 20:.1f} MiB ({(peak - base_mem) / 2 ** 20:.1f} MiB above the "
         f"{base_mem / 2 ** 20:.1f} MiB held before the run, the input stream included)")
     want_g = {k: 0 for k in g_counts}
-    want_g.update(K3=GATHER_STEPS, K4=GATHER_STEPS, AGC=GATHER_STEPS)
+    want_g.update(K3=GATHER_STEPS, K4=GATHER_STEPS, AGC=GATHER_STEPS, Gather=GATHER_STEPS)
     if g_counts != want_g:
         fail(f"[gather] launch counters {g_counts}, expected {want_g}")
     got_w = torch.cat(outs, dim=-1).cpu().numpy()
@@ -1319,7 +1325,7 @@ def main() -> int:
     if snr_g < 60.0:
         fail(f"[gather] tone SNR {snr_g:.1f} dB < 60 dB")
     step_ms_of["[gather]"] = g_ms
-    # the gather stage alone (weighted bag sums): timed, twice on the same
+    # the gather stage alone (the gather kernel): timed, twice on the same
     # input compared bit for bit, and held on 8 channels against its
     # definition (the windows gathered and summed in float64)
     st_g = gch.resampler.stages[0]
@@ -1339,12 +1345,71 @@ def main() -> int:
     db_g = snr_db(def_g.cpu().numpy(), torch.complex(yr_g[:8], yi_g[:8]).cpu().numpy())
     gs_ms, _ = time_pair(run_g, run_g, reps=3)
     say(f"[gather] the stage alone ({m_g} outputs x {k_g} taps x {2 * CH} planes, "
-        f"weighted bag sums): {gs_ms:.3f} ms; against its definition in float64 "
+        f"the gather kernel): {gs_ms:.3f} ms; against its definition in float64 "
         f"{db_g:.1f} dB; two runs {'bit-identical' if same_g else 'differ'}")
     if db_g < 100.0 or not same_g:
         fail(f"[gather] the stage is {db_g:.1f} dB from its definition (>= 100 dB) "
              f"and two runs {'agree' if same_g else 'differ'} (bit for bit)")
     del stream, outs, carry, gch, twin, ext_g, def_g, again, yr_g, yi_g, xr_g, xi_g
+    # the gather kernel at the HackRF cell's shape (64 channels, a carried
+    # history): against its twin and its definition in float64, two
+    # launches bit for bit; timed beside the twin (cats, a transposing
+    # copy, embedding_bag, the planes split) and embedding_bag alone on a
+    # built ext, the yardstick the port no longer calls.  Bound: the
+    # planes in and out and the weights once at 3.35 TB/s; beside it the
+    # benchmark's bound (harness/bounds.py _gather), which reads the cs8
+    # wire in the planes' place.
+    hk = Chain(config("hackrf10", 64), device=dev)
+    st_h = hk.resampler.stages[0]
+    m_h, k_h = st_h.plan.weights.shape
+    n_h, c_h = st_h.plan.n_in, 64
+    tw_h = kernels.Gather.build(st_h.plan.weights, st_h.plan.starts, n_h, st_h.hist, dev,
+                                twin=True)
+    xr_h, xi_h, sr_h, si_h = (0.3 * torch.randn((c_h, w), generator=gen, device=dev)
+                              for w in (n_h, n_h, st_h.hist, st_h.hist))
+    run_h = lambda: kernels.gather_apply(xr_h, xi_h, sr_h, si_h, st_h.table)
+    twin_h = lambda: kernels.gather_apply_ref(xr_h, xi_h, sr_h, si_h, tw_h)
+    ext_h = torch.cat([torch.cat([sr_h, xr_h], -1), torch.cat([si_h, xi_h], -1)]).T.contiguous()
+    w_flat = tw_h.weights.reshape(-1)
+    lib_h = lambda: torch.nn.functional.embedding_bag(tw_h.cols, ext_h, tw_h.bags, mode="sum",
+                                                      per_sample_weights=w_flat)
+    kernels.reset_launch_counts()
+    (yr_h, yi_h), (ar_h, ai_h) = run_h(), run_h()
+    tr_h, ti_h = twin_h()
+    torch.cuda.synchronize()
+    same_h = torch.equal(yr_h, ar_h) and torch.equal(yi_h, ai_h)
+    h_launches = kernels.gather_apply.launches
+    ext64 = torch.complex(torch.cat([sr_h, xr_h], -1).double(),
+                          torch.cat([si_h, xi_h], -1).double())
+    outs_h = torch.from_numpy(st_h.plan.starts).to(dev).long()
+    w64_h = torch.from_numpy(st_h.plan.weights).to(dev).double()
+    def_h = torch.zeros((c_h, m_h), dtype=torch.complex128, device=dev)
+    for kk in range(k_h):
+        def_h += w64_h[:, kk] * ext64[:, outs_h + kk]
+    y_h = torch.complex(yr_h, yi_h)
+    db_h = snr_db(def_h.cpu().numpy(), y_h.cpu().numpy())
+    db_twin_h = snr_db(torch.complex(tr_h, ti_h).cpu().numpy(), y_h.cpu().numpy())
+    err_h = max_abs((tr_h, ti_h), (yr_h, yi_h))
+    gk_ms, gk_plain, gk_lib = time_pair(run_h, twin_h, reps=5, run_library=lib_h)
+    g_bytes = c_h * (n_h + st_h.hist) * 8 + c_h * m_h * 8 + m_h * k_h * 4
+    g_bound = g_bytes / 3.35e12 * 1e3
+    g_wire = (c_h * (n_h * 2 + 8 * st_h.hist) + c_h * m_h * 8) / 3.35e12 * 1e3
+    tiles_h = st_h.table.tiles[(c_h, 1)]
+    say(f"[gather] the kernel at the HackRF cell's shape ({c_h} x {n_h} -> {m_h}, K {k_h}; "
+        f"tile {tiles_h}): {gk_ms:.4f} ms, twin {gk_plain:.4f} ms, embedding_bag alone "
+        f"{gk_lib:.4f} ms; bound {g_bound:.4f} ms (planes in and out, weights once: "
+        f"{g_bytes / 1e6:.1f} MB), {100 * g_bound / gk_ms:.1f} %; the benchmark's bound "
+        f"(the cs8 wire in) {g_wire:.4f} ms, {100 * g_wire / gk_ms:.2f} %; against its "
+        f"definition {db_h:.1f} dB, its twin {db_twin_h:.1f} dB, max |err| {err_h:.3e}; "
+        f"two launches {'bit-identical' if same_h else 'DIFFER'}, counted {h_launches}")
+    if db_h < 120.0 or db_twin_h < 100.0 or not same_h or h_launches != 2:
+        fail(f"[gather] the kernel at the HackRF shape: {db_h:.1f} dB from its definition "
+             f"(>= 120), {db_twin_h:.1f} from its twin (>= 100), two launches "
+             f"{'agree' if same_h else 'differ'}, {h_launches} counted (2)")
+    report["Gather"] = dict(err=err_h, ms=gk_ms, plain=gk_plain, lib=gk_lib,
+                            bound=(g_bound, "bytes: planes in and out, weights"))
+    del hk, st_h, tw_h, xr_h, xi_h, sr_h, si_h, ext_h, ext64, def_h, y_h, tr_h, ti_h
+    del yr_h, yi_h, ar_h, ai_h
 
     # ----------------------------------------------------- 8. one stream, folded
     fold_counts = {}
@@ -1458,7 +1523,7 @@ def main() -> int:
                    "post_apply": "K4", "osfft_apply": "K5", "rms_gains": "AGC",
                    "iq_estimate": "IQest", "dc_prologue": "K1pro", "dc_carry": "K1carry",
                    "segment_energies": "AGCenergy", "agc_chain": "AGCchain",
-                   "overlap_save_fft": "OSfft"}
+                   "overlap_save_fft": "OSfft", "gather_apply": "Gather"}
 
     def graph_vs_eager(chain, blocks, reset, resume):
         """The eager step of ``chain`` over ``blocks`` (a reset at step
@@ -1846,13 +1911,16 @@ def main() -> int:
                         ("4k32", "config #4 at nfft 32768"),
                         ("4k128", "config #4 at nfft 131072 (the torch.fft route)"),
                         ("4dx", "config #4, dx AGC"), ("4dig", "config #4, digital AGC"),
-                        ("full4", "config #4 without the DC block")):
+                        ("full4", "config #4 without the DC block"),
+                        ("hackrf10", "the HackRF chain (cs8, the gather stage)")):
         ch_ = Chain(config(name, GRAPH_MORE_CH), device=dev)
         n = ch_.n_in
         stream = tone_wire(GRAPH_MORE_CH, GRAPH_MORE_STEPS * n, gen,
                            GATHER_TONE_HZ if name == "gather" else TONE_HZ)
         if ch_.cfg.input_format == "cu8":
             stream = to_cu8(stream)
+        elif ch_.cfg.input_format == "cs8":
+            stream = to_cs8(stream)
         blocks = [stream[:, k * 2 * n:(k + 1) * 2 * n] for k in range(GRAPH_MORE_STEPS)]
         bad, eager, g = graph_vs_eager(ch_, blocks, 2, 4)
         captured = {wrapper_key[k]: v for k, v in g.kernels.items()}
@@ -2166,7 +2234,8 @@ def main() -> int:
            "K1carry": "iq_tool_tpu_torch/csrc/banded_dc.cu",
            "AGCenergy": "iq_tool_tpu_torch/csrc/post.cu",
            "AGCchain": "iq_tool_tpu_torch/csrc/post.cu",
-           "OSfft": "iq_tool_tpu_torch/ops/filters.py"}
+           "OSfft": "iq_tool_tpu_torch/ops/filters.py",
+           "Gather": "iq_tool_tpu_torch/csrc/gather.cu"}
     rep = {"K1": "iq_tool_tpu/ops/pallas_kernels.py:772",
            "K2": "iq_tool_tpu/ops/pallas_kernels.py:492",
            "K2mma": "iq_tool_tpu/ops/pallas_kernels.py:492",
@@ -2183,7 +2252,9 @@ def main() -> int:
            "AGCchain": "iq_tool_tpu/ops/agc.py:78",
            # no TPU kernel: the reference's XLA overlap-save, where its
            # Pallas kernel declines the size
-           "OSfft": "iq_tool_tpu/ops/filters.py:265"}
+           "OSfft": "iq_tool_tpu/ops/filters.py:265",
+           # no TPU kernel: the reference's XLA gather and einsum
+           "Gather": "iq_tool_tpu/ops/resample.py:340"}
     # K1/K1carry/K2 launches from the flagship slice (K2 there on the wgmma
     # core), the rest from config #4's run (K2mma: its K2 on the mma.sync
     # core), K5 at nfft 32768 from the [full32k] run, K3 on cu8 from
@@ -2193,7 +2264,7 @@ def main() -> int:
     # captured kernels times their replays
     counts = {**general_launches, **launches, "K2mma": general_launches["K2mma"],
               "K5@32768": s4k["K5"], "K3@cu8": s3["K3"], "K3pre": sf4["K3pre"],
-              "OSfft": s4r["OSfft"],
+              "OSfft": s4r["OSfft"], "Gather": g_counts["Gather"],
               **{k: int(shard_report["1x4 config #4"][k] * SHARD_STEPS)
                  for k in ("AGCenergy", "AGCchain")},
               "K1pro": int(shard_report["1x4 flagship"]["K1pro"] * SHARD_STEPS)}

@@ -23,7 +23,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "iq_tool_tpu_torch"
 _SOURCES = ("banded.cu", "banded_mma.cu", "banded_dc.cu", "pre.cu", "post.cu", "osfft.cu",
-            "iq_est.cu", "graph_info.cu")
+            "iq_est.cu", "gather.cu", "graph_info.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,6 +67,8 @@ _SIGNATURES = {
     "iq_estimate": [_P, _I, _F, _F, _P, _P, _L, _L, _I, _P, ctypes.c_double, _P, _P,
                     _P, _P, _L, _L, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _P, _P,
                     _P, _P, _P],
+    "iq_gather_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P, _P, _P],
     "iq_capture_nodes": [_P, _P],
 }
 _RESTYPES = {"iq_dc_scratch_bytes": ctypes.c_longlong, "iq_dc_geometry": None}

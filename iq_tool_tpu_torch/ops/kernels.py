@@ -28,6 +28,10 @@
   whole (prefix decode, float64 DC prefix, both spectra, power gate,
   descent, smoothing and the due counter; a helper kernel, not a TPU
   kernel), which exits early when no update is due.
+* ``gather_apply`` (``csrc/gather.cu``): the gather resampler stage,
+  each output the dot of its own K weights with a window of history ++
+  block, FP32 over windows staged in shared memory (no TPU kernel: the
+  JAX package leaves the stage to XLA's gather and einsum).
 
 Each wrapper keeps the reference's signature minus ``interpret`` and the
 TPU tiling, and dispatches on where its input lies: a CPU tensor runs the
@@ -1402,9 +1406,246 @@ def iq_estimate(xr, xi, factors, counter, interval: int = 0, advance: int = 0,
 iq_estimate.launches = 0
 
 
+# ------------------------------ the gather stage ------------------------------
+
+GATHER_THREADS = 256          # csrc/gather.cu kGatherThreads
+GATHER_SMEM = 115712          # a CTA's shared memory at most: two CTAs an SM
+_GATHER_MAX_GROUPS = 16
+
+
+def _group_offsets(starts: np.ndarray, k: int) -> tuple[np.ndarray, int]:
+    """(d, span) of the outputs' groups of 4: d[g, i] = starts[4g + i] -
+    starts[4g] (0 past the last output), and the window every group's four
+    windows fit, span = max d + k rounded up to a multiple of 4."""
+    s = np.asarray(starts, np.int64)
+    gr = -(-s.shape[0] // 4)
+    pad = np.concatenate([s, np.repeat(s[-1:], 4 * gr - s.shape[0])]).reshape(gr, 4)
+    d = pad - pad[:, :1]
+    d[(4 * np.arange(gr)[:, None] + np.arange(4)) >= s.shape[0]] = 0
+    return d, _ceil4(int(d.max()) + k)
+
+
+def gather_windows(weights: np.ndarray, starts: np.ndarray) -> np.ndarray:
+    """The weights as csrc/gather.cu reads them: (ceil(M / 4), span, 4)
+    float32, out[g, t, i] = weights[4g + i, t - d[g, i]] where that tap
+    exists, else 0 (``_group_offsets``): each group's four windows on one
+    zero-padded window, so that a frame's four weights are 16 bytes."""
+    m, k = weights.shape
+    d, span = _group_offsets(starts, k)
+    gr = d.shape[0]
+    out = np.zeros((gr, span, 4), np.float32)
+    j = 4 * np.arange(gr)[:, None] + np.arange(4)                     # (gr, 4)
+    live = j < m
+    g, i = np.nonzero(live)
+    out[g[:, None], d[g, i][:, None] + np.arange(k)[None, :], i[:, None]] = weights[j[g, i]]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Gather:
+    """The gather stage's plan (ops/resample.py ``ArbPlan``) on a device:
+    the (M,) int32 window starts (output j reads ext[starts[j] : starts[j]
+    + K], ext = history ++ block); for the kernel (on CUDA) the weights as
+    ``gather_windows`` lays them out, for the twin (on the CPU unless
+    ``twin`` says otherwise) the (M, K) weights, the flat (M K,) window
+    rows and the bag starts ``embedding_bag`` takes.  ``tiles`` keeps each
+    launch shape's ``gather_tiles``."""
+    starts: torch.Tensor
+    n_in: int
+    hist: int
+    k: int
+    starts_host: np.ndarray
+    windows: torch.Tensor | None = None
+    weights: torch.Tensor | None = None
+    cols: torch.Tensor | None = None
+    bags: torch.Tensor | None = None
+    tiles: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    @staticmethod
+    def build(weights: np.ndarray, starts: np.ndarray, n_in: int, hist: int, device,
+              twin: bool | None = None) -> "Gather":
+        dev = torch.device(device)
+        m, k = weights.shape
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        fields = {}
+        if dev.type == "cuda":
+            fields["windows"] = t(gather_windows(weights, starts))
+        if dev.type == "cpu" if twin is None else twin:
+            rows = starts.astype(np.int64)[:, None] + np.arange(k)[None, :]
+            fields.update(weights=t(weights.astype(np.float32)), cols=t(rows.reshape(-1)),
+                          bags=torch.arange(0, m * k, k, device=dev))
+        return Gather(starts=t(starts.astype(np.int32)), n_in=n_in, hist=hist, k=k,
+                      starts_host=starts.astype(np.int64), **fields)
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherTiles:
+    """A gather launch's tiling (``gather_tiles``): a CTA owns ``groups``
+    groups of 4 consecutive outputs and ``cols`` // 2 channels (both
+    planes); their ``span``-frame windows are staged ``pass_len`` frames
+    at a time; ``slices`` threads of each (group, 4-column chunk) take
+    ``slice_len`` frames of a pass each."""
+    cols: int
+    groups: int
+    slices: int
+    slice_len: int
+    span: int
+    pass_len: int
+    wstride: int      # float4s between two groups' staged weights
+    tile_rows: int    # input frames a pass stages, at most
+    smem: int         # bytes of shared memory
+    threads: int
+    grid: tuple[int, int]
+
+
+def _ceil4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def gather_tiles(starts: np.ndarray, k: int, n_in: int, channels: int,
+                 rows: int) -> GatherTiles:
+    """The tile csrc/gather.cu runs a block of ``rows`` row blocks of
+    ``channels`` channels with, from what the plan shows: K, the
+    distance between the outputs' windows (q/p), the channels and the
+    rows.  Of the channel groups (16, 8, ..., 1, at most the channels
+    rounded up to a power of two) and group counts (1-16) whose staged
+    input and weights fit GATHER_SMEM (a window too long for it staged in
+    passes), it takes the one that stages the fewest bytes an output
+    column (the staged input, halo included, and the weights, over the
+    outputs times columns they serve), then as many threads as runs of
+    at least 16 frames give, up to GATHER_THREADS."""
+    s = np.asarray(starts, np.int64)
+    gr = -(-s.shape[0] // 4)
+    first = s[0::4]
+    span = _group_offsets(s, k)[1]
+    total = gr * rows
+    reps = min(rows, -(-_GATHER_MAX_GROUPS // gr) + 1)
+    orig = (first[None, :] + n_in * np.arange(reps)[:, None]).ravel()
+
+    def spread(g):
+        """The widest distance between the window starts of a tile's
+        first and last group."""
+        if g >= orig.size:
+            return int(orig[-1] - orig[0])
+        return int((orig[g - 1:] - orig[:orig.size - g + 1]).max())
+
+    def need(cols, g, sp, p):
+        wstride = p + (2 - p % 8) % 8          # groups 8 banks apart
+        return _ceil4((sp + p) * cols) * 4 + g * wstride * 16, wstride
+
+    best = None
+    cg = min(16, 1 << max(0, channels - 1).bit_length())
+    while cg >= 1:
+        cols = 2 * cg
+        for g in range(min(_GATHER_MAX_GROUPS, total), 0, -1):
+            sp = spread(g)
+            p = span
+            if need(cols, g, sp, p)[0] > GATHER_SMEM:
+                p = (GATHER_SMEM - sp * cols * 4 - g * 16 * 8 - 16) // (cols * 4 + g * 16)
+                p = min(span, p - p % 4)
+                while p >= 16 and need(cols, g, sp, p)[0] > GATHER_SMEM:
+                    p -= 4
+                if p < 16:
+                    continue
+            passes = -(-span // p)
+            staged = passes * (sp + p) * cols * 4 + g * span * 16
+            key = (staged / (4 * g * cols), -g * cols)
+            if best is None or key < best[0]:
+                best = (key, cols, g, sp, p)
+        cg //= 2
+    if best is None:
+        raise ValueError(f"gather stage: no tile fits {GATHER_SMEM} bytes (K {k})")
+    _, cols, g, sp, p = best
+    kb = 4 if cols >= 4 else 2
+    per = g * cols // kb
+    slices = max(1, min(GATHER_THREADS // per, p // 16))
+    slice_len = _ceil4(-(-p // slices))
+    slices = -(-p // slice_len)
+    smem, wstride = need(cols, g, sp, p)
+    smem = max(smem, (slices - 1) * 4 * kb * per * 4)
+    return GatherTiles(cols=cols, groups=g, slices=slices, slice_len=slice_len, span=span,
+                       pass_len=p, wstride=wstride, tile_rows=sp + p, smem=smem,
+                       threads=per * slices,
+                       grid=(-(-total // g), -(-channels // (cols // 2))))
+
+
+def gather_apply_ref(xr, xi, state_r, state_i, g: Gather):
+    """Plain twin of gather_apply: ext = history ++ block as the columns
+    of an (L, 2C) tensor, each output row one weighted bag sum over K
+    rows of it (``embedding_bag``): no window tensor is built, the sums
+    run in a fixed order, and on the CPU they are the JAX package's
+    gather and einsum bit for bit.  A block of r row blocks takes the
+    plan's rows r times, each n_in further on, in one call."""
+    if g.cols is None:
+        raise ValueError("this Gather was built without the twin's window rows")
+    k = g.k
+    ext = torch.cat([torch.cat([state_r, xr], -1),
+                     torch.cat([state_i, xi], -1)]).T.contiguous()   # (L, 2C)
+    cols, bags, w = g.cols, g.bags, g.weights.reshape(-1)
+    r = xr.shape[-1] // g.n_in
+    if r > 1:
+        cols = (cols[None, :] + g.n_in * torch.arange(r, device=cols.device)[:, None]
+                ).reshape(-1)
+        bags = torch.arange(0, cols.numel(), k, device=cols.device)
+        w = w.repeat(r)
+    y = torch.nn.functional.embedding_bag(cols, ext, bags, mode="sum",
+                                          per_sample_weights=w).T     # (2C, M')
+    ch = xr.shape[0]
+    return y[:ch].contiguous(), y[ch:].contiguous()
+
+
+def gather_apply(xr, xi, state_r, state_i, g: Gather):
+    """The gather stage (``csrc/gather.cu``): (yr, yi), each (C, r M),
+    output j of row block b the dot of the plan's K weights w[j] with
+    ext[starts[j] + b n_in : ... + K], ext = history ++ block.
+
+    x*: (C, r n_in) float32 planes; state_*: (C, hist) float32, the
+    history.  One launch, the tile from ``gather_tiles``; the outputs
+    are allocated here."""
+    ch, n = xr.shape
+    if n % g.n_in:
+        raise ValueError(f"block of {n} samples is not a multiple of {g.n_in}")
+    if xr.device.type == "cpu":
+        return gather_apply_ref(xr, xi, state_r, state_i, g)
+    from iq_tool_tpu_torch.ops import _build
+    lib = _build.library()
+    if g.windows is None:
+        raise ValueError("this Gather was built without the kernel's windows")
+    _require_cuda(xr, xi, state_r, state_i, g.windows, g.starts)
+    _require_dtypes(None, _PLANAR, None, xr, xi, state_r, state_i, g.windows)
+    if g.starts.dtype != torch.int32:
+        raise ValueError(f"window starts must be int32, got {g.starts.dtype}")
+    dev = xr.device
+    if any(t.device != dev for t in (xi, state_r, state_i, g.windows, g.starts)):
+        raise ValueError(f"kernel inputs must all lie on {dev}")
+    if xi.shape != (ch, n):
+        raise ValueError(f"xi must be ({ch}, {n})")
+    if state_r.shape != (ch, g.hist) or state_i.shape != (ch, g.hist):
+        raise ValueError(f"history planes must be ({ch}, {g.hist})")
+    m = g.starts.shape[0]
+    rows = n // g.n_in
+    t = g.tiles.get((ch, rows))
+    if t is None:
+        t = g.tiles[(ch, rows)] = gather_tiles(g.starts_host, g.k, g.n_in, ch, rows)
+    yr = torch.empty((ch, rows * m), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    with torch.cuda.device(dev):
+        rc = lib.iq_gather_apply(
+            _ptr(xr), _ptr(xi), _ptr(state_r), _ptr(state_i), _ptr(g.windows),
+            _ptr(g.starts), ch, n, g.hist, m, g.n_in, rows, t.cols, t.groups, t.slices,
+            t.slice_len, t.span, t.pass_len, t.wstride, t.tile_rows, t.smem, _ptr(yr),
+            _ptr(yi), _stream())
+    _check(rc, "gather kernel")
+    _launched("gather_kernel", gather_apply)
+    return yr, yi
+
+
+gather_apply.launches = 0
+
+
 _COUNTED = [banded_apply, banded_apply_mma, banded_apply_dc, dc_carry, dc_prologue, dc_block_apply,
             pre_apply, post_apply, rms_gains, segment_energies, agc_chain, osfft_apply,
-            iq_estimate]
+            iq_estimate, gather_apply]
 
 
 def counted(fn):

@@ -11,8 +11,10 @@ wrapper (ops/kernels.py), which launches the CUDA kernel on CUDA tensors
 and runs the plain windows + matmul path on CPU tensors.
 
 Ratios whose rationalization keeps a prime factor too large to stage
-run one exact gather stage instead (``_ArbStage``), in plain torch on
-both devices, as the reference runs it in XLA outside any Pallas kernel.
+run one exact gather stage instead (``_ArbStage``) through
+``kernels.gather_apply``: on the card a CUDA kernel of its own
+(``csrc/gather.cu``), on the CPU its plain twin; the reference runs the
+stage in XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ from fractions import Fraction
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from iq_tool_tpu_torch import constants as C
 from iq_tool_tpu_torch.ops import banded, kernels
@@ -134,27 +135,24 @@ class _ArbStage:
 
     Gathered whole, the windows are a (C, M, K) tensor: at 128 channels,
     3143 outputs and 1298 taps (2469/200000 at a 262144-frame target)
-    2.1 GB a plane.  So the two planes go side by side as the columns of
-    ext (L, 2C) and each output row is one weighted bag sum over K rows
-    of it (``embedding_bag``): no window tensor is built, the sums run in
-    a fixed order (two runs give the same bits), and on the CPU they are
-    the reference's gather and einsum bit for bit.  The plan's outputs
-    repeat every n_in inputs, so a block of r * n_in samples (a time
-    fold) takes the plan's rows r times, each n_in further on, in one
-    call."""
+    2.1 GB a plane.  So no window tensor is built: ``kernels.gather_apply``
+    runs the stage, on the card as one kernel (``csrc/gather.cu``: each
+    CTA stages its span of history and block in shared memory and sums
+    in FP32 in a fixed order), on the CPU as its twin's weighted bag sums
+    (``embedding_bag``), the reference's gather and einsum bit for bit.
+    Either way two runs give the same bits.  The plan's outputs repeat
+    every n_in inputs, so a block of r * n_in samples (a time fold) takes
+    the plan's rows r times, each n_in further on, in one call."""
 
     def __init__(self, plan: ArbPlan):
         self.plan = plan
         self.p, self.q = plan.p, plan.q
         self.hist = plan.history
-        self._cols = self._w = self._bags = None  # flat (M K,) rows, weights; bag starts
+        self.table: kernels.Gather | None = None
 
     def bind(self, device) -> None:
-        m, k = self.plan.weights.shape
-        cols = self.plan.starts.astype(np.int64)[:, None] + np.arange(k)[None, :]
-        self._cols = torch.from_numpy(cols.reshape(-1)).to(device)
-        self._w = torch.from_numpy(self.plan.weights.reshape(-1)).to(device)
-        self._bags = torch.arange(0, m * k, k, device=device)
+        self.table = kernels.Gather.build(self.plan.weights, self.plan.starts,
+                                          self.plan.n_in, self.hist, device)
 
     def init_planar(self, channels: int, device=None):
         z = lambda: torch.zeros((channels, self.hist), dtype=torch.float32,
@@ -165,23 +163,9 @@ class _ArbStage:
         """((yr, yi), new_r, new_i) for a block of a multiple of n_in."""
         if pack_fmt:
             raise ValueError("the gather stage has no packed epilogue")
-        ch, n = xr.shape
-        n_in, hist = self.plan.n_in, self.hist
-        if n % n_in:
-            raise ValueError(f"block of {n} samples is not a multiple of {n_in}")
-        ext = torch.cat([torch.cat([state_r, xr], -1),
-                         torch.cat([state_i, xi], -1)]).T.contiguous()   # (L, 2C)
-        cols, bags, w = self._cols, self._bags, self._w
-        r = n // n_in
-        if r > 1:
-            cols = (cols[None, :] + n_in * torch.arange(r, device=cols.device)[:, None]
-                    ).reshape(-1)
-            bags = torch.arange(0, cols.numel(), self.plan.weights.shape[1],
-                                device=cols.device)
-            w = w.repeat(r)
-        y = F.embedding_bag(cols, ext, bags, mode="sum", per_sample_weights=w).T  # (2C, M')
-        return ((y[:ch].contiguous(), y[ch:].contiguous()),
-                banded.new_tail(state_r, xr, hist), banded.new_tail(state_i, xi, hist))
+        y = kernels.gather_apply(xr, xi, state_r, state_i, self.table)
+        return (y, banded.new_tail(state_r, xr, self.hist),
+                banded.new_tail(state_i, xi, self.hist))
 
 
 class _MatmulStage:

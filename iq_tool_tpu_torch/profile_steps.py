@@ -19,7 +19,9 @@ baseline3 runs it (an RTL-SDR's cu8 at 2.4 Msps, the DC block, the
 102-215 kHz band-pass after the resampler); "c1" and "4c1" the flagship and config #4 as
 one stream at the CLI's default 16384-frame block, "f8" with
 --time-fold 8; "gather"
-128 x 254597 through the gather stage; "<name>@<C>x<T>" the
+128 x 254597 through the gather stage; "hackrf10" the benchmark's HackRF
+chain (cs8 at 10 Msps -> 744,187.5 Hz through the gather stage, the
+digital AGC; 256,172 frames a step); "<name>@<C>x<T>" the
 ShardedChain of <name> on a C x T mesh repeating the card, each shard a
 128 / C x 262144 block): 3 warm-up steps, then 40 steps timed by the
 host clock (ending in a synchronize; a short window after an idle card
@@ -78,8 +80,10 @@ GATHER_RATE = 25_282.56     # 2469/200000 of 2.048 Msps -> 449/36371: the gather
 GATHER_TONE_HZ = 3_000.0
 STREAM_BLOCK = 16384        # the CLI's default --block-size
 RTLSDR_RATE = 2_400_000.0   # the RTL-SDR's default rate ("baseline3")
+HACKRF_RATE, HACKRF_OUT = 10_000_000.0, 744_187.5   # "hackrf10": 4766/64043
 CONFIGS = ("flagship", "1", "2", "4", "5", "3", "4k32", "4k128", "4dx", "4dig", "full4",
-           "baseline3", "c1", "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4", "4@1x4",
+           "baseline3", "hackrf10", "c1", "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4",
+           "4@1x4",
            "flagship@2x2", "flagship@4x1")
 # config #4's variants: --filter-fft-size, --output-agc; "full4" without
 # the DC block (the benchmark's full4 chain)
@@ -124,6 +128,10 @@ def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConf
     if name == "gather":
         return ChainConfig(input_format="cs16", agc_profile="local",
                            **{**base, "target_rate": GATHER_RATE})
+    if name == "hackrf10":
+        return ChainConfig(input_format="cs8", agc_profile="digital",
+                           **{**base, "dc_block": False, "input_rate": HACKRF_RATE,
+                              "target_rate": HACKRF_OUT})
     raise ValueError(f"unknown configuration {name!r}")
 
 
@@ -182,6 +190,12 @@ def to_cu8(wire16: torch.Tensor) -> torch.Tensor:
     """The same tone as cu8 codes: (C, 2*frames) uint8."""
     x = wire16.to(torch.float32) / 32767.0
     return torch.clamp(torch.round(x * 127.5 + 127.5), 0, 255).to(torch.uint8)
+
+
+def to_cs8(wire16: torch.Tensor) -> torch.Tensor:
+    """The same tone as cs8 codes: (C, 2*frames) int8."""
+    x = wire16.to(torch.float32) / 32767.0
+    return torch.clamp(torch.round(x * 128.0), -128, 127).to(torch.int8)
 
 
 def device_work(prof) -> list:
@@ -310,6 +324,8 @@ def profile(name: str, graphed: bool = False, channels: int = CHANNELS) -> dict:
                      GATHER_TONE_HZ if name == "gather" else TONE_HZ)
     if cfg.input_format == "cu8":
         wire = to_cu8(wire)
+    elif cfg.input_format == "cs8":
+        wire = to_cs8(wire)
     parts = [wire[:, k * 2 * n:(k + 1) * 2 * n].contiguous() for k in range(distinct)]
     blocks = itertools.cycle(parts)
     del wire

@@ -173,6 +173,22 @@ def test_profiled_baseline3_is_the_benchmarks():
     assert profile_steps.config("baseline3", 64) == want
 
 
+def test_profiled_hackrf10_is_the_benchmarks():
+    """profile_steps' "hackrf10" is the chain of the benchmark's hackrf10
+    configuration (benchmark/configs/hackrf10.json), field for field, and
+    its input the measured tone as cs8 codes."""
+    import json
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmark/configs/hackrf10.json"
+    fields = dict(json.loads(path.read_text())["chain"])
+    fields["filters"] = tuple(FilterRequest(*f) for f in fields["filters"])
+    want = ChainConfig(channels=64, target_block=262144, **fields)
+    assert profile_steps.config("hackrf10", 64) == want
+    w = profile_steps.tone_wire(3, 4096, torch.Generator().manual_seed(7))
+    c = profile_steps.to_cs8(w)
+    assert c.dtype == torch.int8 and 63 <= int(c.abs().max()) <= 65
+
+
 def test_measured_tone_wire():
     """The measured chains' input: seeded, full-scale-safe cs16, and the
     same tone as cu8 codes."""

@@ -1076,7 +1076,95 @@ def test_gather_chain_on_card_matches_cpu_chain(rng):
         cc, co = cpu.step(cc, blk)
         assert int((go.cpu().to(torch.int64) - co.to(torch.int64)).abs().max()) <= 4
     assert (kernels.dc_block_apply.launches, kernels.post_apply.launches,
-            kernels.rms_gains.launches, kernels.banded_apply.launches) == (3, 3, 3, 0)
+            kernels.rms_gains.launches, kernels.banded_apply.launches,
+            kernels.gather_apply.launches) == (3, 3, 3, 0, 3)
+
+
+GATHER_PLANS = {"hackrf": (4766 / 64043, 256172),      # the HackRF cell: 10 Msps -> 744,187.5
+                "2469": (2469 / 200000, 16384)}        # 449/36371, K = 1,298
+
+
+def _gather_stage(plan):
+    from iq_tool_tpu_torch.ops import resample as prs
+    (st,) = prs.Resampler(*GATHER_PLANS[plan]).stages
+    st.bind("cuda")
+    return st
+
+
+@pytest.mark.parametrize("plan,channels,rows", [("hackrf", 64, 1), ("hackrf", 64, 2),
+                                                ("2469", 3, 1), ("2469", 3, 2)])
+def test_gather_kernel_is_the_plan(rng, plan, channels, rows):
+    """The gather kernel (csrc/gather.cu) at the HackRF plan (64
+    channels) and 449/36371 (3 channels), over one and two row blocks
+    after a carried history: >= 120 dB from the plan's float64
+    definition, as test_gather_product_is_the_plan asks of the twin, and
+    >= 100 dB from the twin on the card; two launches bit-identical, each
+    counted, the twin counting none."""
+    _need_card()
+    st = _gather_stage(plan)
+    pl = st.plan
+    twin = kernels.Gather.build(pl.weights, pl.starts, pl.n_in, st.hist, "cuda", twin=True)
+    n = rows * pl.n_in
+    xr, xi = _planes(rng, channels, n)
+    sr, si = _planes(rng, channels, st.hist)
+    kernels.reset_launch_counts()
+    yr, yi = kernels.gather_apply(xr, xi, sr, si, st.table)
+    ar, ai = kernels.gather_apply(xr, xi, sr, si, st.table)
+    tr, ti = kernels.gather_apply_ref(xr, xi, sr, si, twin)
+    torch.cuda.synchronize()
+    assert kernels.gather_apply.launches == 2
+    assert torch.equal(yr, ar) and torch.equal(yi, ai)
+    assert yr.shape == yi.shape == (channels, rows * pl.n_out)
+    ext = torch.complex(torch.cat([sr, xr], -1).double(), torch.cat([si, xi], -1).double())
+    w = torch.from_numpy(pl.weights).cuda().double().repeat(rows, 1)        # (rows M, K)
+    outs = (torch.arange(rows, device="cuda")[:, None] * pl.n_in
+            + torch.from_numpy(pl.starts).cuda().long()[None, :]).reshape(-1)
+    want = torch.zeros((channels, outs.numel()), dtype=torch.complex128, device="cuda")
+    for k in range(w.shape[1]):
+        want += w[:, k] * ext[:, outs + k]
+    snrs = [_snr(want.real, yr), _snr(want.imag, yi), _snr(tr, yr), _snr(ti, yi)]
+    assert min(snrs[:2]) >= 120.0 and min(snrs[2:]) >= 100.0, snrs
+
+
+def test_gather_kernel_refuses_bad_inputs(rng):
+    """The wrapper checks device, dtype, shape and contiguity and raises;
+    a CPU tensor runs the twin, which needs the twin's rows."""
+    _need_card()
+    st = _gather_stage("2469")
+    n = st.plan.n_in
+    xr, xi = _planes(rng, 2, n)
+    sr, si = _planes(rng, 2, st.hist)
+    g = st.table
+    with pytest.raises(ValueError, match="multiple"):
+        kernels.gather_apply(xr[:, :-1], xi[:, :-1], sr, si, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gather_apply(torch.cat([xr, xr], -1)[:, ::2], xi, sr, si, g)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.gather_apply(xr.double(), xi, sr, si, g)
+    with pytest.raises(ValueError, match="history"):
+        kernels.gather_apply(xr, xi, sr[:, 1:].contiguous(), si, g)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gather_apply(xr, xi.cpu(), sr, si, g)
+    with pytest.raises(ValueError, match="twin"):
+        kernels.gather_apply(xr.cpu(), xi.cpu(), sr.cpu(), si.cpu(), g)
+
+
+def test_gather_chain_graph_runs_the_kernel():
+    """The HackRF chain (the benchmark's hackrf10) captured as a graph:
+    the stage record lists the gather kernel under chain.resample.0 and
+    no torch gather, and the stage's nodes are the kernel and the two
+    history copies."""
+    _need_card()
+    from iq_tool_tpu_torch.pipeline import trace
+    from iq_tool_tpu_torch.pipeline.graphed import GraphedStep
+    from iq_tool_tpu_torch.profile_steps import config
+    g = GraphedStep(Chain(config("hackrf10", 4), device="cuda"))
+    g.capture()
+    assert g.stage_kernels["chain.resample.0"] == {"gather_kernel": 1}
+    assert trace.stage_kernels() == g.stage_kernels
+    assert not any("embedding" in k for v in g.stage_kernels.values() for k in v)
+    assert g.kernels["gather_apply"] == 1
+    assert dict(g.stages)["chain.resample.0"] == 3
 
 
 @pytest.mark.parametrize("fold", ["1", "4"])

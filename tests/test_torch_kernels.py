@@ -1024,3 +1024,182 @@ def test_general_wrappers_refuse_bad_inputs():
         kernels.post_apply(z, z, torch.ones((2, 2)), 0)
     with pytest.raises(ValueError):     # a window schedule that leaves a gap
         kernels.Windows.uniform(3 * 64 + 10, 64, 64, "cpu")
+
+
+# ------------------------------ the gather stage ------------------------------
+
+def _gather_stage(ratio, block):
+    from iq_tool_tpu_torch.ops import resample as prs
+    (st,) = prs.Resampler(ratio, target_block=block).stages
+    return st
+
+
+GATHER_PLANS = {"hackrf": (4766 / 64043, 256172),      # the HackRF cell: 10 Msps -> 744,187.5
+                "2469": (2469 / 200000, 16384)}        # 449/36371, K = 1,298
+
+
+def _gather_emulation(starts, w, n_in, hist, channels, rows, ext=None):
+    """csrc/gather.cu's launch over the tile ``kernels.gather_tiles``
+    chooses, CTA by CTA in numpy: the rows each pass stages (which ext
+    frame and column lands where in the swizzled layout, by the 16-byte
+    quads of the block planes or a frame at a time, nothing written twice,
+    inside the tile's shared memory), each group's frames of the weight
+    windows (``kernels.gather_windows``), each thread's runs of frames.
+    Asserts that every output reads exactly ext[starts[j] + b n_in : ... +
+    K], each tap once with its weight and no frame past ext's end with a
+    weight; returns how often each (plane, channel, output) is written
+    and, where ``ext`` (2, C, hist + n) is given, the outputs summed in
+    float64."""
+    t = kernels.gather_tiles(starts, w.shape[1], n_in, channels, rows)
+    windows = kernels.gather_windows(w, starts)
+    m, k = w.shape
+    gr = -(-m // 4)
+    total = gr * rows
+    cols, g_cta = t.cols, t.groups
+    cg = cols // 2
+    kb = 4 if cols >= 4 else 2
+    slots = cols // kb
+    n = rows * n_in
+    ext_len = hist + n
+    vec = kb == 4 and n % 4 == 0
+    s64 = starts.astype(np.int64)
+    x_floats = -(-t.tile_rows * cols // 4) * 4
+    per = g_cta * slots
+    tiles = -(-total // g_cta)
+    assert windows.shape == (gr, t.span, 4)
+    assert t.threads == per * t.slices <= kernels.GATHER_THREADS
+    assert x_floats * 4 + g_cta * t.wstride * 16 <= t.smem <= kernels.GATHER_SMEM
+    assert (t.slices - 1) * 4 * kb * per * 4 <= t.smem
+    assert t.span % 4 == t.pass_len % 4 == t.slice_len % 4 == 0
+    assert t.slices * t.slice_len >= t.pass_len <= t.wstride and t.wstride % 8 == 2
+    assert t.grid[0] == tiles and (t.grid[1] - 1) * cg < channels <= t.grid[1] * cg
+
+    def at(row, chunk):
+        sw = (row >> 2) & (slots - 1) if slots > 1 else 0
+        return row * cols + (chunk ^ sw) * kb
+
+    ch_of = lambda by: by * cg + np.arange(cols) % cg            # (cols,)
+    plane_of = (np.arange(cols) >= cg).astype(int)
+    written = np.zeros((2, channels, rows * m), np.int32)
+    y = None if ext is None else np.zeros((2, channels, rows * m))
+    for tile in range(tiles):                                      # CTA by CTA
+        gis = tile * g_cta + np.arange(min(g_cta, total - tile * g_cta))
+        ng = gis.size
+        orig = s64[4 * (gis % gr)] + (gis // gr) * n_in          # each group's window start
+        e0, spread = orig[0], orig[-1] - orig[0]
+        xo = orig - e0
+        jj = 4 * (gis % gr)[:, None] + np.arange(4)               # (ng, 4) outputs
+        have = jj < m
+        d = np.where(have, s64[np.minimum(jj, m - 1)] - orig[:, None]
+                     + (gis // gr)[:, None] * n_in, 0)
+        taps = np.zeros((ng, 4), np.int64)
+        acc = None if ext is None else np.zeros((t.grid[1], ng, 4, cols))
+        for p0 in range(0, t.span, t.pass_len):
+            pl = min(t.pass_len, t.span - p0)
+            e_lo, size = e0 + p0, spread + pl
+            assert size <= t.tile_rows
+            v_lo = v_hi = e_lo
+            if vec:
+                lo = -(-(max(e_lo, hist) - hist) // 4) * 4
+                hi = (min(e_lo + size, ext_len) - hist) // 4 * 4
+                if hi > lo:
+                    v_lo, v_hi = hist + lo, hist + hi
+            head, quads = v_lo - e_lo, (v_hi - v_lo) // 4
+            r = np.arange(size)
+            by_quad = (r >= head) & (r < head + 4 * quads)
+            ex = e_lo + r[by_quad] - hist                          # the quads' block frames
+            assert (ex[::4] % 4 == 0).all() and (ex >= 0).all() and (ex < n).all()
+            row_at = np.full(x_floats, -1)
+            col_at = np.full(x_floats, -1)
+            for path in (by_quad, ~by_quad):                        # 16-byte quads, then frames
+                for chunk in range(slots):
+                    for j in range(kb):
+                        idx = at(r[path], chunk) + j
+                        assert (row_at[idx] == -1).all()          # nothing staged twice
+                        row_at[idx], col_at[idx] = r[path], chunk * kb + j
+            assert (row_at[:size * cols] >= 0).all()
+            tt = np.arange(pl)
+            assert (tt // t.slice_len < t.slices).all()           # the runs cover the pass
+            kk = p0 + tt[None, None, :] - d[:, :, None]           # (ng, 4, pl) tap of each frame
+            live = have[:, :, None] & (kk >= 0) & (kk < k)
+            taps += live.sum(-1)
+            wv = windows[(gis % gr)[:, None], p0 + tt[None, :]].transpose(0, 2, 1)   # (ng, 4, pl)
+            want_w = np.where(live, w[np.minimum(jj, m - 1)[:, :, None], np.clip(kk, 0, k - 1)], 0)
+            assert np.array_equal(wv, want_w)
+            for slot in range(slots):
+                for j in range(kb):
+                    pos = at(xo[:, None] + tt[None, :], slot) + j   # (ng, pl)
+                    assert (row_at[pos] == xo[:, None] + tt[None, :]).all()
+                    assert (col_at[pos] == slot * kb + j).all()
+            e = e0 + p0 + xo[:, None] + tt[None, :]                # (ng, pl) frame read
+            want = orig[:, None, None] + d[:, :, None] + kk       # its tap's frame
+            assert (e[:, None, :] == want)[live].all()
+            assert np.broadcast_to(e[:, None, :] < ext_len, live.shape)[live].all()
+            if ext is not None:
+                e_c = np.minimum(e, ext_len - 1)
+                for by in range(t.grid[1]):
+                    ch = np.minimum(ch_of(by), channels - 1)
+                    xv = ext[plane_of[:, None], ch[:, None], e_c.reshape(-1)[None, :]]
+                    xv = np.where((e < ext_len).reshape(-1)[None, :], xv, 0.0)
+                    xv = xv.reshape(cols, ng, pl)
+                    acc[by] += np.einsum("gip,cgp->gic", wv, xv)
+        assert (taps[have] == k).all() and (taps[~have] == 0).all()
+        b, j = np.broadcast_to((gis // gr)[:, None], jj.shape), jj
+        for by in range(t.grid[1]):
+            ch = ch_of(by)
+            for c in range(cols):
+                if ch[c] >= channels:
+                    continue
+                o = (b * m + j)[have]
+                written[plane_of[c], ch[c], o] += 1
+                if y is not None:
+                    y[plane_of[c], ch[c], o] = acc[by, :, :, c][have]
+    return written, y
+
+
+@pytest.mark.parametrize("plan,channels,rows", [("hackrf", 64, 1), ("hackrf", 2, 2),
+                                                ("2469", 128, 1), ("2469", 3, 1),
+                                                ("2469", 3, 2), ("2469", 1, 8)])
+def test_gather_tiles_read_each_window_once(rng, plan, channels, rows):
+    """The gather kernel's tiling (``kernels.gather_tiles``, emulated CTA
+    by CTA): channel groups and tiles of groups cover the outputs, the
+    ragged last tile and channel group included; each CTA's staged span,
+    halo included, fits its shared memory; every output reads exactly its
+    window, over r = 2 and 8 row blocks too, and is written once.  At
+    few channels, the emulation's float64 sums are the plan's definition."""
+    st = _gather_stage(*GATHER_PLANS[plan])
+    plan_, hist = st.plan, st.hist
+    n = rows * plan_.n_in
+    ext = None
+    if channels <= 3:
+        ext = rng.standard_normal((2, channels, hist + n))
+    written, y = _gather_emulation(plan_.starts, plan_.weights, plan_.n_in, hist,
+                                   channels, rows, ext)
+    assert (written == 1).all()
+    if ext is not None:
+        w = plan_.weights.astype(np.float64)
+        want = np.zeros_like(y)
+        outs = (np.arange(rows)[:, None] * plan_.n_in
+                + plan_.starts.astype(np.int64)[None, :]).reshape(-1)      # (rows M,)
+        for kk in range(w.shape[1]):
+            want += np.tile(w[:, kk], rows) * ext[:, :, outs + kk]
+        np.testing.assert_allclose(y, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+def test_gather_tiles_adapt_to_the_plan():
+    """The tile follows the plan and the input: 16 channels a CTA and
+    the whole window in one pass at the HackRF plan's 216 taps, fewer
+    channels and the window in passes for 449/36371's 1,298 at 128
+    channels and for 1/997's 15,952; two CTAs an SM, within the threads
+    a CTA has."""
+    hk = _gather_stage(*GATHER_PLANS["hackrf"]).plan
+    t = kernels.gather_tiles(hk.starts, hk.weights.shape[1], hk.n_in, 64, 1)
+    assert (t.cols, t.pass_len) == (32, t.span) and t.span >= hk.weights.shape[1]
+    lg = _gather_stage(2469 / 200000, 262144).plan
+    u = kernels.gather_tiles(lg.starts, lg.weights.shape[1], lg.n_in, 128, 1)
+    assert u.cols < 32 and u.pass_len < u.span
+    xl = _gather_stage(1 / 997, 1 << 20).plan
+    v = kernels.gather_tiles(xl.starts, xl.weights.shape[1], xl.n_in, 1, 1)
+    assert xl.weights.shape[1] > 15000 and v.pass_len < v.span
+    for x in (t, u, v):
+        assert 2 * (x.smem + 1024) <= 233472 and x.threads <= kernels.GATHER_THREADS

@@ -4,10 +4,12 @@ package's on the CPU: the plan bit for bit, the stage over carried
 blocks, the alias-rejection and in-band cases of tests/test_resample.py,
 and a chain with that ratio (DC + local AGC) against JAX ``Chain.step``.
 
-The port computes the stage as weighted bag sums (``embedding_bag``),
-JAX as a gather and an einsum.  Bounds: the stage >= 100 dB against JAX with
-tails equal to 1e-6; the chain within 4 codes, as the other chain tests
-allow.
+On the CPU the port computes the stage with the gather kernel's twin
+(``kernels.gather_apply_ref``: weighted bag sums, ``embedding_bag``), JAX
+as a gather and an einsum; on the card the kernel (``csrc/gather.cu``,
+held to the twin in tests/test_torch_gpu.py).  Bounds: the stage >= 100
+dB against JAX with tails equal to 1e-6; the chain within 4 codes, as the
+other chain tests allow.
 """
 
 import numpy as np
