@@ -20,7 +20,9 @@ first failure:
    mma.sync core, timed in turns) and at the strides 224, 400 and 144
    and config #4's stages 512 and 256 (planar and packed, with
    bit-for-bit repeats, on both product cores, the rule's first; K2mma,
-   K2 on the mma.sync core, at #4's stage 0), the banded core's design
+   K2 on the mma.sync core, at #4's stage 0; K2dec, K2 as the AM cell's
+   43:1 decimator at its 64 x 1,056,768 planes, on the wgmma core with a
+   bit-for-bit repeat), the banded core's design
    and launch geometry printed beside K1 and K2 (its bound counts the
    band's own operations, the padded products beside them), each timed
    twin, kernel, kernel, twin with CUDA events (K2 beside one float32
@@ -735,6 +737,52 @@ def main() -> int:
                 fail(f"K2 at config #4's stage 0 takes the {rule} core, not the mma.sync core")
             report["K2mma"] = dict(err=res["mma"], ms=t_rule, plain=plain, lib=lib, bound=bnd)
         del ext, w_, wp
+
+    # K2 as the AM cell's 43:1 decimator (sdrplay2-am: 2 Msps -> 46,511.71875
+    # Hz) at the cell's shape, 64 x 1,056,768 planes in and planes out as the
+    # chain runs it before the digital AGC: the rule's core (wgmma: k 687,
+    # span 816, one 32-column tile holding 4 columns) against the twin, two
+    # launches bit for bit, timed beside the twin and one float32 matmul of
+    # the unfolded windows.  Bound: the benchmark's (planes and history in,
+    # planes out at 3.35 TB/s; the taps' 3xTF32 operations under it).
+    am = Chain(config("sdrplay2-am", 64), device=dev)
+    st_d = am.resampler.stages[0]
+    n_d, c_d = am.n_in, 64
+    xr_d, xi_d, sr_d, si_d = (0.2 * torch.randn((c_d, w), generator=gen, device=dev)
+                              for w in (n_d, n_d, st_d.hist, st_d.hist))
+    args_d = (sr_d, si_d, xr_d, xi_d, st_d.band, None, st_d.stride, st_d.hist)
+    core_d = kernels.banded_core(st_d.band)
+    got_d, again_d = kernels.banded_apply(*args_d), kernels.banded_apply(*args_d)
+    want_d = kernels.banded_apply_ref(*args_d)
+    torch.cuda.synchronize()
+    same_d = all(torch.equal(x, y) for x, y in zip(got_d, again_d))
+    s_d = min(snr_db(w.cpu().numpy(), g.cpu().numpy()) for w, g in zip(want_d, got_d))
+    err_d = max_abs(want_d, got_d)
+    del got_d, again_d, want_d
+    ext_d = torch.cat([torch.cat([sr_d, xr_d], -1), torch.cat([si_d, xi_d], -1)])
+    k2d_ms, k2d_plain, k2d_lib = time_pair(
+        lambda: kernels.banded_apply(*args_d), lambda: kernels.banded_apply_ref(*args_d),
+        run_library=lambda: torch.matmul(ext_d.unfold(-1, st_d.stride + st_d.hist,
+                                                      st_d.stride), st_d.band.a_r))
+    nb_d = n_d // st_d.stride
+    k2d_bytes = c_d * (n_d + st_d.hist) * 8 + c_d * nb_d * st_d.band.g * 8
+    k2d_bound = bound(k2d_bytes, tf32x3_ops(st_d.band, c_d, nb_d), PEAK_TF32_S)
+    geo_d = kernels.band_geometry(st_d.band, st_d.stride, core_d)
+    say(f"[k2dec] C={c_d} n={n_d} p/q {geo_d['p']}/{geo_d['q']} s={st_d.stride} "
+        f"hist={st_d.hist} G={st_d.band.g} K={st_d.band.k} on the {core_d} core: SNR planar "
+        f"{s_d:.1f} dB, max |err| {err_d:.3e}; two launches "
+        f"{'bit-identical' if same_d else 'DIFFER'}; kernel {k2d_ms:.4f} ms, twin "
+        f"{k2d_plain:.4f} ms, one matmul {k2d_lib:.4f} ms; bound {k2d_bound[0]:.4f} ms "
+        f"({k2d_bound[1]}: {k2d_bytes / 1e6:.1f} MB; the kernel issues "
+        f"{tf32x3_padded(st_d.band, c_d, nb_d, core_d) / 1e9:.2f} GFLOP of 3xTF32, "
+        f"{100 * geo_d['useful']:.1f} % of them taps) -> "
+        f"{100 * k2d_bound[0] / k2d_ms:.1f}% of bound")
+    say(f"[k2dec] {plan_line(kernels, st_d.band, st_d.stride, st_d.hist, n_d, c_d)}")
+    if core_d != "wgmma" or s_d < 100.0 or not same_d:
+        fail(f"K2 as the AM decimator: core {core_d} (wgmma), {s_d:.1f} dB from its twin "
+             f"(>= 100), two launches {'agree' if same_d else 'differ'}")
+    report["K2dec"] = dict(err=err_d, ms=k2d_ms, plain=k2d_plain, lib=k2d_lib, bound=k2d_bound)
+    del am, st_d, xr_d, xi_d, sr_d, si_d, ext_d, args_d
 
     # ------------------------------------------------------------ 4. slice
     stream = tone_wire(CH, STEPS * BLOCK, gen)
@@ -2270,6 +2318,10 @@ def main() -> int:
               "K1pro": int(shard_report["1x4 flagship"]["K1pro"] * SHARD_STEPS)}
     src["K5@32768"], rep["K5@32768"] = src["K5"], rep["K5"]
     src["K3@cu8"], rep["K3@cu8"] = src["K3"], rep["K3"]
+    # K2dec is K2's kernel at the AM decimator's band; no phase here steps
+    # the AM chain, so it has no launch count of its own
+    src["K2dec"], rep["K2dec"] = src["K2"], rep["K2"]
+    counts["K2dec"] = None
     src["IQest@skip"], rep["IQest@skip"] = src["IQest"], rep["IQest"]
     counts["IQest@skip"] = counts["IQest"]
     phases = {"flagship": (dict(launches, K3=0, K4=0, K5=0, AGC=0, IQest=0), STEPS),

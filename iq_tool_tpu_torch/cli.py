@@ -448,6 +448,20 @@ def _stage_rows(engine, noted: dict) -> dict:
     return rows
 
 
+def _band_rows(chain) -> dict:
+    """{stage: the geometry of each banded launch it makes} of the chain's
+    plan (``Chain.band_geometries``), a folded chain's at its rows;
+    nothing for a sharded chain, whose stage 0 may take a branch of its
+    own."""
+    from iq_tool_tpu_torch.ops import kernels
+    if hasattr(chain, "mesh"):
+        return {}
+    local = getattr(chain, "local", chain)
+    bands = local.band_geometries(getattr(chain, "fold", 1))
+    return {stage: "; ".join(kernels.band_line(b) for b in bs)
+            for stage, bs in bands.items()}
+
+
 def _run(engine, profile_dir, on_cuda: bool, log):
     """engine.run(), under torch.profiler when a profile directory is
     given: CPU activity on every thread (the engine's reader and writer
@@ -612,6 +626,11 @@ def main(argv=None) -> int:
                                      _span_medians(engine.serial))
                 _print_summary_table("Step Stages (host ms, kernels; a step)",
                                      _stage_rows(engine, noted))
+                bands = (_band_rows(chain) if chain is not None and chain.device.type == "cuda"
+                         else {})
+                if bands:
+                    _print_summary_table("Banded Launches (geometry; useful: the share of "
+                                         "issued products that carry taps)", bands)
         return 130 if s.interrupted else 0
     except (ValueError, OSError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)

@@ -185,6 +185,16 @@ class StreamingFilter:
             return yr, yi, nr, ni
         return self._osfft_planar(xr, xi, state_r, state_i)
 
+    def band_geometry(self, n: int, device) -> dict | None:
+        """The geometry of the banded launch over an ``n``-frame block
+        (``kernels.band_geometry``), or None where the filter launches
+        none (overlap-save, one tap)."""
+        if not self.packs:
+            return None
+        stride = largest_divisor_leq(n, C.BANDED_STRIDE_CAP)
+        band = self._band(stride, device)
+        return kernels.band_geometry(band, stride, kernels.banded_core(band))
+
     @property
     def packs(self) -> bool:
         """Whether the filter has the packed epilogue: a banded kernel (not

@@ -240,6 +240,32 @@ def banded_core(band: Band, dc: bool = False) -> str:
     return "wgmma" if dc or band.k >= WIDE_BAND else "mma"
 
 
+def band_geometry(band: Band, stride: int, core: str) -> dict:
+    """A banded launch's geometry on ``core``, a function of the plan
+    (``Chain.band_geometries``): the stage's ratio p/q and its g windows of q
+    inputs a window of ``stride`` (g = gcd(stride, columns): a resampler
+    stage's columns are g p, a filter pass's its stride, p = q = 1), the
+    band's taps k a column, the tile's span, columns and count, and
+    ``useful``, the share of the products the core issues that carry
+    taps: g p k over tiles x columns x span, both a window's."""
+    g = math.gcd(stride, band.g)
+    if core == "mma":
+        cols, tiles, span = FRAG_COLS, band.frag_tiles, band.frag_span
+    else:
+        cols, tiles, span = TILE_COLS, band.n_tiles, band.span
+    return {"core": core, "p": band.g // g, "q": stride // g, "g": g, "stride": stride,
+            "k": band.k, "span": span, "cols": cols, "tiles": tiles,
+            "useful": band.g * band.k / (tiles * cols * span)}
+
+
+def band_line(b: dict) -> str:
+    """A banded launch's geometry (``band_geometry``) on one line: the
+    CLI's summary, ``profile_steps``."""
+    return (f"{b['core']} p/q {b['p']}/{b['q']} g {b['g']} stride {b['stride']} "
+            f"k {b['k']} span {b['span']} cols {b['cols']} x{b['tiles']} "
+            f"useful {100 * b['useful']:.1f} %")
+
+
 def _band(a_r, a_i, device) -> Band:
     return a_r if isinstance(a_r, Band) else Band.build(a_r, a_i, device)
 

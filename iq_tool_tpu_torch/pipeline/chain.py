@@ -268,6 +268,30 @@ class Chain:
                                     and self.agc_cfg is not None
                                     and self.agc_cfg.profile != "digital"))
 
+    def band_geometries(self, rows: int = 1) -> dict:
+        """{stage span: [geometry]} of each banded launch a step over
+        ``rows`` row blocks makes, from the plan (``kernels.band_geometry``):
+        stage 0 over the wire (K1 on the wgmma core with the DC block, else
+        K2), each banded resampler stage and each filter that runs banded,
+        on the core ``kernels.banded_core`` picks."""
+        out: dict = {}
+        r, rs = self.route, self.resampler
+        if r.wire_stage0:
+            st = rs.stages[0]
+            core = kernels.banded_core(st.band, dc=self.cfg.dc_block)
+            out["chain.resample.0"] = [kernels.band_geometry(st.band, st.stride, core)]
+        for i in r.stages:
+            st = rs.stages[i]
+            if isinstance(st, _MatmulStage):
+                out[f"chain.resample.{i}"] = [
+                    kernels.band_geometry(st.band, st.stride, kernels.banded_core(st.band))]
+        for name, f, n in (("chain.pre_filter", self.pre_filter, self.n_in),
+                           ("chain.post_filter", self.post_filter, self.n_out)):
+            geo = f.band_geometry(n * rows, self.device) if f is not None else None
+            if geo is not None:
+                out[name] = [geo]
+        return out
+
     @property
     def _wire_resample(self) -> bool:
         """Whether stage 0 reads the wire (``route.wire_stage0``)."""

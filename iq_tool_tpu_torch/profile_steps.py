@@ -2,7 +2,8 @@
 the card.
 
     python -m iq_tool_tpu_torch.profile_steps [--configs flagship 1 2 4 5 3 4k32 4k128 4dx 4dig
-                                                         full4 baseline3 c1 c1f8 4c1 4c1f8 gather
+                                                         full4 baseline3 hackrf10 sdrplay2-am
+                                                         c1 c1f8 4c1 4c1f8 gather
                                                          flagship@1x4 4@1x4 flagship@2x2
                                                          flagship@4x1]
                                               [--forms eager graph] [--channels 128]
@@ -21,7 +22,11 @@ one stream at the CLI's default 16384-frame block, "f8" with
 --time-fold 8; "gather"
 128 x 254597 through the gather stage; "hackrf10" the benchmark's HackRF
 chain (cs8 at 10 Msps -> 744,187.5 Hz through the gather stage, the
-digital AGC; 256,172 frames a step); "<name>@<C>x<T>" the
+digital AGC; 256,172 frames a step); "sdrplay2-am" the benchmark's
+AM HD Radio chain (an SDRplay's cs16 at 2 Msps -> 46,511.71875 Hz, one
+1/43 stage on K2's wgmma core, the digital AGC; 1,056,768 frames a step,
+the cell's, with its input tone at 3 kHz, inside the stage's
+passband); "<name>@<C>x<T>" the
 ShardedChain of <name> on a C x T mesh repeating the card, each shard a
 128 / C x 262144 block): 3 warm-up steps, then 40 steps timed by the
 host clock (ending in a synchronize; a short window after an idle card
@@ -50,7 +55,9 @@ order of start, the k-th to the map's k-th node; a replay whose event
 count is not the map's is not split.  It prints ms a replay by stage
 (``chain.*``, the AGC's ``chain.agc`` apart from the rest of
 ``chain.post``, ``graph.carry``), the kernels each stage launches as
-the capture noted them (``GraphedStep.stage_kernels``), each stage's
+the capture noted them (``GraphedStep.stage_kernels``) with each
+banded launch's geometry as the plan gives it (``Chain.band_geometries``;
+not for a sharded step), each stage's
 ops, and how far the stages' sum lies from the replay's busy time.  Needs a CUDA card.
 """
 
@@ -66,6 +73,7 @@ import numpy as np
 import torch
 
 from iq_tool_tpu_torch.ops.fir_design import FilterRequest
+from iq_tool_tpu_torch.ops.kernels import band_line
 from iq_tool_tpu_torch.pipeline.chain import Chain, ChainConfig
 
 SEED = 20261016
@@ -81,8 +89,11 @@ GATHER_TONE_HZ = 3_000.0
 STREAM_BLOCK = 16384        # the CLI's default --block-size
 RTLSDR_RATE = 2_400_000.0   # the RTL-SDR's default rate ("baseline3")
 HACKRF_RATE, HACKRF_OUT = 10_000_000.0, 744_187.5   # "hackrf10": 4766/64043
+# "sdrplay2-am": an SDRplay's default 2 Msps to upstream's AM HD Radio rate
+# (1/43), at the benchmark cell's 43 x 24,576-frame block
+SDRPLAY_RATE, AM_OUT, AM_BLOCK = 2_000_000.0, 46_511.71875, 1_056_768
 CONFIGS = ("flagship", "1", "2", "4", "5", "3", "4k32", "4k128", "4dx", "4dig", "full4",
-           "baseline3", "hackrf10", "c1", "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4",
+           "baseline3", "hackrf10", "sdrplay2-am", "c1", "c1f8", "4c1", "4c1f8", "gather", "flagship@1x4",
            "4@1x4",
            "flagship@2x2", "flagship@4x1")
 # config #4's variants: --filter-fft-size, --output-agc; "full4" without
@@ -132,6 +143,10 @@ def config(name: str, channels: int = CHANNELS, block: int = BLOCK) -> ChainConf
         return ChainConfig(input_format="cs8", agc_profile="digital",
                            **{**base, "dc_block": False, "input_rate": HACKRF_RATE,
                               "target_rate": HACKRF_OUT})
+    if name == "sdrplay2-am":
+        return ChainConfig(input_format="cs16", agc_profile="digital",
+                           **{**base, "dc_block": False, "input_rate": SDRPLAY_RATE,
+                              "target_rate": AM_OUT, "target_block": AM_BLOCK})
     raise ValueError(f"unknown configuration {name!r}")
 
 
@@ -290,9 +305,12 @@ def _short(name: str) -> str:
     return name.split("(")[0].split("<")[0].replace("void ", "").strip() or name[:60]
 
 
-def print_split(label: str, sp: dict, stage_kernels: dict | None = None) -> None:
+def print_split(label: str, sp: dict, stage_kernels: dict | None = None,
+                stage_bands: dict | None = None) -> None:
     """``stage_split``'s record as lines: ms a replay by stage, the
-    kernels the capture noted for it (``stage_kernels``), its ops."""
+    kernels the capture noted for it (``stage_kernels``), its ops, and
+    under it the geometry of each banded launch it makes
+    (``stage_bands``)."""
     print(f"[{label} stages] {sp['split']} of {sp['replays']} replays split by the stage "
           f"map's {sp['nodes']} nodes (device events a replay: {sp['events']}); a replay "
           f"busy {sp['busy_ms']:.4f} ms, the stages' sum {sp['sum_ms']:.4f} ms "
@@ -301,6 +319,8 @@ def print_split(label: str, sp: dict, stage_kernels: dict | None = None) -> None
         top = ", ".join(f"{op[:48]} {v:.4f}" for op, v in list(sp["ops"][stage].items())[:6])
         noted = ", ".join(f"{sym} x{n}" for sym, n in (stage_kernels or {}).get(stage, {}).items())
         print(f"    {ms:8.4f} ms  {stage} [{noted or 'no kernel noted'}]: {top}")
+        for b in (stage_bands or {}).get(stage, []):
+            print(f"              banded: {band_line(b)}")
 
 
 def is_copy(event_name: str) -> bool:
@@ -317,11 +337,12 @@ def profile(name: str, graphed: bool = False, channels: int = CHANNELS) -> dict:
     dev = torch.device("cuda")
     chain = make_chain(name, dev, channels)
     cfg, n = chain.cfg, chain.n_in
+    bands = chain.band_geometries() if hasattr(chain, "band_geometries") else None
     # a sharded step's block is T times a chain's: its stream repeats 4
     # blocks, so the input stays as large as the unsharded chains'
     distinct = 3 + 2 * STEPS if cfg.channels * n <= CHANNELS * BLOCK else 4
     wire = tone_wire(cfg.channels, distinct * n, torch.Generator(device=dev).manual_seed(SEED),
-                     GATHER_TONE_HZ if name == "gather" else TONE_HZ)
+                     GATHER_TONE_HZ if name in ("gather", "sdrplay2-am") else TONE_HZ)
     if cfg.input_format == "cu8":
         wire = to_cu8(wire)
     elif cfg.input_format == "cs8":
@@ -382,6 +403,7 @@ def profile(name: str, graphed: bool = False, channels: int = CHANNELS) -> dict:
                 idle=1 - busy_ms / STEPS / wall_ms if busy_ms else None,
                 captured=chain.kernels if graphed else None, split=split,
                 stage_kernels=chain.stage_kernels if graphed else None,
+                stage_bands=bands if graphed else None,
                 by_name={k: v[1] / STEPS for k, v in by_name.items()},
                 kernels=sorted(((k, v[0] / STEPS, v[1] / STEPS) for k, v in by_name.items()),
                                key=lambda r: -r[1]))
@@ -438,7 +460,7 @@ def main(argv=None) -> int:
             for k, ms, n in r["kernels"][:12]:
                 print(f"    {ms:8.3f} ms {n:5.1f}x  {k[:100]}")
             if r["split"] is not None:
-                print_split(f"{name} {f}", r["split"], r["stage_kernels"])
+                print_split(f"{name} {f}", r["split"], r["stage_kernels"], r["stage_bands"])
                 bad += not r["split"]["split"]
         if len(rs) == 2 and None not in (rs["eager"]["idle"], rs["graph"]["idle"]):
             diff = graph_kernels_differ(rs["eager"], rs["graph"])

@@ -395,38 +395,51 @@ FULL4_CASE = (dict(input_format="cs16", target_rate=1_488_375.0, iq_correction=T
               150e3)
 
 
+# upstream's AM HD Radio preset (cs16-am-nrsc5) from an SDRplay's cs16 at
+# 2 Msps, the benchmark's sdrplay2-am chain: one banded stage decimating
+# 43:1 (k 687, 4 outputs a window) to 46,511.71875 Hz, the digital AGC; 16
+# blocks of 16,512 frames, so that 2,048 output frames a channel lie past
+# the AGC's left-out start
+AM_CASE = (dict(input_format="cs16", input_rate=2_000_000.0, target_rate=46_511.71875,
+                filters=(), agc_profile="digital", target_block=16512, blocks=16), 5e3)
+
+
 @pytest.mark.parametrize("out", ["cf32", "cs16"])
-@pytest.mark.parametrize("case", range(9))
+@pytest.mark.parametrize("case", range(10))
 def test_fuzz_cases_vs_jax(case, out):
-    """tests/test_chain_fuzz.py's eight CASES and FULL4_CASE (case 8), 2
-    channels x 4 carried blocks at an 8192-frame target, the same
+    """tests/test_chain_fuzz.py's eight CASES, FULL4_CASE (case 8) and
+    AM_CASE (case 9), 2 channels x 4 carried blocks at an 8192-frame
+    target (AM_CASE its own rate, block and blocks), the same
     band-limited noise through both packages.  cs16: cases 5 and 6
     byte-identical; without the DC blocker within 1 code on <= 0.1 % of
     the items; with it, or with an AGC past its start-up, >= 60 dB and 1
     code on <= 1 %.  cf32: >= 90 dB.  The pre-NCO's phase and the I/Q
     estimator's factors (to 1e-5, as tests/test_torch_general.py holds
-    them) and counter as the JAX chain's."""
+    them) and counter as the JAX chain's; an AGC's state to 1e-5 of
+    each field (float32 peaks and energies summed in another order)."""
     import scipy.signal as sig
 
     from tests.test_chain_fuzz import CASES
-    kw, center = (CASES + [FULL4_CASE])[case]
+    kw, center = (CASES + [FULL4_CASE, AM_CASE])[case]
     kw = dict(kw)
     filters = kw.pop("filters")
-    base = dict(output_format=out, input_rate=IN_RATE, channels=2, target_block=8192, **kw)
+    blocks = kw.pop("blocks", 4)
+    base = dict(dict(output_format=out, input_rate=IN_RATE, channels=2, target_block=8192),
+                **kw)
     jc = JaxChain(JaxConfig(filters=filters, **base))
     pc = Chain(ChainConfig(filters=tuple(FilterRequest(f.type, f.freq1_hz, f.freq2_hz)
                                          for f in filters), **base), device="cpu")
     rng = np.random.default_rng(1234)
-    n = jc.n_in * 4
+    n = jc.n_in * blocks
     z = rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
     lim = 0.08 * min(jc.cfg.input_rate, jc.cfg.output_rate) / jc.cfg.input_rate
     z = sig.lfilter(sig.firwin(257, lim), [1.0], z, axis=-1)
-    z = z * np.exp(2j * np.pi * center / IN_RATE * np.arange(n))
+    z = z * np.exp(2j * np.pi * center / jc.cfg.input_rate * np.arange(n))
     z = (0.4 * z / np.abs(z).max()).astype(np.complex64)
     wire = np.stack([np.asarray(ref_dsp.from_cf32(z[c], jc.cfg.input_format))
                      for c in range(2)])
-    jcarry, want = _run_jax(jc, wire, range(4))
-    pcarry, got = _run_port(pc, wire, range(4))
+    jcarry, want = _run_jax(jc, wire, range(blocks))
+    pcarry, got = _run_port(pc, wire, range(blocks))
     # an AGC starts from gain 1 and lifts the notch's start-up ramp (~1e-5
     # of full scale) until either package's float32 FFT rounding shows:
     # its first 4096 output frames are left out (as benchmark/harness/
@@ -452,3 +465,7 @@ def test_fuzz_cases_vs_jax(case, out):
         np.testing.assert_allclose(pnp["iq"][0], np.asarray(jcarry["iq"].factors),
                                    rtol=0, atol=1e-5)
         assert pnp["iq"][1] == np.asarray(jcarry["iq"].samples_since_opt)
+    if "agc" in pnp:
+        for mine, theirs in zip(pnp["agc"], jcarry["agc"]):
+            np.testing.assert_allclose(np.asarray(mine, np.float64),
+                                       np.asarray(theirs, np.float64), rtol=1e-5, atol=0)

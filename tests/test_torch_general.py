@@ -189,6 +189,19 @@ def test_profiled_hackrf10_is_the_benchmarks():
     assert c.dtype == torch.int8 and 63 <= int(c.abs().max()) <= 65
 
 
+def test_profiled_sdrplay2_am_is_the_benchmarks():
+    """profile_steps' "sdrplay2-am" is the chain of the benchmark's
+    sdrplay2-am configuration (benchmark/configs/sdrplay2-am.json), field
+    for field, at the cell's 1,056,768-frame block."""
+    import json
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmark/configs/sdrplay2-am.json"
+    fields = dict(json.loads(path.read_text())["chain"])
+    fields["filters"] = tuple(FilterRequest(*f) for f in fields["filters"])
+    want = ChainConfig(channels=64, target_block=1056768, **fields)
+    assert profile_steps.config("sdrplay2-am", 64) == want
+
+
 def test_measured_tone_wire():
     """The measured chains' input: seeded, full-scale-safe cs16, and the
     same tone as cu8 codes."""

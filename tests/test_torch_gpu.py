@@ -278,6 +278,41 @@ def test_k2_core_rule_on_card(rng, which):
     assert _packed_codes_close(kernels.banded_apply_ref(*args, pack_fmt="cs16"), got, "cs16")
 
 
+@pytest.mark.parametrize("n", [1056768, 16512 + 7], ids=["cell-block", "ragged"])
+def test_k2_decimator_band_on_the_wgmma_core(rng, n):
+    """K2 as the AM preset's 43:1 decimator (2 Msps -> 46,511.71875 Hz):
+    4 windows of 43 at stride 172, a band of 687 taps in a span of 816
+    rows, one 32-column tile holding 4 columns, on the wgmma core, which
+    the rule picks; planar against the twin, packed cs16 codes, and a
+    second launch bit for bit, at the cell's block and at a block that
+    ends inside a 32-window group."""
+    _need_card()
+    cfg = ChainConfig(input_format="cs16", output_format="cs16", input_rate=2_000_000.0,
+                      target_rate=46_511.71875, channels=1, target_block=1056768,
+                      agc_profile="digital")
+    st = Chain(cfg, device="cpu").resampler.stages[0]
+    st.bind("cuda")
+    assert (st.p, st.q, st.g, st.stride, st.hist) == (1, 43, 4, 172, 687)
+    assert (st.band.k, st.band.span, st.band.n_tiles) == (687, 816, 1)
+    assert kernels.banded_core(st.band) == "wgmma"
+    ch = 8
+    xr, xi = _planes(rng, ch, n)
+    sr, si = _planes(rng, ch, st.hist)
+    args = (sr, si, xr, xi, st.band, None, st.stride, st.hist)
+    before = _counts()
+    got = kernels.banded_apply(*args)
+    packed = kernels.banded_apply(*args, pack_fmt="cs16")
+    torch.cuda.synchronize()
+    assert _counted(before, "wgmma", 2)
+    want = kernels.banded_apply_ref(*args)
+    assert got[0].shape == (ch, (n // 172) * 4)
+    for w, g in zip(want, got):
+        assert _snr(w, g) >= 100.0
+    assert _packed_codes_close(kernels.banded_apply_ref(*args, pack_fmt="cs16"), packed,
+                               "cs16")
+    assert all(torch.equal(x, y) for x, y in zip(got, kernels.banded_apply(*args)))
+
+
 def _offset_wire(wire, off):
     """The same (C, n) packed wire, contiguous, ``off`` elements past its
     allocation's start: rows begin off 16-byte alignment."""
